@@ -1,0 +1,344 @@
+"""RWKV-v4 in plain PyTorch (counterpart of rwkv_tpu/models/rwkv4.py).
+
+This module is the port's oracle: `forward_step` and `forward_seq` are the
+plain versions that the hand-written decode kernels (ops/cuda/) are held
+against, on the CPU in the tests and on the card in chip_smoke.py.
+
+Params are dataclasses of tensors with the JAX package's field names and a
+stacked leading layer dim on every per-layer tensor. State is five tensors
+[L, ..., E] (xy, aa, bb, pp, dd), the reference's RWKVState quintet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rwkv_tpu_torch.models.config import RWKVConfig
+from rwkv_tpu_torch.ops.layernorm import layer_norm
+from rwkv_tpu_torch.ops.quant import QuantLinear, qmatmul, to_signed
+from rwkv_tpu_torch.ops.wkv import (
+    WKVChannelState,
+    wkv_parallel,
+    wkv_scan,
+    wkv_step,
+)
+
+
+@dataclasses.dataclass
+class LNParams:
+    weight: torch.Tensor  # [..., E]
+    bias: torch.Tensor    # [..., E]
+
+
+@dataclasses.dataclass
+class AttParams:
+    """Time-mix half of a block. Leading dim: L."""
+
+    mix_k: torch.Tensor      # [L, E]
+    mix_v: torch.Tensor      # [L, E]
+    mix_r: torch.Tensor      # [L, E]
+    key: QuantLinear         # [L, E, E]
+    value: QuantLinear       # [L, E, E]
+    receptance: QuantLinear  # [L, E, E]
+    output: QuantLinear      # [L, E, E]
+    decay: torch.Tensor      # [L, E] — already -exp(time_decay)
+    bonus: torch.Tensor      # [L, E] — time_first
+
+
+@dataclasses.dataclass
+class FFNParams:
+    """Channel-mix half of a block. Leading dim: L."""
+
+    mix_k: torch.Tensor      # [L, E]
+    mix_r: torch.Tensor      # [L, E]
+    key: QuantLinear         # [L, E, 4E]
+    value: QuantLinear       # [L, 4E, E]
+    receptance: QuantLinear  # [L, E, E]
+
+
+@dataclasses.dataclass
+class RWKVParams:
+    emb: torch.Tensor        # [V, E] float32
+    ln0: LNParams            # [E]
+    ln1: LNParams            # [L, E]
+    ln2: LNParams            # [L, E]
+    att: AttParams
+    ffn: FFNParams
+    ln_out: LNParams         # [E]
+    head: QuantLinear        # [E, V]
+    # [V_padded]: 0 for real tokens, -1e9 for vocab padding (pad_vocab);
+    # None for an unpadded model
+    logit_bias: Optional[torch.Tensor] = None
+
+    @property
+    def n_layer(self) -> int:
+        return self.att.decay.shape[0]
+
+    @property
+    def n_embd(self) -> int:
+        return self.emb.shape[1]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.emb.shape[0]
+
+    @property
+    def config(self) -> RWKVConfig:
+        return RWKVConfig(n_layer=self.n_layer, n_embd=self.n_embd,
+                          vocab_size=self.vocab_size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb.device
+
+
+class WKVState(NamedTuple):
+    """Recurrent state: 5 tensors [L, ..., E] (the '...' are stream dims)."""
+
+    xy: torch.Tensor  # att token-shift memory
+    aa: torch.Tensor
+    bb: torch.Tensor
+    pp: torch.Tensor
+    dd: torch.Tensor  # ffn token-shift memory
+
+
+def map_params(params: RWKVParams, fn: Callable) -> RWKVParams:
+    """Apply fn to every array leaf (None stays None)."""
+
+    def conv(obj):
+        if obj is None:
+            return None
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{
+                f.name: conv(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        return fn(obj)
+
+    return conv(params)
+
+
+def params_to(params: RWKVParams, device) -> RWKVParams:
+    """Move every leaf to `device` (numpy leaves are converted first)."""
+
+    def move(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+        return t.to(device)
+
+    return map_params(params, move)
+
+
+def init_state(config: RWKVConfig, batch_shape: Tuple[int, ...] = (),
+               device=None) -> WKVState:
+    """Empty state: zeros except pp = -1e30."""
+    shape = (config.n_layer,) + tuple(batch_shape) + (config.n_embd,)
+    z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return WKVState(xy=z(), aa=z(), bb=z(),
+                    pp=torch.full(shape, -1e30, dtype=torch.float32, device=device),
+                    dd=z())
+
+
+def _layer(params: RWKVParams, i: int):
+    """(ln1, ln2, att, ffn) of layer i (views, no copies)."""
+    pick = lambda a: a[i]  # noqa: E731
+    return (map_params(params.ln1, pick), map_params(params.ln2, pick),
+            map_params(params.att, pick), map_params(params.ffn, pick))
+
+
+def _last_valid(xx: torch.Tensor, length) -> torch.Tensor:
+    """xx at the last valid position (the carried token-shift state)."""
+    if length is None:
+        return xx[-1]
+    return xx[int(length) - 1]
+
+
+def _att_seq(x, att: AttParams, ln: LNParams, xy, chan, *, parallel, mask,
+             length):
+    xx = layer_norm(x, ln.weight, ln.bias)
+    prev = torch.cat([xy[None], xx[:-1]], dim=0)  # token shift
+    k = qmatmul(att.mix_k * xx + (1 - att.mix_k) * prev, att.key)
+    v = qmatmul(att.mix_v * xx + (1 - att.mix_v) * prev, att.value)
+    r = qmatmul(att.mix_r * xx + (1 - att.mix_r) * prev, att.receptance)
+    wkv_fn = wkv_parallel if parallel else wkv_scan
+    y, chan = wkv_fn(k, v, chan, att.decay, att.bonus, mask)
+    out = qmatmul(torch.sigmoid(r) * y, att.output)
+    return x + out, _last_valid(xx, length), chan
+
+
+def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length):
+    xx = layer_norm(x, ln.weight, ln.bias)
+    prev = torch.cat([dd[None], xx[:-1]], dim=0)
+    k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * prev
+    r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * prev
+    gate = torch.sigmoid(qmatmul(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(qmatmul(k_in, ffn.key)))
+    return x + gate * qmatmul(kk, ffn.value), _last_valid(xx, length)
+
+
+def _att_step(x, att: AttParams, ln: LNParams, xy, chan):
+    xx = layer_norm(x, ln.weight, ln.bias)
+    k = qmatmul(att.mix_k * xx + (1 - att.mix_k) * xy, att.key)
+    v = qmatmul(att.mix_v * xx + (1 - att.mix_v) * xy, att.value)
+    r = qmatmul(att.mix_r * xx + (1 - att.mix_r) * xy, att.receptance)
+    y, chan = wkv_step(k, v, chan, att.decay, att.bonus)
+    return x + qmatmul(torch.sigmoid(r) * y, att.output), xx, chan
+
+
+def _ffn_step(x, ffn: FFNParams, ln: LNParams, dd):
+    xx = layer_norm(x, ln.weight, ln.bias)
+    k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * dd
+    r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * dd
+    gate = torch.sigmoid(qmatmul(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(qmatmul(k_in, ffn.key)))
+    return x + gate * qmatmul(kk, ffn.value), xx
+
+
+def _head(params: RWKVParams, x):
+    x = layer_norm(x, params.ln_out.weight, params.ln_out.bias)
+    logits = qmatmul(x, params.head)
+    if params.logit_bias is not None:
+        logits = logits + params.logit_bias
+    return logits
+
+
+def forward_seq(params: RWKVParams, tokens: torch.Tensor, state: WKVState, *,
+                parallel: bool = False, return_all_logits: bool = False,
+                length: int | None = None) -> Tuple[torch.Tensor, WKVState]:
+    """Run a token sequence (GPT mode). tokens: [T] or [T, B].
+
+    length: optional scalar count of valid leading tokens; later positions
+    are padding whose state updates are no-ops (bucketed prefill).
+    Returns (logits for the last valid position, or [T, ..., V] with
+    return_all_logits; new state). The input state is not modified."""
+    x = layer_norm(params.emb[tokens].float(), params.ln0.weight, params.ln0.bias)
+    T = x.shape[0]
+    mask = None
+    if length is not None:
+        if torch.is_tensor(length) and length.dim() > 0:
+            raise ValueError("forward_seq takes a scalar length")
+        mask = torch.arange(T, device=x.device) < int(length)
+
+    new = {f: [] for f in WKVState._fields}
+    for i in range(params.n_layer):
+        ln1, ln2, att, ffn = _layer(params, i)
+        x, xy, chan = _att_seq(
+            x, att, ln1, state.xy[i],
+            WKVChannelState(state.aa[i], state.bb[i], state.pp[i]),
+            parallel=parallel, mask=mask, length=length)
+        x, dd = _ffn_seq(x, ffn, ln2, state.dd[i], length=length)
+        for f, val in zip(WKVState._fields, (xy, chan.aa, chan.bb, chan.pp, dd)):
+            new[f].append(val)
+    new_state = WKVState(*(torch.stack(new[f]) for f in WKVState._fields))
+    logits = _head(params, x if return_all_logits else _last_valid(x, length))
+    return logits, new_state
+
+
+def forward_step(params: RWKVParams, token: torch.Tensor, state: WKVState
+                 ) -> Tuple[torch.Tensor, WKVState]:
+    """One decode step. token: scalar (state [L, E]) or [B] (state [L, B, E]).
+    Returns (logits [..., V], new state); the input state is not modified."""
+    x = layer_norm(params.emb[token].float(), params.ln0.weight, params.ln0.bias)
+    new = {f: [] for f in WKVState._fields}
+    for i in range(params.n_layer):
+        ln1, ln2, att, ffn = _layer(params, i)
+        x, xy, chan = _att_step(
+            x, att, ln1, state.xy[i],
+            WKVChannelState(state.aa[i], state.bb[i], state.pp[i]))
+        x, dd = _ffn_step(x, ffn, ln2, state.dd[i])
+        for f, val in zip(WKVState._fields, (xy, chan.aa, chan.bb, chan.pp, dd)):
+            new[f].append(val)
+    return _head(params, x), WKVState(*(torch.stack(new[f]) for f in WKVState._fields))
+
+
+def signedize_params(params: RWKVParams) -> RWKVParams:
+    """Re-center every QuantLinear to int8 (ops.quant.to_signed), as the
+    kernels need. Numerically identical: (W-128)*r + (o+128r) == W*r + o."""
+    att = dataclasses.replace(params.att, **{
+        n: to_signed(getattr(params.att, n))
+        for n in ("key", "value", "receptance", "output")})
+    ffn = dataclasses.replace(params.ffn, **{
+        n: to_signed(getattr(params.ffn, n))
+        for n in ("key", "value", "receptance")})
+    return dataclasses.replace(params, att=att, ffn=ffn,
+                               head=to_signed(params.head))
+
+
+def pad_vocab(params: RWKVParams, multiple: int = 128) -> RWKVParams:
+    """Pad emb rows / head columns up to `multiple`; padded logits get a
+    -1e9 `logit_bias` so they are never sampled."""
+    V = params.emb.shape[0]
+    Vp = ((V + multiple - 1) // multiple) * multiple
+    if Vp == V and params.logit_bias is not None:
+        return params
+    pad = Vp - V
+    emb = torch.nn.functional.pad(params.emb, (0, 0, 0, pad))
+    head = QuantLinear(w=torch.nn.functional.pad(params.head.w, (0, pad)),
+                       scale=params.head.scale, offset=params.head.offset)
+    dev = params.emb.device
+    if params.logit_bias is not None:
+        # re-padding a padded model: keep the old pad ids banned
+        bias = torch.cat([params.logit_bias,
+                          torch.full((pad,), -1e9, dtype=torch.float32, device=dev)])
+    else:
+        bias = torch.where(torch.arange(Vp, device=dev) < V,
+                           torch.tensor(0.0, device=dev),
+                           torch.tensor(-1e9, device=dev))
+    return dataclasses.replace(params, emb=emb, head=head, logit_bias=bias)
+
+
+def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
+                               pad_multiple: int | None = 512) -> RWKVParams:
+    """Random u8-quantized params built on the host in numpy (leaves are
+    numpy arrays; `params_to` puts them on a device). The same recipe as
+    the JAX package's random_quantized_params_np: u8 codes with scales
+    sized like a quantized N(0, 1/sqrt(in)) matrix."""
+    rng = np.random.default_rng(seed)
+    E, L, V, F = cfg.n_embd, cfg.n_layer, cfg.vocab_size, cfg.n_ffn
+    Vp = V
+    if pad_multiple:
+        Vp = ((V + pad_multiple - 1) // pad_multiple) * pad_multiple
+
+    def qrand(shape):
+        span = 8.0 * shape[-2] ** -0.5  # ~±4 sigma
+        return QuantLinear(
+            w=rng.integers(0, 256, size=shape, dtype=np.uint8),
+            scale=np.full(shape[:-1], span / 255.0, np.float32),
+            offset=np.full(shape[:-1], -span / 2.0, np.float32))
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    def mix(shape):
+        return f32(rng.uniform(0.1, 0.9, size=shape))
+
+    emb = np.zeros((Vp, E), np.float32)
+    emb[:V] = rng.normal(0, 0.1, size=(V, E)).astype(np.float32)
+    logit_bias = None
+    if Vp != V:
+        logit_bias = np.zeros((Vp,), np.float32)
+        logit_bias[V:] = -1e9
+    ones, zeros = (lambda *s: np.ones(s, np.float32)), (lambda *s: np.zeros(s, np.float32))
+    return RWKVParams(
+        emb=emb,
+        ln0=LNParams(ones(E), zeros(E)),
+        ln1=LNParams(ones(L, E), zeros(L, E)),
+        ln2=LNParams(ones(L, E), zeros(L, E)),
+        att=AttParams(
+            mix_k=mix((L, E)), mix_v=mix((L, E)), mix_r=mix((L, E)),
+            key=qrand((L, E, E)), value=qrand((L, E, E)),
+            receptance=qrand((L, E, E)), output=qrand((L, E, E)),
+            decay=f32(-np.exp(rng.normal(size=(L, E)))),
+            bonus=f32(rng.normal(size=(L, E)) * 0.5),
+        ),
+        ffn=FFNParams(
+            mix_k=mix((L, E)), mix_r=mix((L, E)),
+            key=qrand((L, E, F)), value=qrand((L, F, E)),
+            receptance=qrand((L, E, E)),
+        ),
+        ln_out=LNParams(ones(E), zeros(E)),
+        head=qrand((E, Vp)),
+        logit_bias=logit_bias,
+    )
