@@ -1,12 +1,13 @@
-// One RWKV-v4 q8 decode step over all L layers (kernel K1).
+// One RWKV-v4 decode step over all L layers: q8 (kernel K1) or q4 (kernel K4).
 //
-// Replaces rwkv_tpu/ops/pallas/decode_stack.py:_decode_stack_kernel (q8
-// branch), reached through decode_stack() and forward_step_fused().
+// Replaces rwkv_tpu/ops/pallas/decode_stack.py:_decode_stack_kernel, its q8
+// branch and its q4 branch (_dot4/_fold4), reached through decode_stack() and
+// forward_step_fused().
 //
-// Bound on the card: the int8 weight bytes, L * 13 * E^2 (327 MB at 430M),
-// read once per step, over device memory bandwidth (~3.35 TB/s on an H100
-// SXM: ~0.1 ms per step). State, activations and scale/offset vectors add
-// under 1%.
+// Bound on the card: the weight bytes, L * 13 * E^2 in q8 (327 MB at 430M)
+// and half that in q4 (164 MB), read once per step, over device memory
+// bandwidth (~3.35 TB/s on an H100 SXM: ~0.1 and ~0.05 ms per step). State,
+// activations and scale/offset vectors add under 1% (2% in q4).
 //
 // The TPU kernel is one launch whose sequential grid carries the activation
 // vector and the offset sums from step to step in VMEM. CUDA blocks run in no
@@ -30,6 +31,10 @@
 // the k/v/r and key epilogues leave one partial per column tile for the
 // out-projection and the value projection, summed in a fixed order by their
 // consumer (never atomically added), so every run gives the same bits.
+//
+// In q4 the launches are the same; every matvec reads nibble-packed weights
+// [L, K / 2, O] (qmv.cuh's Q4 instantiation). att.output and ffn.value pair
+// rows within their `block` (halves[] below), the others globally.
 //
 // The new state is written to separate output tensors: the input state is
 // never modified, as in the JAX function.
@@ -165,16 +170,24 @@ extern "C" const char* rwkv_error_string(int err) {
 extern "C" int rwkv_decode_stack_pointer_count() { return P_COUNT; }
 
 // Enqueues one decode step on `stream`; returns the first CUDA error (0 if
-// none) and the number of kernels launched in *n_launched.
+// none) and the number of kernels launched in *n_launched. q4: the weight
+// pointers are nibble-packed [L, K / 2, O], and halves[7] gives half the
+// pairing block of att key, value, receptance, output, ffn key, value,
+// receptance, in rows (K / 2 for global pairing).
 extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E, int F,
-                                 int n_emb, long long partial_cap, int counter_cap,
-                                 int target_blocks, void* stream, int* n_launched) {
+                                 int n_emb, int q4, const int* halves, long long partial_cap,
+                                 int counter_cap, int target_blocks, void* stream,
+                                 int* n_launched) {
   *n_launched = 0;
   if (n_ptrs != P_COUNT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [&](int i) { return static_cast<float*>(p[i]); };
   auto i8 = [&](int i) { return static_cast<const int8_t*>(p[i]); };
-  const size_t EE = (size_t)E * E, EF = (size_t)E * F, BE = (size_t)B * E;
+  // per-layer weight strides in bytes: q4 packs two codes a byte
+  const size_t EE = (size_t)E * E / (q4 ? 2 : 1), EF = (size_t)E * F / (q4 ? 2 : 1);
+  const size_t BE = (size_t)B * E;
+  static const int kGlobal[7] = {0, 0, 0, 0, 0, 0, 0};
+  const int* hv = q4 ? halves : kGlobal;
   const size_t row_smem = (size_t)E * sizeof(float);
   const int row_threads = E < kRowThreads ? (E + 31) / 32 * 32 : kRowThreads;
   if (row_smem > 48 * 1024) {
@@ -194,7 +207,7 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     return (int)e;
   };
   auto mat = [](const float* x, const float* s, const float* off, int n_off, const int8_t* w,
-                int K) {
+                int K, int half) {
     Mat m;
     m.x = x;
     m.scale = s;
@@ -202,7 +215,12 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     m.n_off = n_off;
     m.w = w;
     m.K = K;
+    m.half = half;
     return m;
+  };
+  auto launch = [&](const QmvArgs& q) {
+    return q4 ? launch_qmv<true>(q, partial_cap, counter_cap, target_blocks, st)
+              : launch_qmv<false>(q, partial_cap, counter_cap, target_blocks, st);
   };
   auto qmv = [&](int nmat, int O, int epi, float* out) {
     QmvArgs q = {};
@@ -248,9 +266,10 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     if ((err = done(cudaGetLastError()))) return err;
 
     QmvArgs q = qmv(3, E, EPI_WKV, f(P_RWKV));
-    q.m[0] = mat(f(P_XK), f(P_ATT_K_S) + lE, offs, 1, i8(P_ATT_K_W) + l * EE, E);
-    q.m[1] = mat(f(P_XV), f(P_ATT_V_S) + lE, offs + B, 1, i8(P_ATT_V_W) + l * EE, E);
-    q.m[2] = mat(f(P_XR), f(P_ATT_R_S) + lE, offs + 2 * B, 1, i8(P_ATT_R_W) + l * EE, E);
+    q.m[0] = mat(f(P_XK), f(P_ATT_K_S) + lE, offs, 1, i8(P_ATT_K_W) + l * EE, E, hv[0]);
+    q.m[1] = mat(f(P_XV), f(P_ATT_V_S) + lE, offs + B, 1, i8(P_ATT_V_W) + l * EE, E, hv[1]);
+    q.m[2] = mat(f(P_XR), f(P_ATT_R_S) + lE, offs + 2 * B, 1, i8(P_ATT_R_W) + l * EE, E,
+                 hv[2]);
     q.aa_in = f(P_AA_IN) + lBE;
     q.bb_in = f(P_BB_IN) + lBE;
     q.pp_in = f(P_PP_IN) + lBE;
@@ -261,11 +280,12 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     q.bonus = f(P_BONUS) + lE;
     q.next_offset = f(P_ATT_O_O) + lE;
     q.next_off = off_out;
-    if ((err = done(launch_qmv(q, partial_cap, counter_cap, target_blocks, st)))) return err;
+    if ((err = done(launch(q)))) return err;
 
     QmvArgs o = qmv(1, E, EPI_ADD, f(P_X));
-    o.m[0] = mat(f(P_RWKV), f(P_ATT_O_S) + lE, off_out, tiles_e, i8(P_ATT_O_W) + l * EE, E);
-    if ((err = done(launch_qmv(o, partial_cap, counter_cap, target_blocks, st)))) return err;
+    o.m[0] = mat(f(P_RWKV), f(P_ATT_O_S) + lE, off_out, tiles_e, i8(P_ATT_O_W) + l * EE, E,
+                 hv[3]);
+    if ((err = done(launch(o)))) return err;
 
     RowArgs rf = {};
     rf.mode = ROW_FFN;
@@ -290,16 +310,18 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     if ((err = done(cudaGetLastError()))) return err;
 
     QmvArgs k = qmv(1, F, EPI_RELU2, f(P_KK));
-    k.m[0] = mat(f(P_FK), f(P_FFN_K_S) + lE, offs + 3 * B, 1, i8(P_FFN_K_W) + l * EF, E);
+    k.m[0] = mat(f(P_FK), f(P_FFN_K_S) + lE, offs + 3 * B, 1, i8(P_FFN_K_W) + l * EF, E,
+                 hv[4]);
     k.next_offset = f(P_FFN_V_O) + lF;
     k.next_off = off_val;
-    if ((err = done(launch_qmv(k, partial_cap, counter_cap, target_blocks, st)))) return err;
+    if ((err = done(launch(k)))) return err;
 
     QmvArgs v = qmv(2, E, EPI_GATED_ADD, f(P_X));
     v.m[0] = mat(f(P_KK), f(P_FFN_V_S) + lF, off_val, (F + kTileO - 1) / kTileO,
-                 i8(P_FFN_V_W) + l * EF, F);
-    v.m[1] = mat(f(P_FR), f(P_FFN_R_S) + lE, offs + 4 * B, 1, i8(P_FFN_R_W) + l * EE, E);
-    if ((err = done(launch_qmv(v, partial_cap, counter_cap, target_blocks, st)))) return err;
+                 i8(P_FFN_V_W) + l * EF, F, hv[5]);
+    v.m[1] = mat(f(P_FR), f(P_FFN_R_S) + lE, offs + 4 * B, 1, i8(P_FFN_R_W) + l * EE, E,
+                 hv[6]);
+    if ((err = done(launch(v)))) return err;
   }
 
   RowArgs rh = {};

@@ -1,10 +1,15 @@
-// Int8-weight matvec tile shared by the mm8 and decode_stack kernels.
+// Quantized-weight matvec tile shared by the mm8, mm4 and decode_stack kernels.
 //
 // Computes, for up to three matrices that share an output width O,
 //
 //     acc_m[b, c] = sum_k (x_m[b, k] * scale_m[k]) * W_m[k, c]  +  off_m[b]
 //
-// with W_m int8 row-major [K_m, O] (ops/quant.py's to_signed layout) and then
+// with W_m int8 row-major [K_m, O] (ops/quant.py's to_signed layout), or, in
+// the 4-bit instantiation (Q4), nibble-packed [K_m / 2, O] (ops/quant.py's
+// Quant4Linear): byte [j, c] holds the code of row lo(j) in its low nibble,
+// unsigned, and that of row lo(j) + h in its high nibble, two's complement
+// minus 8, where h is half the matrix's pairing block and
+// lo(j) = (j / h) * 2h + j % h. Both halves widen to q - 8 in registers. Then it
 // runs one fused epilogue per output column (store, residual add, relu^2,
 // gated residual, or the WKV recurrence). off_m[b] is the rank-1 offset term
 // sum_k x_m[b, k] * offset_m[k]; the kernel that produced x_m computed it
@@ -14,7 +19,10 @@
 // Decode is bound by the bytes of W: every weight byte is read once, with
 // 16-byte loads in which neighbouring threads read neighbouring columns, and
 // widened to float in registers (a byte-permute into the mantissa of 2^23,
-// then one subtract: exact, and cheaper than a conversion instruction).
+// then one subtract: exact, and cheaper than a conversion instruction). In
+// Q4 one such load is 16 columns of two contraction rows; the split of the
+// contraction below runs over packed rows, and each packed row stages the
+// activations of its two rows, so a split may start anywhere in a block.
 //
 // Layout of a block (256 threads): 8 column threads x 16 columns = a tile of
 // 128 output columns; 32 row slices walk the contraction dim, each thread
@@ -61,9 +69,23 @@ struct Mat {
   const float* scale;    // [K], or null: x is already scaled
   const float* off;      // [n_off, B] partials of the rank-1 term, or null
   int n_off;
-  const int8_t* w;       // [K, O] int8, row-major
+  const int8_t* w;       // [K, O] int8 row-major; Q4: [K / 2, O] packed
   int K;
+  int half;              // Q4: half the pairing block, in rows (K / 2: global)
 };
+
+// Weight rows of a matrix: K, or K / 2 packed rows in Q4.
+template <bool Q4>
+__device__ __host__ __forceinline__ int mat_rows(const Mat& m) { return Q4 ? m.K / 2 : m.K; }
+
+// The contraction row that packed row j's low (hi = 0) or high (hi = 1)
+// nibble holds; in q8 row j itself.
+template <bool Q4>
+__device__ __forceinline__ int src_row(const Mat& m, int j, int hi) {
+  if constexpr (!Q4) return j;
+  const int blk = j / m.half;
+  return blk * 2 * m.half + (j - blk * m.half) + hi * m.half;
+}
 
 struct QmvArgs {
   Mat m[kMaxMats];
@@ -131,9 +153,35 @@ __device__ __forceinline__ void widen16(const int4& v, float (&f)[16]) {
   }
 }
 
-template <int BT>
+// 16 nibble-packed bytes -> 16 + 16 floats, exactly: lo = (p & 0xF) - 8, and
+// hi = p >> 4 (arithmetic), the high nibble's signed value. The unsigned high
+// nibble u is that value's two's complement, so (u ^ 8) - 8 gives it back;
+// both then widen as in widen16 with 2^23 + 8 subtracted.
+__device__ __forceinline__ void widen16_q4(const int4& v, float (&lo)[16], float (&hi)[16]) {
+  const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const unsigned l = w[q] & 0x0F0F0F0Fu;
+    const unsigned h = ((w[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo[q * 4 + j] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540u + j)) - 8388616.f;
+      hi[q * 4 + j] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540u + j)) - 8388616.f;
+    }
+  }
+}
+
+// Staged activations a thread block holds: kMaxMats matrices of one 128-row
+// group (twice that in Q4: each packed row stages two rows), or one chunk.
+template <int BT, bool Q4>
+constexpr int xs_floats() {
+  constexpr int group = kMaxMats * (Q4 ? 2 : 1) * kGroupRows;
+  return BT * (group > kChunkK ? group : kChunkK);
+}
+
+template <int BT, bool Q4>
 struct QmvSmem {
-  float xs[BT * kChunkK];              // staged, scaled activations
+  float xs[xs_floats<BT, Q4>()];       // staged, scaled activations
   float red[kWarps][BT][kTileO];       // per-warp partial sums
   float res[kMaxMats][BT][kTileO];     // the tile's sums, before the epilogue
   float offs[kMaxMats][BT];
@@ -141,26 +189,39 @@ struct QmvSmem {
   int last;
 };
 
-// acc[bi][j] += xs[bi * bstride] * W[row, col + j]
-template <int BT>
+// acc[bi][j] += xs[bi * bstride] * W[row, col + j]; in Q4 also
+// + xs[bi * bstride + hoff] * (the high nibbles' row)
+template <int BT, bool Q4>
 __device__ __forceinline__ void accumulate(float (&acc)[BT][kColsPerThread], const int4& wv,
-                                           const float* xs, int bstride) {
-  float wf[kColsPerThread];
-  widen16(wv, wf);
+                                           const float* xs, int bstride, int hoff) {
+  if constexpr (Q4) {
+    float lo[kColsPerThread], hi[kColsPerThread];
+    widen16_q4(wv, lo, hi);
 #pragma unroll
-  for (int bi = 0; bi < BT; ++bi) {
-    const float xv = xs[bi * bstride];
+    for (int bi = 0; bi < BT; ++bi) {
+      const float xl = xs[bi * bstride], xh = xs[bi * bstride + hoff];
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = fmaf(xv, wf[j], acc[bi][j]);
+      for (int j = 0; j < kColsPerThread; ++j)
+        acc[bi][j] = fmaf(xh, hi[j], fmaf(xl, lo[j], acc[bi][j]));
+    }
+  } else {
+    float wf[kColsPerThread];
+    widen16(wv, wf);
+#pragma unroll
+    for (int bi = 0; bi < BT; ++bi) {
+      const float xv = xs[bi * bstride];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = fmaf(xv, wf[j], acc[bi][j]);
+    }
   }
 }
 
 // Sum acc over the block's 32 row slices: the 4 slices of a warp by shuffles
 // (lane = slice * 8 + column thread), then the 8 warps through shared
 // memory. Writes dst[bi * stride + c] for the tile's columns c < O - col0.
-template <int BT>
+template <int BT, bool Q4>
 __device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int col0,
-                            QmvSmem<BT>& sm, float* dst, int stride) {
+                            QmvSmem<BT, Q4>& sm, float* dst, int stride) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, ct = tid % kColThreads;
 #pragma unroll
   for (int bi = 0; bi < BT; ++bi)
@@ -196,12 +257,14 @@ __device__ __forceinline__ void split_range(int K, int s, int S, int& k0, int& k
 }
 
 // Rows [b0, b0 + nb) of every matrix over this block's share of the
-// contraction, where that share is at most kGroupRows rows: all weight
-// loads first, then the activations, one barrier, the FMAs. Matrix m's sums
-// go to dst[m * mstride + bi * stride + c].
-template <int BT>
+// contraction, where that share is at most kGroupRows weight rows: all
+// weight loads first, then the activations, one barrier, the FMAs. Matrix
+// m's sums go to dst[m * mstride + bi * stride + c].
+template <int BT, bool Q4>
 __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s, int S,
-                              QmvSmem<BT>& sm, float* dst, size_t mstride, int stride) {
+                              QmvSmem<BT, Q4>& sm, float* dst, size_t mstride, int stride) {
+  constexpr int R = Q4 ? 2 : 1;           // staged rows per weight row
+  constexpr int G = R * kGroupRows;       // staged floats per matrix and batch row
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
   const int col = col0 + ct * kColsPerThread;
   const bool col_ok = col < a.O;  // O % 16 == 0: a column group is all in or all out
@@ -212,7 +275,7 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
     for (int u = 0; u < kUnroll; ++u) wv[m][u] = make_int4(0, 0, 0, 0);
     if (m < a.nmat && col_ok) {
       int k0, k1;
-      split_range(a.m[m].K, s, S, k0, k1);
+      split_range(mat_rows<Q4>(a.m[m]), s, S, k0, k1);
       const int8_t* wb = a.m[m].w + (size_t)k0 * a.O + col;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -224,16 +287,18 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
   for (int m = 0; m < a.nmat; ++m) {
     const Mat& mt = a.m[m];
     int k0, k1;
-    split_range(mt.K, s, S, k0, k1);
+    split_range(mat_rows<Q4>(mt), s, S, k0, k1);
     const int rows = k1 - k0;
-    for (int i = tid; i < BT * kGroupRows; i += kThreads) {
-      const int bi = i / kGroupRows, r = i - bi * kGroupRows;
+    for (int i = tid; i < BT * G; i += kThreads) {
+      const int bi = i / G, rr = i - bi * G;
+      const int hi = rr / kGroupRows, r = rr - hi * kGroupRows;
       float v = 0.f;
       if (bi < nb && r < rows) {
-        v = mt.x[(size_t)(b0 + bi) * mt.K + k0 + r];
-        if (mt.scale) v *= mt.scale[k0 + r];
+        const int k = src_row<Q4>(mt, k0 + r, hi);
+        v = mt.x[(size_t)(b0 + bi) * mt.K + k];
+        if (mt.scale) v *= mt.scale[k];
       }
-      sm.xs[(m * BT + bi) * kGroupRows + r] = v;
+      sm.xs[(m * BT + bi) * G + rr] = v;
     }
   }
   __syncthreads();
@@ -247,17 +312,19 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
       for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = 0.f;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      accumulate<BT>(acc, wv[m][u], &sm.xs[m * BT * kGroupRows + ks + u * kKSlices], kGroupRows);
-    reduce_tile<BT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
+      accumulate<BT, Q4>(acc, wv[m][u], &sm.xs[m * BT * G + ks + u * kKSlices], G, kGroupRows);
+    reduce_tile<BT, Q4>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
   }
 }
 
-// One matrix over rows [k0, k1) of any length: activations staged in chunks
-// of kChunkK rows, and the loads of the next 128-row group issued before the
-// FMAs of the current one.
-template <int BT>
+// One matrix over weight rows [k0, k1) of any length: activations staged in
+// chunks of kChunkK floats per batch row (CR weight rows), and the loads of
+// the next 128-row group issued before the FMAs of the current one.
+template <int BT, bool Q4>
 __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int k0, int k1,
-                             QmvSmem<BT>& sm, float* dst, int stride) {
+                             QmvSmem<BT, Q4>& sm, float* dst, int stride) {
+  constexpr int R = Q4 ? 2 : 1;
+  constexpr int CR = kChunkK / R;
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
   const int col = col0 + ct * kColsPerThread;
   const bool col_ok = col < O;
@@ -267,8 +334,8 @@ __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = 0.f;
 
-  for (int kc = k0; kc < k1; kc += kChunkK) {
-    const int kn = min(kChunkK, k1 - kc);
+  for (int kc = k0; kc < k1; kc += CR) {
+    const int kn = min(CR, k1 - kc);
     const int8_t* wb = mt.w + (size_t)kc * O + col;
     int4 wv[kUnroll];
 #pragma unroll
@@ -278,14 +345,16 @@ __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int
                                : make_int4(0, 0, 0, 0);
     }
     __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < BT * kn; i += kThreads) {
-      const int bi = i / kn, k = i - bi * kn;
+    for (int i = tid; i < BT * R * kn; i += kThreads) {
+      const int bi = i / (R * kn), rr = i - bi * R * kn;
+      const int hi = rr / kn, k = rr - hi * kn;
       float v = 0.f;
       if (bi < nb) {
-        v = mt.x[(size_t)(b0 + bi) * mt.K + kc + k];
-        if (mt.scale) v *= mt.scale[kc + k];
+        const int row = src_row<Q4>(mt, kc + k, hi);
+        v = mt.x[(size_t)(b0 + bi) * mt.K + row];
+        if (mt.scale) v *= mt.scale[row];
       }
-      sm.xs[bi * kChunkK + k] = v;
+      sm.xs[bi * kChunkK + hi * CR + k] = v;
     }
     __syncthreads();
     for (int g = 0; g < kn; g += kGroupRows) {
@@ -299,36 +368,36 @@ __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int r = g + ks + u * kKSlices;
-        if (r < kn) accumulate<BT>(acc, wv[u], &sm.xs[r], kChunkK);
+        if (r < kn) accumulate<BT, Q4>(acc, wv[u], &sm.xs[r], kChunkK, CR);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) wv[u] = nx[u];
     }
   }
-  reduce_tile<BT>(acc, nb, O, col0, sm, dst, stride);
+  reduce_tile<BT, Q4>(acc, nb, O, col0, sm, dst, stride);
 }
 
-template <int BT>
+template <int BT, bool Q4>
 __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
-  __shared__ QmvSmem<BT> sm;
+  __shared__ QmvSmem<BT, Q4> sm;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, col0 = tile * kTileO;
   const int S = gridDim.y, s = blockIdx.y;
   const int nbg = (a.B + BT - 1) / BT;
   int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m) kmax = max(kmax, a.m[m].K);
+  for (int m = 0; m < a.nmat; ++m) kmax = max(kmax, mat_rows<Q4>(a.m[m]));
   const bool short_path = (kmax + S - 1) / S <= kGroupRows;
   const size_t sstride = (size_t)a.nmat * a.B * a.O;  // one split's partials
 
   // This block's partial sums for batch rows [b0, b0 + nb) into dst.
   auto partials = [&](int b0, int nb, float* dst, size_t mstride, int stride) {
     if (short_path) {
-      partial_short<BT>(a, col0, b0, nb, s, S, sm, dst, mstride, stride);
+      partial_short<BT, Q4>(a, col0, b0, nb, s, S, sm, dst, mstride, stride);
     } else {
       for (int m = 0; m < a.nmat; ++m) {
         int k0, k1;
-        split_range(a.m[m].K, s, S, k0, k1);
-        partial_long<BT>(a.m[m], a.O, col0, b0, nb, k0, k1, sm, dst + m * mstride, stride);
+        split_range(mat_rows<Q4>(a.m[m]), s, S, k0, k1);
+        partial_long<BT, Q4>(a.m[m], a.O, col0, b0, nb, k0, k1, sm, dst + m * mstride, stride);
       }
     }
   };
@@ -457,19 +526,21 @@ inline int qmv_split(int tiles, int kmax, int nmat, int B, int O, long long part
   return S < 1 ? 1 : S;
 }
 
+// Q4: every matrix of `a` is nibble-packed (Mat::w [K / 2, O], Mat::half set).
+template <bool Q4>
 inline cudaError_t launch_qmv(const QmvArgs& a, long long partial_cap, int counter_cap,
                               int target_blocks, cudaStream_t st) {
   const int tiles = (a.O + kTileO - 1) / kTileO;
   int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m) kmax = a.m[m].K > kmax ? a.m[m].K : kmax;
+  for (int m = 0; m < a.nmat; ++m) kmax = mat_rows<Q4>(a.m[m]) > kmax ? mat_rows<Q4>(a.m[m]) : kmax;
   const int S = qmv_split(tiles, kmax, a.nmat, a.B, a.O, partial_cap, counter_cap, target_blocks);
   const dim3 grid(tiles, S);
   if (a.B <= 1)
-    qmv_kernel<1><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<1, Q4><<<grid, kThreads, 0, st>>>(a);
   else if (a.B <= 2)
-    qmv_kernel<2><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<2, Q4><<<grid, kThreads, 0, st>>>(a);
   else
-    qmv_kernel<4><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<4, Q4><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,10 @@
 `params_from_numpy` takes the tree that `dataclasses.asdict(params)` gives
 for the JAX package's RWKVParams once every leaf is a numpy array (the same
 field names: emb, ln0/ln1/ln2/ln_out {weight, bias}, att/ffn families,
-QuantLinear {w, scale, offset}, head, logit_bias) and returns the port's
-RWKVParams on `device`, with u8 families re-centered to int8.
+head, logit_bias) and returns the port's RWKVParams on `device`. A family
+is a QuantLinear {w, scale, offset} (u8 codes come out re-centered to
+int8), a Quant4Linear {wp, scale, offset, block}, or a dense [in, out]
+array.
 """
 
 from __future__ import annotations
@@ -19,15 +21,19 @@ from rwkv_tpu_torch.models.rwkv4 import (
     params_to,
     signedize_params,
 )
-from rwkv_tpu_torch.ops.quant import QuantLinear
+from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 
 
-def _lin(d) -> QuantLinear:
-    if not isinstance(d, dict) or set(d) != {"w", "scale", "offset"}:
-        raise TypeError("params_from_numpy needs quantized families "
-                        "({'w', 'scale', 'offset'} dicts)")
-    return QuantLinear(w=np.asarray(d["w"]), scale=np.asarray(d["scale"], np.float32),
-                       offset=np.asarray(d["offset"], np.float32))
+def _lin(d):
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    if not isinstance(d, dict):
+        return f32(d)
+    if set(d) == {"w", "scale", "offset"}:
+        return QuantLinear(w=np.asarray(d["w"]), scale=f32(d["scale"]), offset=f32(d["offset"]))
+    if set(d) == {"wp", "scale", "offset", "block"}:
+        return Quant4Linear(wp=np.asarray(d["wp"]), scale=f32(d["scale"]),
+                            offset=f32(d["offset"]), block=d["block"])
+    raise TypeError(f"params_from_numpy: unknown matrix family with fields {sorted(d)}")
 
 
 def params_from_numpy(tree: dict, device) -> RWKVParams:

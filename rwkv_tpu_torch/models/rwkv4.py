@@ -19,13 +19,31 @@ import torch
 
 from rwkv_tpu_torch.models.config import RWKVConfig
 from rwkv_tpu_torch.ops.layernorm import layer_norm
-from rwkv_tpu_torch.ops.quant import QuantLinear, qmatmul, to_signed
+from rwkv_tpu_torch.ops.quant import (
+    Quant4Linear,
+    QuantLinear,
+    q4matmul,
+    qmatmul,
+    quantize,
+    quantize4,
+    to_signed,
+)
 from rwkv_tpu_torch.ops.wkv import (
     WKVChannelState,
     wkv_parallel,
     wkv_scan,
     wkv_step,
 )
+
+Linear = QuantLinear | Quant4Linear | torch.Tensor  # dense: plain [in, out]
+
+
+def _matmul(x: torch.Tensor, w: Linear) -> torch.Tensor:
+    if isinstance(w, Quant4Linear):
+        return q4matmul(x, w)
+    if isinstance(w, QuantLinear):
+        return qmatmul(x, w)
+    return x @ w
 
 
 @dataclasses.dataclass
@@ -41,10 +59,10 @@ class AttParams:
     mix_k: torch.Tensor      # [L, E]
     mix_v: torch.Tensor      # [L, E]
     mix_r: torch.Tensor      # [L, E]
-    key: QuantLinear         # [L, E, E]
-    value: QuantLinear       # [L, E, E]
-    receptance: QuantLinear  # [L, E, E]
-    output: QuantLinear      # [L, E, E]
+    key: Linear              # [L, E, E]
+    value: Linear            # [L, E, E]
+    receptance: Linear       # [L, E, E]
+    output: Linear           # [L, E, E]
     decay: torch.Tensor      # [L, E] — already -exp(time_decay)
     bonus: torch.Tensor      # [L, E] — time_first
 
@@ -55,9 +73,9 @@ class FFNParams:
 
     mix_k: torch.Tensor      # [L, E]
     mix_r: torch.Tensor      # [L, E]
-    key: QuantLinear         # [L, E, 4E]
-    value: QuantLinear       # [L, 4E, E]
-    receptance: QuantLinear  # [L, E, E]
+    key: Linear              # [L, E, 4E]
+    value: Linear            # [L, 4E, E]
+    receptance: Linear       # [L, E, E]
 
 
 @dataclasses.dataclass
@@ -69,7 +87,7 @@ class RWKVParams:
     att: AttParams
     ffn: FFNParams
     ln_out: LNParams         # [E]
-    head: QuantLinear        # [E, V]
+    head: Linear             # [E, V]
     # [V_padded]: 0 for real tokens, -1e9 for vocab padding (pad_vocab);
     # None for an unpadded model
     logit_bias: Optional[torch.Tensor] = None
@@ -107,11 +125,12 @@ class WKVState(NamedTuple):
 
 
 def map_params(params: RWKVParams, fn: Callable) -> RWKVParams:
-    """Apply fn to every array leaf (None stays None)."""
+    """Apply fn to every array leaf (None and a Quant4Linear's int block
+    stay as they are)."""
 
     def conv(obj):
-        if obj is None:
-            return None
+        if obj is None or isinstance(obj, int):
+            return obj
         if dataclasses.is_dataclass(obj):
             return dataclasses.replace(obj, **{
                 f.name: conv(getattr(obj, f.name))
@@ -125,8 +144,11 @@ def params_to(params: RWKVParams, device) -> RWKVParams:
     """Move every leaf to `device` (numpy leaves are converted first)."""
 
     def move(a):
-        t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
-        return t.to(device)
+        if isinstance(a, np.ndarray):
+            # a read-only array is a view of a mapped file: copy it out
+            a = torch.from_numpy(np.array(a) if not a.flags.writeable
+                                 else np.ascontiguousarray(a))
+        return a.to(device)
 
     return map_params(params, move)
 
@@ -159,12 +181,12 @@ def _att_seq(x, att: AttParams, ln: LNParams, xy, chan, *, parallel, mask,
              length):
     xx = layer_norm(x, ln.weight, ln.bias)
     prev = torch.cat([xy[None], xx[:-1]], dim=0)  # token shift
-    k = qmatmul(att.mix_k * xx + (1 - att.mix_k) * prev, att.key)
-    v = qmatmul(att.mix_v * xx + (1 - att.mix_v) * prev, att.value)
-    r = qmatmul(att.mix_r * xx + (1 - att.mix_r) * prev, att.receptance)
+    k = _matmul(att.mix_k * xx + (1 - att.mix_k) * prev, att.key)
+    v = _matmul(att.mix_v * xx + (1 - att.mix_v) * prev, att.value)
+    r = _matmul(att.mix_r * xx + (1 - att.mix_r) * prev, att.receptance)
     wkv_fn = wkv_parallel if parallel else wkv_scan
     y, chan = wkv_fn(k, v, chan, att.decay, att.bonus, mask)
-    out = qmatmul(torch.sigmoid(r) * y, att.output)
+    out = _matmul(torch.sigmoid(r) * y, att.output)
     return x + out, _last_valid(xx, length), chan
 
 
@@ -173,32 +195,32 @@ def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length):
     prev = torch.cat([dd[None], xx[:-1]], dim=0)
     k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * prev
     r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * prev
-    gate = torch.sigmoid(qmatmul(r_in, ffn.receptance))
-    kk = torch.square(torch.relu(qmatmul(k_in, ffn.key)))
-    return x + gate * qmatmul(kk, ffn.value), _last_valid(xx, length)
+    gate = torch.sigmoid(_matmul(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(_matmul(k_in, ffn.key)))
+    return x + gate * _matmul(kk, ffn.value), _last_valid(xx, length)
 
 
 def _att_step(x, att: AttParams, ln: LNParams, xy, chan):
     xx = layer_norm(x, ln.weight, ln.bias)
-    k = qmatmul(att.mix_k * xx + (1 - att.mix_k) * xy, att.key)
-    v = qmatmul(att.mix_v * xx + (1 - att.mix_v) * xy, att.value)
-    r = qmatmul(att.mix_r * xx + (1 - att.mix_r) * xy, att.receptance)
+    k = _matmul(att.mix_k * xx + (1 - att.mix_k) * xy, att.key)
+    v = _matmul(att.mix_v * xx + (1 - att.mix_v) * xy, att.value)
+    r = _matmul(att.mix_r * xx + (1 - att.mix_r) * xy, att.receptance)
     y, chan = wkv_step(k, v, chan, att.decay, att.bonus)
-    return x + qmatmul(torch.sigmoid(r) * y, att.output), xx, chan
+    return x + _matmul(torch.sigmoid(r) * y, att.output), xx, chan
 
 
 def _ffn_step(x, ffn: FFNParams, ln: LNParams, dd):
     xx = layer_norm(x, ln.weight, ln.bias)
     k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * dd
     r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * dd
-    gate = torch.sigmoid(qmatmul(r_in, ffn.receptance))
-    kk = torch.square(torch.relu(qmatmul(k_in, ffn.key)))
-    return x + gate * qmatmul(kk, ffn.value), xx
+    gate = torch.sigmoid(_matmul(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(_matmul(k_in, ffn.key)))
+    return x + gate * _matmul(kk, ffn.value), xx
 
 
 def _head(params: RWKVParams, x):
     x = layer_norm(x, params.ln_out.weight, params.ln_out.bias)
-    logits = qmatmul(x, params.head)
+    logits = _matmul(x, params.head)
     if params.logit_bias is not None:
         logits = logits + params.logit_bias
     return logits
@@ -253,30 +275,50 @@ def forward_step(params: RWKVParams, token: torch.Tensor, state: WKVState
     return _head(params, x), WKVState(*(torch.stack(new[f]) for f in WKVState._fields))
 
 
+_FAMILIES = (("att", ("key", "value", "receptance", "output")),
+             ("ffn", ("key", "value", "receptance")))
+
+
+def _map_families(params: RWKVParams, fn: Callable) -> RWKVParams:
+    """Apply fn(linear, row_tiled) to the 7 matrix families and the head.
+    row_tiled is True for att.output and ffn.value, whose input comes out of
+    a column-parallel epilogue (the families a q4 block pairs within)."""
+    parts = {}
+    for half, names in _FAMILIES:
+        group = getattr(params, half)
+        parts[half] = dataclasses.replace(group, **{
+            n: fn(getattr(group, n), (half, n) in (("att", "output"), ("ffn", "value")))
+            for n in names})
+    return dataclasses.replace(params, head=fn(params.head, False), **parts)
+
+
 def signedize_params(params: RWKVParams) -> RWKVParams:
     """Re-center every QuantLinear to int8 (ops.quant.to_signed), as the
-    kernels need. Numerically identical: (W-128)*r + (o+128r) == W*r + o."""
-    att = dataclasses.replace(params.att, **{
-        n: to_signed(getattr(params.att, n))
-        for n in ("key", "value", "receptance", "output")})
-    ffn = dataclasses.replace(params.ffn, **{
-        n: to_signed(getattr(params.ffn, n))
-        for n in ("key", "value", "receptance")})
-    return dataclasses.replace(params, att=att, ffn=ffn,
-                               head=to_signed(params.head))
+    kernels need. Numerically identical: (W-128)*r + (o+128r) == W*r + o.
+    Quant4Linear families are signed-centered already and pass through."""
+    return _map_families(
+        params, lambda lin, _: to_signed(lin) if isinstance(lin, QuantLinear) else lin)
 
 
 def pad_vocab(params: RWKVParams, multiple: int = 128) -> RWKVParams:
     """Pad emb rows / head columns up to `multiple`; padded logits get a
-    -1e9 `logit_bias` so they are never sampled."""
+    -1e9 `logit_bias` so they are never sampled. A Quant4Linear head is
+    padded with zero bytes, which decode to the code -8 on both nibbles;
+    the bias masks those columns all the same."""
     V = params.emb.shape[0]
     Vp = ((V + multiple - 1) // multiple) * multiple
     if Vp == V and params.logit_bias is not None:
         return params
     pad = Vp - V
     emb = torch.nn.functional.pad(params.emb, (0, 0, 0, pad))
-    head = QuantLinear(w=torch.nn.functional.pad(params.head.w, (0, pad)),
-                       scale=params.head.scale, offset=params.head.offset)
+    head = params.head
+    if isinstance(head, Quant4Linear):
+        head = dataclasses.replace(head, wp=torch.nn.functional.pad(head.wp, (0, pad)))
+    elif isinstance(head, QuantLinear):
+        head = QuantLinear(w=torch.nn.functional.pad(head.w, (0, pad)),
+                           scale=head.scale, offset=head.offset)
+    else:
+        head = torch.nn.functional.pad(head, (0, pad))
     dev = params.emb.device
     if params.logit_bias is not None:
         # re-padding a padded model: keep the old pad ids banned
@@ -289,20 +331,81 @@ def pad_vocab(params: RWKVParams, multiple: int = 128) -> RWKVParams:
     return dataclasses.replace(params, emb=emb, head=head, logit_bias=bias)
 
 
+def q4_pack_block(n_embd: int) -> int:
+    """The q4 format's default pairing block for the row-tiled families
+    (att.output, ffn.value): n_embd where 12 * n_embd^2 <= 15 MiB, else the
+    widest of 512, 384, 256, 128 that divides n_embd and fits that budget
+    (1024 at 430M, 256 at 7B). The same arithmetic as the JAX package's
+    pick_tile_q4, kept so that artifacts packed by either package carry the
+    same blocks; the port's kernels take any even block that divides K."""
+    for t in (n_embd, 512, 512, 384, 256, 128):
+        if (n_embd % t == 0 and t % 128 == 0 and (t == n_embd or t <= 512)
+                and 12 * n_embd * t <= 15 * 1024 * 1024):
+            return t
+    if n_embd % 128 == 0:
+        return 128
+    raise ValueError(f"n_embd {n_embd} not divisible by any 128-multiple block")
+
+
+def quantize_params(params: RWKVParams) -> RWKVParams:
+    """Quantize the 8 dense matrix families to u8 QuantLinear with numpy
+    leaves (emb, norms and mixes stay dense), as the reference converter
+    splits them."""
+    return _map_families(
+        params, lambda w, _: w if isinstance(w, QuantLinear) else quantize(w))
+
+
+def quantize_params_q4(params: RWKVParams, tile: int | None = None) -> RWKVParams:
+    """Quantize the 8 dense matrix families to Quant4Linear with numpy
+    leaves. The row-tiled families (att.output, ffn.value) pair rows within
+    blocks of `tile` (default q4_pack_block(E)); the others pair globally."""
+    if tile is None:
+        tile = q4_pack_block(params.n_embd)
+
+    def q(w, row_tiled):
+        block = tile if row_tiled else None
+        if isinstance(w, Quant4Linear):
+            if w.block != block:
+                raise ValueError(f"family packed with block={w.block}, expected {block}")
+            return w
+        if isinstance(w, QuantLinear):
+            raise TypeError("cannot requantize u8 params to 4-bit; start from dense weights")
+        return quantize4(w, block=block)
+
+    return _map_families(params, q)
+
+
 def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
-                               pad_multiple: int | None = 512) -> RWKVParams:
-    """Random u8-quantized params built on the host in numpy (leaves are
+                               pad_multiple: int | None = 512, *,
+                               q4: bool = False) -> RWKVParams:
+    """Random quantized params built on the host in numpy (leaves are
     numpy arrays; `params_to` puts them on a device). The same recipe as
     the JAX package's random_quantized_params_np: u8 codes with scales
-    sized like a quantized N(0, 1/sqrt(in)) matrix."""
+    sized like a quantized N(0, 1/sqrt(in)) matrix.
+
+    q4: packed 4-bit Quant4Linear families instead (the counterpart of the
+    JAX package's random_quantized_params_device(q4=True)): random bytes as
+    the packed codes, 16-level scales, the +8 * scale centering in the
+    offsets. The row-tiled families (att.output, ffn.value) carry the
+    default pairing block, q4_pack_block(E); the others pair globally. The
+    bytes are random, so any other valid block tag gives valid params too."""
     rng = np.random.default_rng(seed)
     E, L, V, F = cfg.n_embd, cfg.n_layer, cfg.vocab_size, cfg.n_ffn
     Vp = V
     if pad_multiple:
         Vp = ((V + pad_multiple - 1) // pad_multiple) * pad_multiple
+    q4_block = q4_pack_block(E) if q4 else None
 
-    def qrand(shape):
+    def qrand(shape, row_tiled=False):
         span = 8.0 * shape[-2] ** -0.5  # ~±4 sigma
+        if q4:
+            r = span / 15.0
+            return Quant4Linear(
+                wp=rng.integers(-128, 128, size=shape[:-2] + (shape[-2] // 2, shape[-1]),
+                                dtype=np.int8),
+                scale=np.full(shape[:-1], r, np.float32),
+                offset=np.full(shape[:-1], -span / 2.0 + 8.0 * r, np.float32),
+                block=q4_block if row_tiled else None)
         return QuantLinear(
             w=rng.integers(0, 256, size=shape, dtype=np.uint8),
             scale=np.full(shape[:-1], span / 255.0, np.float32),
@@ -329,13 +432,13 @@ def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
         att=AttParams(
             mix_k=mix((L, E)), mix_v=mix((L, E)), mix_r=mix((L, E)),
             key=qrand((L, E, E)), value=qrand((L, E, E)),
-            receptance=qrand((L, E, E)), output=qrand((L, E, E)),
+            receptance=qrand((L, E, E)), output=qrand((L, E, E), row_tiled=True),
             decay=f32(-np.exp(rng.normal(size=(L, E)))),
             bonus=f32(rng.normal(size=(L, E)) * 0.5),
         ),
         ffn=FFNParams(
             mix_k=mix((L, E)), mix_r=mix((L, E)),
-            key=qrand((L, E, F)), value=qrand((L, F, E)),
+            key=qrand((L, E, F)), value=qrand((L, F, E), row_tiled=True),
             receptance=qrand((L, E, E)),
         ),
         ln_out=LNParams(ones(E), zeros(E)),

@@ -1,18 +1,25 @@
-"""One q8 decode step over all L layers (kernel K1; counterpart of
-rwkv_tpu/ops/pallas/decode_stack.py).
+"""One decode step over all L layers, q8 (kernel K1) or q4 (kernel K4)
+(counterpart of rwkv_tpu/ops/pallas/decode_stack.py).
 
 `decode_stack(params, token, state)` runs the embedding gather + ln0, every
-layer (ln1, token-shift mix, k/v/r int8 matvecs, WKV step, out-projection;
-ln2, mix, relu(key)^2, value * sigmoid(gate)) and ln_out with the head's
-scaled input on csrc/decode_stack.cu, which replaces the q8 branch of the
-Pallas `_decode_stack_kernel`. `forward_step_fused` adds the head through
-kernel K2 (ops/cuda/mm8.py) and the logit bias: the same signature and
-scalar/[B] behaviour as the JAX `forward_step_fused`.
+layer (ln1, token-shift mix, k/v/r matvecs, WKV step, out-projection; ln2,
+mix, relu(key)^2, value * sigmoid(gate)) and ln_out with the head's scaled
+input on csrc/decode_stack.cu, which replaces the q8 and q4 branches of the
+Pallas `_decode_stack_kernel`. The weight format follows the params: int8
+QuantLinear families run K1, packed Quant4Linear families K4.
+`forward_step_fused` adds the head through kernel K2 (ops/cuda/mm8.py) or K3
+(ops/cuda/mm4.py) and the logit bias: the same signature and scalar/[B]
+behaviour as the JAX `forward_step_fused`.
 
-Bound on the card: the layers' int8 weight bytes, L * 13 * E^2 (327 MB at
-430M), over device memory bandwidth; the head adds E * Vp (52 MB). The kernel
-reads each weight byte once per step; csrc/decode_stack.cu describes the
-launch sequence (6 per layer, plus one for ln_out).
+Bound on the card: the layers' weight bytes, L * 13 * E^2 in q8 (327 MB at
+430M) and half that in q4 (164 MB), over device memory bandwidth; the head
+adds E * Vp (52 MB; 26 MB in q4). The kernel reads each weight byte once per
+step; csrc/decode_stack.cu describes the launch sequence (6 per layer, plus
+one for ln_out).
+
+In q4, att.output and ffn.value may pair rows within any even block that
+divides their K (ops.quant.Quant4Linear); the other families must pair
+globally (block None), as in the JAX kernel. Anything else raises.
 
 State tensors are [L, B, E] f32 and must be contiguous (a stream sliced out
 of a pool is not: pass `.contiguous()`). The kernel never writes its input
@@ -37,11 +44,15 @@ from rwkv_tpu_torch.models.rwkv4 import (
     _layer,
 )
 from rwkv_tpu_torch.ops.cuda import _build
+from rwkv_tpu_torch.ops.cuda.mm4 import block_half, mm4
 from rwkv_tpu_torch.ops.cuda.mm8 import mm8
 from rwkv_tpu_torch.ops.layernorm import layer_norm
+from rwkv_tpu_torch.ops.quant import Quant4Linear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState
 
-launches = 0  # kernel launches, for showing that a path ran on the kernel
+# kernel launches, for showing that a path ran on the kernel: q8 (K1), q4 (K4)
+launches = 0
+launches_q4 = 0
 
 _lib = None
 
@@ -65,6 +76,11 @@ _POINTERS = (
     "offs", "off_parts", "partial", "counters",
 )
 _PARAM_NAMES = _POINTERS[1:40]
+# The matrix families in the order of rwkv_decode_stack()'s halves[], and
+# which of them pair rows within a block in q4.
+_FAMILIES = ("att.key", "att.value", "att.receptance", "att.output",
+             "ffn.key", "ffn.value", "ffn.receptance")
+_ROW_TILED = ("att.output", "ffn.value")
 
 
 def _kernel():
@@ -72,8 +88,9 @@ def _kernel():
     if _lib is None:
         lib = _build.load("decode_stack")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv_decode_stack.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I,
-                                          ctypes.c_longlong, I, I, P, ctypes.POINTER(I)]
+        lib.rwkv_decode_stack.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I,
+                                          ctypes.POINTER(I), ctypes.c_longlong, I, I, P,
+                                          ctypes.POINTER(I)]
         lib.rwkv_decode_stack.restype = I
         lib.rwkv_decode_stack_pointer_count.argtypes = []
         lib.rwkv_decode_stack_pointer_count.restype = I
@@ -90,7 +107,7 @@ def _get(params: RWKVParams, dotted: str) -> torch.Tensor:
     return obj
 
 
-def _param_shapes(L: int, E: int, F: int, Vp: int) -> dict:
+def _param_shapes(L: int, E: int, F: int, Vp: int, q4: bool) -> dict:
     sh = {"emb": (Vp, E), "ln0.weight": (E,), "ln0.bias": (E,),
           "ln_out.weight": (E,), "ln_out.bias": (E,), "head.scale": (E,), "head.offset": (E,)}
     for n in ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "att.mix_k", "att.mix_v",
@@ -99,7 +116,7 @@ def _param_shapes(L: int, E: int, F: int, Vp: int) -> dict:
     for fam, (K, O) in {"att.key": (E, E), "att.value": (E, E), "att.receptance": (E, E),
                         "att.output": (E, E), "ffn.key": (E, F), "ffn.value": (F, E),
                         "ffn.receptance": (E, E)}.items():
-        sh[fam + ".w"] = (L, K, O)
+        sh[fam + ".w"] = (L, K // 2, O) if q4 else (L, K, O)
         sh[fam + ".scale"] = (L, K)
         sh[fam + ".offset"] = (L, K)
     return sh
@@ -119,6 +136,23 @@ def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
         raise ValueError(f"decode_stack: {name} must be contiguous")
 
 
+def _q4_halves(params: RWKVParams) -> list:
+    """Half the pairing block of each matrix family (rwkv_decode_stack's
+    halves[]) for all-Quant4Linear params; raises on a family of another
+    format, a blocked column-sliced family, or a block that does not fit."""
+    halves = []
+    for fam in _FAMILIES:
+        lin = _get(params, fam)
+        if not isinstance(lin, Quant4Linear):
+            raise TypeError(f"4-bit decode needs every matrix family Quant4Linear; {fam} is "
+                            f"{type(lin).__name__} (models.rwkv4.quantize_params_q4)")
+        if fam not in _ROW_TILED and lin.block is not None:
+            raise ValueError(f"decode_stack: 4-bit column-sliced family {fam} must pair "
+                             f"globally (block None), got block {lin.block}")
+        halves.append(block_half(lin.block, lin.in_features, f"decode_stack: {fam}"))
+    return halves
+
+
 class _Prepared:
     """Checked parameter pointers and per-batch scratch for one params object."""
 
@@ -126,12 +160,14 @@ class _Prepared:
         self.params = params
         dev = params.emb.device
         L, E = params.n_layer, params.n_embd
-        F = params.ffn.key.w.shape[-1]
+        self.q4 = isinstance(params.att.key, Quant4Linear)
+        self.halves = _q4_halves(params) if self.q4 else [0] * len(_FAMILIES)
+        F = params.ffn.key.out_features
         Vp = params.emb.shape[0]
-        shapes = _param_shapes(L, E, F, Vp)
+        shapes = _param_shapes(L, E, F, Vp, self.q4)
         ptrs = []
         for name in _PARAM_NAMES:
-            t = _get(params, name)
+            t = _get(params, name[:-2] + ".wp" if self.q4 and name.endswith(".w") else name)
             dtype = torch.int8 if name.endswith(".w") else torch.float32
             _check(t, name, dtype, dev, shapes[name])
             if dtype == torch.int8 and t.data_ptr() % 16:
@@ -187,8 +223,10 @@ def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState):
     """One decode step for B streams. token: [B] ints; state leaves [L, B, E].
     Returns (y [B, E], new state, xs_h [B, E], off_h [B]) as decode_stack_plain."""
     if params.emb.device.type == "cpu" and token.device.type == "cpu":
+        if isinstance(params.att.key, Quant4Linear):
+            _q4_halves(params)  # the same format checks as the kernel's
         return decode_stack_plain(params, token, state)
-    global launches
+    global launches, launches_q4
     prep = _prepare(params)
     dev = prep.device
     if dev.type != "cuda":
@@ -216,18 +254,23 @@ def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState):
                 buf["off_parts"].data_ptr(), partial.data_ptr(), counters.data_ptr()])
     lib = _kernel()
     arr = (ctypes.c_void_p * len(table))(*table)
+    halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
     n = ctypes.c_int(0)
-    err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, partial.numel(),
-                                counters.numel(), target,
+    err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
+                                partial.numel(), counters.numel(), target,
                                 torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n))
-    launches += n.value
+    if prep.q4:
+        launches_q4 += n.value
+    else:
+        launches += n.value
     _build.check(lib, err, "decode_stack")
     return y, new_state, xs_h, off_h
 
 
 def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState
                        ) -> Tuple[torch.Tensor, WKVState]:
-    """Full decode step on kernels K1 (layers) and K2 (head), + logit_bias.
+    """Full decode step on kernels K1 (layers) and K2 (head), or in q4 on K4
+    and K3, + logit_bias.
 
     token: scalar (state leaves [L, E]) or [B] (state leaves [L, B, E]).
     Returns (logits [..., Vp], new state), as models.rwkv4.forward_step."""
@@ -235,7 +278,11 @@ def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState
     tok = token.reshape(1) if unbatched else token
     st = WKVState(*(s[:, None] for s in state)) if unbatched else state
     _, new_state, xs_h, off_h = decode_stack(params, tok, st)
-    logits = mm8(xs_h, params.head.w, row_add=off_h, col_add=params.logit_bias)
+    head = params.head
+    if isinstance(head, Quant4Linear):
+        logits = mm4(xs_h, head.wp, block=head.block, row_add=off_h, col_add=params.logit_bias)
+    else:
+        logits = mm8(xs_h, head.w, row_add=off_h, col_add=params.logit_bias)
     if unbatched:
         return logits[0], WKVState(*(s[:, 0] for s in new_state))
     return logits, new_state

@@ -1,11 +1,14 @@
 """The inference engine (counterpart of rwkv_tpu/runtime/engine.py).
 
     RWKV("model.bin", vocab_dir=None)   load a reference-format .bin (device "cuda")
+    RWKV("model.q4.safetensors")        a packed 4-bit artifact (io/q4fmt.py)
+    RWKV("model.pth", quant="q4")       a dense .pth/.safetensors, quantized at load
     load_context(prompt)                tokenize + bucketed prefill
     generate(prompt, max_tokens, ...)   typical sampling, one decode step per token
 
 Decode runs `forward_step_fused`: on CUDA the hand-written kernels K1
-(decode stack) and K2 (int8 head), on the CPU their plain PyTorch versions.
+(decode stack) and K2 (int8 head), or K4 and K3 for 4-bit weights; on the
+CPU their plain PyTorch versions.
 Prompt ingest runs `forward_seq(parallel=True)` in plain PyTorch, padded to
 a few fixed buckets with a length mask. State stays on the device between
 calls; during generation only the sampled token ids reach the host.
@@ -34,7 +37,7 @@ from rwkv_tpu_torch.models.rwkv4 import (
     signedize_params,
 )
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
-from rwkv_tpu_torch.ops.quant import QuantLinear
+from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.sampling import typical
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.text import StopScanner
@@ -91,35 +94,55 @@ class RWKV:
     # -- loading -------------------------------------------------------------
 
     def load_file(self, path: str, max_streams: Optional[int] = None) -> None:
-        """Load a reference-format .bin checkpoint, streaming one tensor at a
-        time to the device, re-centered to int8 on the host copy."""
+        """Load a checkpoint:
+
+        * a packed q4 artifact (.safetensors tagged rwkv-tpu-q4/1) as it is,
+          switching the engine to quant="q4";
+        * a dense .safetensors (BlinkDL or HF names) or .pth, quantized on the
+          host layer by layer to `quant` (io/convert.py);
+        * a reference-format .bin (q8 only), streaming one tensor at a time
+          to the device, re-centered to int8 on the host copy."""
         from rwkv_tpu_torch.io.binfmt import read_bin
 
         if max_streams is not None:
             self.max_streams = max_streams
+        if path.endswith(".safetensors"):
+            from rwkv_tpu_torch.io.q4fmt import is_q4_file, load_q4
+
+            if is_q4_file(path):
+                self.quant = "q4"
+                self.load_params(load_q4(path))
+                return
+        if path.endswith((".safetensors", ".pth")):
+            from rwkv_tpu_torch.io.convert import load_checkpoint_quantized
+
+            self.load_params(load_checkpoint_quantized(path, bits=4 if self.quant == "q4" else 8))
+            return
         if self.quant == "q4":
             raise ValueError(
                 "quant='q4' needs a dense source (.pth/.safetensors); "
                 f"{path} is a Q8-quantized .bin — requantizing 4-bit on "
                 "top of Q8 would stack quantization noise")
         if not path.endswith(".bin"):
-            raise ValueError(f"{path}: this engine loads reference-format .bin files")
+            raise ValueError(f"{path}: this engine loads .bin, .safetensors and .pth files")
         # 512, not 128: 50277 -> 50688, a multiple of the kernels' 16-column loads
         self.load_params(read_bin(path, self.device, pad_vocab_to=512, signed=True))
 
     loadFile = load_file
 
     def load_params(self, params: RWKVParams) -> None:
-        """Use an already-built params tree (numpy or torch leaves, u8 or int8
-        families): padded to a head width the kernels take, re-centered to
-        int8, and placed on the engine's device."""
-        if not isinstance(params.head, QuantLinear):
-            raise TypeError("the engine needs quantized (QuantLinear) params")
+        """Use an already-built params tree (numpy or torch leaves; u8 or int8
+        QuantLinear, or packed Quant4Linear families): padded to a head width
+        the kernels take, re-centered to int8, and placed on the engine's
+        device."""
+        if not isinstance(params.head, (QuantLinear, Quant4Linear)):
+            raise TypeError("the engine needs quantized (QuantLinear or Quant4Linear) params")
         params = params_to(params, self.device)
-        if params.head.w.shape[-1] % 16:
+        if params.head.out_features % 16:
             params = pad_vocab(params, multiple=512)
         params = signedize_params(params)
         self.params = params
+        self.quant = "q4" if isinstance(params.att.key, Quant4Linear) else "q8"
         self.config = params.config
         # True (unpadded) vocab: padded ids carry a -1e9 logit_bias; forward()
         # returns logits sliced back to this size

@@ -1,8 +1,10 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
-    python -m rwkv_tpu_torch.tools.decode_profile [--batch 1 8] [--steps 30] [--seed 0]
+    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--batch 1 8] [--steps 30]
+                                                  [--seed 0]
 
-For each batch size, with random weights from a numpy seed, it measures:
+For each batch size, with random q8 or packed q4 weights from a numpy seed
+(q4: the default pairing block), it measures:
   * wall ms per step of forward_step_fused (CUDA events around `steps`
     back-to-back steps: what a caller that does not read the logits sees);
   * host ms per step: the time the Python + C host code takes to enqueue a
@@ -12,9 +14,15 @@ For each batch size, with random weights from a numpy seed, it measures:
     device's busy share of the wall time;
   * device ms per step by launch position: the step's rwkv kernels in the
     order decode_stack.cu launches them (per layer: ln1+mix, k/v/r + WKV,
-    output, ln2+mix, key, value+gate; then ln_out and the mm8 head);
+    output, ln2+mix, key, value+gate; then ln_out and the mm8 or mm4 head);
   * graph ms per step: the same step captured once in a CUDA graph and
-    replayed, which takes the host's launch cost out of the wall time.
+    replayed, which takes the host's launch cost out of the wall time;
+  * sampled ms per token: the engine's generate loop without the tokenizer
+    (step, typical sampling, then the host reads the ids, every token), by
+    the host clock, and the device's busy share of that loop;
+  * at B=1, engine ms per token: RWKV.generate itself on the same weights
+    after a short prompt, by the host clock, with the device's busy share
+    and the host operations that took the most time (torch.profiler).
 Prints one JSON line per batch size. Needs a CUDA device.
 """
 
@@ -40,6 +48,7 @@ def _device_us(evt) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quant", choices=["q8", "q4"], default="q8")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
@@ -57,6 +66,8 @@ def main() -> None:
         signedize_params,
     )
     from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
+    from rwkv_tpu_torch.ops.sampling import typical
+    from rwkv_tpu_torch.runtime.engine import RWKV
 
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA device")
@@ -64,7 +75,9 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     cfg = RWKVConfig.rwkv4_430m()
-    params = params_to(signedize_params(random_quantized_params_np(cfg, seed=args.seed)), dev)
+    host = random_quantized_params_np(cfg, seed=args.seed, q4=args.quant == "q4")
+    params = params_to(signedize_params(host), dev)
+    head = "head (mm4)" if args.quant == "q4" else "head (mm8)"
     rng = np.random.default_rng(args.seed)
 
     for B in args.batch:
@@ -117,16 +130,72 @@ def main() -> None:
         for i, e in enumerate(ours):
             j = i % per_step
             label = (PHASES[j % 6] if j < 6 * cfg.n_layer
-                     else ("ln_out" if j == 6 * cfg.n_layer else "head (mm8)"))
+                     else ("ln_out" if j == 6 * cfg.n_layer else head))
             by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
-        out = {"batch": B, "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+
+        def sampled(n):
+            t, s = tok, st
+            for _ in range(n):
+                logits, s = forward_step_fused(params, t, s)
+                t = typical(logits, gen)
+                t.tolist()  # the host read generate() makes per token
+
+        sampled(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampled(args.steps)
+        sampled_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_s:
+            t0 = time.perf_counter()
+            sampled(args.steps)
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        sampled_busy = sum(_device_us(e) for e in prof_s.key_averages()
+                           if getattr(e, "device_type", None)
+                           == torch.autograd.DeviceType.CUDA) / 1e3 / traced_ms
+
+        engine = {}
+        if B == 1:
+            eng = RWKV(device=dev)
+            eng.load_params(host)
+            eng.load_tokenizer()
+
+            def request():
+                eng.reset_state()
+                eng.load_context("In a hole in the ground there lived a hobbit.")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.generate("", max_tokens=args.steps, seed=args.seed)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            request()
+            engine_ms = request()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_e:
+                traced_ms = request()
+            evts = prof_e.key_averages()
+            busy = sum(_device_us(e) for e in evts if getattr(e, "device_type", None)
+                       == torch.autograd.DeviceType.CUDA) / 1e3
+            top = sorted(((e.key, e.self_cpu_time_total / 1e3 / args.steps) for e in evts
+                           if getattr(e, "device_type", None)
+                           == torch.autograd.DeviceType.CPU), key=lambda kv: -kv[1])[:8]
+            engine = {"engine_ms_per_token": engine_ms / args.steps,
+                      "engine_device_busy_share": busy / traced_ms,
+                      "engine_host_ms_per_token_by_op": dict(top)}
+            del eng
+
+        out = {"quant": args.quant, "batch": B, "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
                "graph_ms_per_step": graph_ms,
+               "sampled_ms_per_token": sampled_ms,
+               "sampled_device_busy_share": sampled_busy,
                "device_ms_per_step": device_ms,
                "device_busy_share": device_ms / wall_ms if wall_ms else None,
                "device_ms_per_step_by_kernel": dict(sorted(by_kernel.items(),
                                                            key=lambda kv: -kv[1])),
                "device_ms_per_step_by_launch": dict(by_position),
                "rwkv_kernels_seen": len(ours),
+               **engine,
                "card": card}
         print(json.dumps(out))
 
