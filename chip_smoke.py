@@ -35,6 +35,24 @@ Phases, in order; any failure raises and exits non-zero:
               the K4 and K3 launch counters rose and the logits match the
               plain model; then load a dense f32 .safetensors at 430M width
               (L=2) with RWKV(path, quant="q4") and decode a few tokens.
+  8. mm8_a8   kernel K5's head (mm8_a8.cu) against its plain version at
+              [B, 1024] x [1024, 50688] int8, B in {1, 8, 16}: the int8
+              codes equal, the outputs within 1e-6 scaled; times of the
+              kernel, the plain version and torch._int_mm (cuBLAS s8 x s8)
+              on the same codes, rows padded to 24 (the yardstick).
+  9. decode8  kernel K5's stack (the a8 branch of decode_stack.cu) + a8 head
+              against the plain a8 version at 430M widths, a8_block 512, B in
+              {1, 8, 16}, 4 carried steps: logits and state within
+              A8_DECODE_TOL scaled, equal argmax; ms per step beside the q8
+              step (K1 + K2) at the same B, in turns.
+ 10. serve    the phase-4 .bin through RWKV(path), load_params(a8=True), and
+              an 8-slot InferencePool on the engine's a8 step: 12 requests
+              (prompts of 5-300 tokens, 16-64 new tokens, mixed temp/tau,
+              stop strings); all must finish, K5's counters must rise and
+              the q8 ones stay still; one request re-run alone in a fresh
+              pool gives the same text; tok/s and ms per pool step at full
+              occupancy; then the first 8 requests at 32 tokens on the q8
+              step (K1 + K2) and the a8 step, in turns (q8, a8, a8, q8).
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -51,6 +69,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -58,12 +77,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # float32 rate outside the tensor cores (the kernels accumulate in f32 FMAs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12  # tensor cores, dense: the rate of W8A8's s8 x s8 products
 
 # Tolerances, stated: fp32 sums over 1024..4096 terms in another order than
 # torch.matmul's; scaled error = max|kernel - plain| / max(1, max|plain|).
 MM8_TOL = 1e-5
 MM4_TOL = 1e-5
 DECODE_TOL = 1e-4
+# W8A8: the kernel and the plain version quantize the same f32 numbers to
+# equal codes and sum the integer products exactly, so mm8_a8 differs only
+# in the f32 rounding of its per-group partial sums. The a8 stack repeats
+# the plain version's arithmetic bit for bit up to every quantization
+# (csrc/decode_stack.cu says how): at 430M one code one apart moves the
+# logits by ~2e-2 a few layers on, so anything less gives no bound at all
+# (PERF.md, the W8A8 findings). The state then matches exactly and the logits to the
+# head's f32 rounding: K1's 1e-4 holds.
+MM8_A8_TOL = 1e-6
+A8_DECODE_TOL = 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -90,6 +120,8 @@ def main() -> int:
     from rwkv_tpu_torch.io.safetensors import write_safetensors
     from rwkv_tpu_torch.models.config import RWKVConfig
     from rwkv_tpu_torch.models.rwkv4 import (
+        WKVState,
+        a8_block_for,
         forward_step,
         init_state,
         map_params,
@@ -103,6 +135,7 @@ def main() -> int:
     from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
     from rwkv_tpu_torch.ops.quant import Quant4Linear, unpack4
     from rwkv_tpu_torch.runtime.engine import RWKV
+    from rwkv_tpu_torch.runtime.pool import InferencePool
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -144,8 +177,8 @@ def main() -> int:
     del big, dst
     print(f"  device-to-device copy: {bw / 1e9:.1f} GB/s (read + write) {card}")
 
-    def bound(nbytes: float, flops: float):
-        tb, to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
+        tb, to = nbytes / PEAK_BYTES_PER_S, flops / peak
         return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
     def scaled_err(a, b) -> tuple[float, float]:
@@ -281,16 +314,16 @@ def main() -> int:
     # ------------------------------------------------------------------ 4
     print("phase 4 end to end: RWKV(path).load_context + generate, 430M .bin")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        path = os.path.join(tmp, "rwkv4-430m-random.bin")
-        t0 = time.perf_counter()
-        write_bin(path, host_u8)
-        print(f"  wrote {os.path.getsize(path) / 1e6:.0f} MB in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        eng = RWKV(path)
-        eng.load_tokenizer()
-        torch.cuda.synchronize()
-        print(f"  RWKV(path) on {eng.device} + tokenizer in {time.perf_counter() - t0:.1f} s")
+    bin_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)  # phases 4 and 10
+    bin_path = os.path.join(bin_dir.name, "rwkv4-430m-random.bin")
+    t0 = time.perf_counter()
+    write_bin(bin_path, host_u8)
+    print(f"  wrote {os.path.getsize(bin_path) / 1e6:.0f} MB in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eng = RWKV(bin_path)
+    eng.load_tokenizer()
+    torch.cuda.synchronize()
+    print(f"  RWKV(path) on {eng.device} + tokenizer in {time.perf_counter() - t0:.1f} s")
     require(eng.device.type == "cuda", f"engine runs on {eng.device}")
     signed = signedize_params(host_u8)
     require(np.array_equal(eng.params.att.key.w[3].cpu().numpy(), signed.att.key.w[3])
@@ -303,11 +336,12 @@ def main() -> int:
                "In a hole in the ground there lived a hobbit.",
                "Question: what is the capital of France?\nAnswer:"]
     counters = (ds_mod, "launches"), (ds_mod, "launches_q4"), (mm8_mod, "launches"), \
-        (mm4_mod, "launches")
+        (mm4_mod, "launches"), (ds_mod, "launches_a8"), (mm8_mod, "launches_a8")
 
     def serve(eng, max_tokens=32):
         """Answer the prompts with every launch count set to 0 just before;
-        returns (decode steps, the counts just after: K1, K4, K2, K3)."""
+        returns (decode steps, the counts just after: K1, K4, K2, K3, and
+        K5's stack and head)."""
         for mod, name in counters:
             setattr(mod, name, 0)
         steps, rates = 0, []
@@ -334,24 +368,39 @@ def main() -> int:
               f"{1e3 / dc:.2f} ms/token {card}")
         return steps, counts
 
-    def check_engine_logits(eng, vocab):
-        """The engine's decode step on the loaded weights against the plain model."""
+    def a8_step_plain(params, tok, state, block):
+        """The plain W8A8 step: the a8 stack and the a8 head."""
+        _, new, xh, oh = ds_mod.decode_stack_plain(params, tok.reshape(-1), WKVState(
+            *(s.reshape(s.shape[0], -1, s.shape[-1]) for s in state)), a8=True, a8_block=block)
+        return mm8_mod.mm8_a8_plain(xh, params.head.w, row_add=oh,
+                                    col_add=params.logit_bias), new
+
+    def check_engine_logits(eng, vocab, a8_block=None):
+        """The engine's decode step on the loaded weights against the plain
+        model (a8_block: against the plain W8A8 step)."""
         eng.reset_state()
         eng.load_context(prompts[0])
         state = eng.get_state(0)
         tok = int(eng.tokenizer.encode(" It")[0])
         logits = eng.forward(tok)
-        ref, _ = forward_step(eng.params, torch.tensor(tok, device=dev), state)
+        tok_d = torch.tensor(tok, device=dev)
+        if a8_block is None:
+            ref, _ = forward_step(eng.params, tok_d, state)
+            tol = DECODE_TOL
+        else:
+            ref = a8_step_plain(eng.params, tok_d, state, a8_block)[0][0]
+            tol = A8_DECODE_TOL
         torch.cuda.synchronize()
         require(logits.shape == (vocab,), f"logits shape {tuple(logits.shape)}")
         require(bool(torch.isfinite(logits).all()), "engine logits not finite")
         err, serr = scaled_err(logits, ref[:vocab])
-        require(serr <= DECODE_TOL, f"engine logits vs plain: scaled error {serr:.3e}")
-        print(f"  engine decode logits vs plain forward_step: max abs err {err:.2e} "
-              f"(scaled {serr:.1e} <= {DECODE_TOL}), argmax {int(logits.argmax())} == "
-              f"{int(ref[:vocab].argmax())}")
+        require(serr <= tol, f"engine logits vs plain: scaled error {serr:.3e}")
+        require(int(logits.argmax()) == int(ref[:vocab].argmax()), "engine argmax differs")
+        print(f"  engine decode logits vs plain {'a8 step' if a8_block else 'forward_step'}: "
+              f"max abs err {err:.2e} (scaled {serr:.1e} <= {tol}), argmax "
+              f"{int(logits.argmax())} == {int(ref[:vocab].argmax())}")
 
-    steps, (k1_launches, k4_seen, k2_launches, k3_seen) = serve(eng)
+    steps, (k1_launches, k4_seen, k2_launches, k3_seen, *_) = serve(eng)
     print(f"  launches during the requests: decode_stack q8 {k1_launches} "
           f"(= {per_step} per step x {steps} steps: {k1_launches == per_step * steps}), "
           f"mm8 {k2_launches}; q4 kernels {k4_seen}, {k3_seen}")
@@ -427,7 +476,7 @@ def main() -> int:
             and np.array_equal(eng.params.head.wp.cpu().numpy(), host_q4.head.wp),
             "weights read back from the artifact differ from the ones written")
     del host_q4
-    steps4, (k1_seen, k4_launches, k2_seen, k3_launches) = serve(eng)
+    steps4, (k1_seen, k4_launches, k2_seen, k3_launches, *_) = serve(eng)
     print(f"  launches during the requests: decode_stack q4 {k4_launches} "
           f"(= {per_step} per step x {steps4} steps: {k4_launches == per_step * steps4}), "
           f"mm4 {k3_launches}; q8 kernels {k1_seen}, {k2_seen}")
@@ -492,6 +541,176 @@ def main() -> int:
     check_engine_logits(eng, cfg.vocab_size)
     del eng
 
+    # ------------------------------------------------------------------ 8
+    print("phase 8 mm8_a8 (K5, head) vs plain, [B, 1024] x [1024, 50688] int8")
+    w = torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+    a8_rows = {}
+    for B in (1, 8, 16):
+        xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
+        got, codes, scale = mm8_mod.mm8_a8(xs, w, return_codes=True)
+        ref = mm8_mod.mm8_a8_plain(xs, w)
+        q_ref, s_ref = mm8_mod.quant_rows(xs)
+        torch.cuda.synchronize()
+        require(torch.equal(codes, q_ref) and torch.equal(scale, s_ref),
+                f"mm8_a8 B={B}: the kernel's int8 codes or scales differ from quant_rows")
+        err, serr = scaled_err(got, ref)
+        require(bool(torch.isfinite(got).all()), f"mm8_a8 B={B}: non-finite output")
+        require(serr <= MM8_A8_TOL, f"mm8_a8 B={B}: scaled error {serr:.3e} > {MM8_A8_TOL}")
+        ms = cuda_ms(lambda: mm8_mod.mm8_a8(xs, w), 50)
+        plain_ms = cuda_ms(lambda: mm8_mod.mm8_a8_plain(xs, w), 5, warmup=1)
+        codes24 = torch.zeros((24, K), dtype=torch.int8, device=dev)  # _int_mm takes > 16 rows
+        codes24[:B] = codes
+        lib_ms = cuda_ms(lambda: torch._int_mm(codes24, w), 50)
+        b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * B * K * O, PEAK_INT8_OPS)
+        a8_rows[B] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        print(f"  B={B}: codes equal; max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_A8_TOL}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm on the codes (24 rows) "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks); "
+              f"{K * O / (ms * 1e-3) / 1e9:.0f} GB/s of weights {card}")
+    del w, codes24
+
+    # ------------------------------------------------------------------ 9
+    blk = a8_block_for(E)
+    print(f"phase 9 decode_stack a8 (K5, stack) + a8 head vs plain a8, 430M: L={L} E={E} F={F}, "
+          f"a8_block {blk}")
+    params = params_to(signedize_params(random_quantized_params_np(
+        cfg, seed=args.seed + 4, pad_multiple=512)), dev)
+    wb, vb = weight_bytes(params), vector_bytes(params)
+    head_bytes = nbytes([params.head.w])
+    a8_stack_rows = {}
+    for B in (1, 8, 16):
+        st_k = st_p = init_state(cfg, (B,), device=dev)
+        worst = {}
+        for step in range(4):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+            before = (ds_mod.launches, ds_mod.launches_a8, mm8_mod.launches_a8)
+            lg_k, n_k = ds_mod.forward_step_fused(params, tok, st_k, a8=True, a8_block=blk)
+            after = (ds_mod.launches, ds_mod.launches_a8, mm8_mod.launches_a8)
+            require([a - b for a, b in zip(after, before)] == [0, per_step, 1],
+                    f"a8 B={B}: launches {after} after {before}")
+            lg_p, n_p = a8_step_plain(params, tok, st_p, blk)
+            torch.cuda.synchronize()
+            pairs = dict(zip(("xy", "aa", "bb", "pp", "dd"), zip(n_k, n_p)))
+            pairs["logits"] = (lg_k[:, :cfg.vocab_size], lg_p[:, :cfg.vocab_size])
+            for name, (x_k, x_p) in pairs.items():
+                require(bool(torch.isfinite(x_k).all()), f"a8 B={B} step {step}: {name} not finite")
+                err, serr = scaled_err(x_k, x_p)
+                require(serr <= A8_DECODE_TOL, f"a8 B={B} step {step}: {name} scaled error "
+                        f"{serr:.3e} > {A8_DECODE_TOL}")
+                worst[name] = max(worst.get(name, (0.0, 0.0)), (err, serr))
+            require(torch.equal(pairs["logits"][0].argmax(-1), pairs["logits"][1].argmax(-1)),
+                    f"a8 B={B} step {step}: argmax differs from the plain a8 step")
+            st_k, st_p = n_k, n_p
+        print(f"  a8 B={B}, 4 steps: max abs err (scaled <= {A8_DECODE_TOL}), argmax equal: "
+              + ", ".join(f"{n} {e:.2e} ({s:.1e})" for n, (e, s) in worst.items()))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        st = init_state(cfg, (B,), device=dev)
+        a8_step = lambda: ds_mod.forward_step_fused(params, tok, st, a8=True, a8_block=blk)  # noqa: E731,B023
+        q8_step = lambda: ds_mod.forward_step_fused(params, tok, st)  # noqa: E731,B023
+        t = {"q8": [], "a8": []}
+        for name in ("q8", "a8", "a8", "q8"):  # in turns
+            t[name].append(cuda_ms(a8_step if name == "a8" else q8_step, 20))
+        ds_ms = cuda_ms(lambda: ds_mod.decode_stack(params, tok, st, a8=True, a8_block=blk), 20)
+        plain_ms = cuda_ms(lambda: ds_mod.decode_stack_plain(params, tok, st, a8=True,
+                                                             a8_block=blk), 3, warmup=1)
+        ds_bytes = wb + vb + (B * E + 10 * L * B * E + 2 * B * E + B) * 4
+        b_ms, b_by = bound(ds_bytes, 2 * B * L * 13 * E * E, PEAK_INT8_OPS)
+        a8_stack_rows[B] = dict(err=max(e for k, (e, _) in worst.items() if k != "logits"),
+                                ms=ds_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  B={B}: a8 step {min(t['a8']):.3f} ms ({', '.join(f'{v:.3f}' for v in t['a8'])}), "
+              f"q8 step {min(t['q8']):.3f} ms ({', '.join(f'{v:.3f}' for v in t['q8'])}), in "
+              f"turns; {per_step} + 1 launches per step each; a8 stack alone {ds_ms:.3f} ms, "
+              f"plain a8 stack {plain_ms:.3f} ms; stack bound {b_ms:.4f} ms ({b_by}), step bound "
+              f"{(wb + head_bytes) / PEAK_BYTES_PER_S * 1e3:.4f} ms {card}")
+    del params
+
+    # ------------------------------------------------------------------ 10
+    print("phase 10 serving: RWKV(path) a8 + InferencePool(max_streams=8), 12 requests")
+    eng = RWKV(bin_path)
+    eng.load_tokenizer()
+    eng.load_params(eng.params, a8=True)
+    require(eng._step_fn.keywords == {"a8": True, "a8_block": blk}, "the engine's step is not a8")
+    check_engine_logits(eng, cfg.vocab_size, a8_block=blk)
+    story = " ".join(prompts) * 40
+    ids = eng.tokenizer.encode(story)
+    spec = [(5, 16), (300, 24), (40, 64), (130, 32), (12, 48), (260, 16), (77, 40), (200, 64),
+            (9, 32), (150, 24), (33, 64), (128, 40)]  # (prompt tokens, max_tokens)
+    reqs = [dict(prompt=eng.tokenizer.decode(ids[i * 7:i * 7 + n]), max_tokens=m,
+                 temp=(0.7, 0.9, 1.0, 1.2)[i % 4], tau=(0.5, 0.8, 1.0)[i % 3], seed=args.seed + i,
+                 stop=["\n\n", "."] if i % 4 == 1 else None)
+            for i, (n, m) in enumerate(spec)]
+
+    def run_pool(step_fn, reqs, slots=8):
+        """Serve `reqs` through a fresh pool: the first `slots` at once, the
+        rest one at a time as slots free up (each then admitted alone).
+        Returns (texts, generated tokens, wall s, ms per step at full
+        occupancy)."""
+        pool = InferencePool(eng.params, eng.tokenizer, max_streams=slots, prefill_bucket=128,
+                             step_fn=step_fn)
+        todo = list(reqs)
+        rids, texts, full_ms, made = [], {}, [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while todo and len(rids) < slots:
+            rids.append(pool.submit(**todo.pop(0)))
+        while todo or pool.pending:
+            if todo and pool._free and not pool._queue:
+                rids.append(pool.submit(**todo.pop(0)))
+            full = len(pool._by_slot) == slots
+            ts = time.perf_counter()
+            done = pool.step()
+            if full:
+                full_ms.append((time.perf_counter() - ts) * 1e3)
+            for r in done:
+                texts[r.rid] = r.text
+                made += r.produced
+        wall = time.perf_counter() - t0
+        return [texts[r] for r in rids], made, wall, full_ms
+
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    texts, made, wall, full_ms = run_pool(eng._step_fn, reqs)
+    counts = dict(zip(("K1", "K4", "K2", "K3", "K5 stack", "K5 head"),
+                      (getattr(mod, name) for mod, name in counters)))
+    require(len(texts) == 12 and all(isinstance(t, str) for t in texts),
+            "not every request finished")
+    require(counts["K5 stack"] > 0 and counts["K5 head"] > 0, f"K5 never launched: {counts}")
+    require(counts["K1"] == 0 and counts["K2"] == 0 and counts["K4"] == 0 and counts["K3"] == 0,
+            f"the a8 pool launched a q8 or q4 kernel: {counts}")
+    k5_stack_launches, k5_head_launches = counts["K5 stack"], counts["K5 head"]
+    full_a8 = sorted(full_ms)[len(full_ms) // 2]
+    print(f"  a8: 12 requests, {made} tokens generated in {wall:.2f} s: {made / wall:.1f} tok/s; "
+          f"{len(full_ms)} steps at full occupancy, median {full_a8:.3f} ms/step {card}; "
+          f"launches {counts}")
+    for i in (1, 5, 11):
+        print(f"  request {i}: {spec[i][0]} prompt tokens, max {spec[i]} -> {texts[i][:50]!r}")
+    alone, _, _, _ = run_pool(eng._step_fn, [reqs[11]])
+    require(alone[0] == texts[11], "request 11 alone gives another text than among batchmates")
+    print("  request 11 re-run alone in a fresh 8-slot pool: the same text")
+
+    eng.load_params(eng.params)  # the q8 step, K1 + K2
+    check_engine_logits(eng, cfg.vocab_size)
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    short_reqs = [dict(r, max_tokens=32) for r in reqs[:8]]
+    steps = {"q8": eng._step_fn, "a8": partial(ds_mod.forward_step_fused, a8=True, a8_block=blk)}
+    runs = {"q8": [], "a8": []}
+    for name in ("q8", "a8", "a8", "q8"):  # in turns
+        _, made_r, wall_r, full_r = run_pool(steps[name], short_reqs)
+        if not runs["q8"]:  # the first q8 run: K1 + K2 only
+            counts_q8 = dict(zip(("K1", "K4", "K2", "K3", "K5 stack", "K5 head"),
+                                 (getattr(mod, n) for mod, n in counters)))
+            require(counts_q8["K1"] > 0 and counts_q8["K2"] > 0 and counts_q8["K5 stack"] == 0
+                    and counts_q8["K5 head"] == 0, f"the q8 pool's launches: {counts_q8}")
+        runs[name].append((made_r / wall_r, sorted(full_r)[len(full_r) // 2]))
+    print("  the first 8 requests at 32 tokens, in turns (q8, a8, a8, q8): "
+          + "; ".join(f"{n} " + ", ".join(f"{tps:.1f} tok/s (median {ms:.3f} ms/step at full "
+                                          f"occupancy)" for tps, ms in v)
+                      for n, v in runs.items()) + f" {card}")
+    del eng
+    bin_dir.cleanup()
+
     kernels = [
         {"name": "decode_stack", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k1_launches,
@@ -518,6 +737,19 @@ def main() -> int:
          "plain_ms": q4_rows[1]["plain_ms"], "bound_ms": q4_rows[1]["bound_ms"],
          "bound_by": q4_rows[1]["bound_by"], "library_ms": None,
          "shape": f"q4, B=1 L={L} E={E} F={F}, {per_step} launches per step"},
+        {"name": "mm8_a8", "route": "cuda", "source": "rwkv_tpu_torch/csrc/mm8_a8.cu",
+         "replaces": "rwkv_tpu/ops/pallas/mm8.py:141", "launches": k5_head_launches,
+         "max_abs_err": a8_rows[1]["err"], "ms": a8_rows[1]["ms"],
+         "plain_ms": a8_rows[1]["plain_ms"], "bound_ms": a8_rows[1]["bound_ms"],
+         "bound_by": a8_rows[1]["bound_by"], "library_ms": a8_rows[1]["lib_ms"],
+         "shape": f"B=1 K={K} O={O}; library: torch._int_mm on 24 rows"},
+        {"name": "decode_stack_a8", "route": "cuda",
+         "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
+         "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k5_stack_launches,
+         "max_abs_err": a8_stack_rows[1]["err"], "ms": a8_stack_rows[1]["ms"],
+         "plain_ms": a8_stack_rows[1]["plain_ms"], "bound_ms": a8_stack_rows[1]["bound_ms"],
+         "bound_by": a8_stack_rows[1]["bound_by"], "library_ms": None,
+         "shape": f"a8, B=1 L={L} E={E} F={F} a8_block {blk}, {per_step} launches per step"},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

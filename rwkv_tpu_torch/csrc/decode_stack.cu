@@ -1,8 +1,9 @@
-// One RWKV-v4 decode step over all L layers: q8 (kernel K1) or q4 (kernel K4).
+// One RWKV-v4 decode step over all L layers: q8 (kernel K1), q4 (kernel K4)
+// or W8A8 (the stack of kernel K5).
 //
 // Replaces rwkv_tpu/ops/pallas/decode_stack.py:_decode_stack_kernel, its q8
-// branch and its q4 branch (_dot4/_fold4), reached through decode_stack() and
-// forward_step_fused().
+// branch, its q4 branch (_dot4/_fold4) and its a8 branch (_quant_rows,
+// _dot_s8), reached through decode_stack() and forward_step_fused().
 //
 // Bound on the card: the weight bytes, L * 13 * E^2 in q8 (327 MB at 430M)
 // and half that in q4 (164 MB), read once per step, over device memory
@@ -36,8 +37,34 @@
 // [L, K / 2, O] (qmv.cuh's Q4 instantiation). att.output and ffn.value pair
 // rows within their `block` (halves[] below), the others globally.
 //
+// In a8 (a8_block > 0) the launches are the same again; every matvec
+// quantizes its input to int8 codes while staging it and runs s8 x s8 -> s32
+// dot products (qmv.cuh's A8 instantiation). The inputs of att k/v/r, ffn
+// key/receptance and the head are quantized per batch row over all E
+// channels: their row kernels write each row's max|x * scale|. The inputs of
+// att.output and ffn.value are quantized per block of a8_block channels, as
+// the TPU kernel quantizes each of its `tile`-wide slices: their producers
+// (the WKV and relu^2 epilogues, 128 columns a block) write one max per
+// 128-column tile, and the consumer takes the max of a block's tiles. So no
+// extra launch, and no extra pass over the activations.
+//
+// A code is a rounding of the f32 value before it, and at RWKV-4 430M with
+// random weights a code one apart changes the logits by ~2e-2 a few layers on
+// (as much as a8 itself does). So the arithmetic up to every quantization is
+// that of the plain version (ops/cuda/decode_stack.py's decode_stack_plain),
+// bit for bit: the matvecs' exact integer sums scaled per block in its order
+// (qmv.cuh), the LayerNorms' mean and variance and every rank-1 offset sum in
+// double, rounded once (a double sum's order moves the f32 result only at a
+// rounding tie), and each elementwise f32 operation rounded on its own in the
+// plain version's order (__fmul_rn and friends: no contraction into FMAs).
+// q8 and q4 share the epilogues; their row kernels keep f32 sums
+// (row_kernel<false>: the double sums add ~1.4 us a launch on an H100 80GB
+// HBM3 at 700 W, PERF.md), within f32 rounding of the plain version.
+//
 // The new state is written to separate output tensors: the input state is
 // never modified, as in the JAX function.
+#include <type_traits>
+
 #include "qmv.cuh"
 
 namespace rwkv {
@@ -58,30 +85,55 @@ struct RowArgs {
   const float* mix[3];       // [E]
   float* mixed[3];           // [B, E] mixed matvec inputs
   const float* offset[3];    // [E] offset vector of the matrix that reads mixed[j]
-  float* off[3];             // [B] its rank-1 term, sum_i mixed[j][b, i] * offset[j][i]
+  double* off[3];            // [B] its rank-1 term, sum_i mixed[j][b, i] * offset[j][i]
   int nmix;
   const float* head_scale;   // ROW_HEAD: xs_h = ln_out(x) * head_scale,
-  float* xs_h;               // [B, E]   and off[0] = ln_out(x) . offset[0]
-};
+  float* xs_h;               // [B, E]   and off_h = ln_out(x) . offset[0]
+  float* off_h;              // [B]
+  const float* qscale[3];    // a8: [E] scale vector of the matrix that reads mixed[j]
+  float* amax[3];            // a8: [B] max_i |mixed[j][b, i] * qscale[j][i]|
+};                           //   (ROW_HEAD: amax[0] = max_i |xs_h[b, i]|)
 
-__device__ __forceinline__ float row_sum(float v, float* scratch) {
-  float t[1] = {v};
+template <typename T>
+__device__ __forceinline__ T row_sum(T v, T* scratch) {
+  T t[1] = {v};
   block_sums<1>(t, scratch);
   return t[0];
 }
 
 // LayerNorm of the row in v[0:E] (shared memory), in place; eps 1e-8.
-__device__ void row_layer_norm(float* v, int E, const float* w, const float* b, float* scratch) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) s += v[i];
-  const float mean = row_sum(s, scratch) / (float)E;
-  float q = 0.f;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    const float c = v[i] - mean;
-    q = fmaf(c, c, q);
+// EXACT (the a8 step): the arithmetic of ops/layernorm.py, mean and variance
+// summed in double (exact products; the order of a double sum moves the f32
+// result only at a rounding tie), each f32 operation rounded on its own.
+// Else f32 sums and rsqrtf, within f32 rounding of it.
+template <bool EXACT>
+__device__ void row_layer_norm(float* v, int E, const float* w, const float* b,
+                               std::conditional_t<EXACT, double, float>* scratch) {
+  if constexpr (EXACT) {
+    double s = 0.0;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) s += (double)v[i];
+    const float mean = (float)(row_sum(s, scratch) / (double)E);
+    double q = 0.0;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) {
+      const double c = (double)__fsub_rn(v[i], mean);
+      q += c * c;
+    }
+    const float var = (float)(row_sum(q, scratch) / (double)E);
+    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-8f)));
+    for (int i = threadIdx.x; i < E; i += blockDim.x)
+      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rs), w[i]), b[i]);
+  } else {
+    float s = 0.f;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) s += v[i];
+    const float mean = row_sum(s, scratch) / (float)E;
+    float q = 0.f;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) {
+      const float c = v[i] - mean;
+      q = fmaf(c, c, q);
+    }
+    const float rs = rsqrtf(row_sum(q, scratch) / (float)E + 1e-8f);
+    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = (v[i] - mean) * rs * w[i] + b[i];
   }
-  const float rs = rsqrtf(row_sum(q, scratch) / (float)E + 1e-8f);
-  for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = (v[i] - mean) * rs * w[i] + b[i];
   __syncthreads();
 }
 
@@ -89,10 +141,13 @@ constexpr int kRowThreads = 1024;
 
 // One block per batch row, one thread per element up to 1024: LayerNorm, the
 // token-shift mixes, and the whole rank-1 offset sums of the matrices that
-// read the mixed rows.
+// read the mixed rows (EXACT: in double, rounded once by the consumer).
+template <bool EXACT>
 __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
+  using acc_t = std::conditional_t<EXACT, double, float>;
   extern __shared__ float v[];  // [E]
   __shared__ float scratch[3 * 33];
+  __shared__ acc_t ascratch[3 * 33];
   const int b = blockIdx.x, E = a.E;
   float* xrow = a.x + (size_t)b * E;
   if (a.tokens) {
@@ -101,19 +156,22 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
     const float* er = a.emb + (size_t)t * E;
     for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = er[i];
     __syncthreads();
-    row_layer_norm(v, E, a.ln0_w, a.ln0_b, scratch);
+    row_layer_norm<EXACT>(v, E, a.ln0_w, a.ln0_b, ascratch);
     for (int i = threadIdx.x; i < E; i += blockDim.x) xrow[i] = v[i];
   } else {
     for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = xrow[i];
     __syncthreads();
   }
-  row_layer_norm(v, E, a.ln_w, a.ln_b, scratch);
+  row_layer_norm<EXACT>(v, E, a.ln_w, a.ln_b, ascratch);
 
-  float sums[3] = {0.f, 0.f, 0.f};
+  acc_t sums[3] = {0, 0, 0};  // EXACT: exact products, summed in double
+  float maxes[3] = {0.f, 0.f, 0.f};
   if (a.mode == ROW_HEAD) {
     for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      a.xs_h[(size_t)b * E + i] = v[i] * a.head_scale[i];
-      sums[0] = fmaf(v[i], a.offset[0][i], sums[0]);
+      const float xs = v[i] * a.head_scale[i];
+      a.xs_h[(size_t)b * E + i] = xs;
+      sums[0] += (acc_t)v[i] * (acc_t)a.offset[0][i];
+      if constexpr (EXACT) maxes[0] = fmaxf(maxes[0], fabsf(xs));
     }
   } else {
     const float* prev = a.prev + (size_t)b * E;
@@ -124,18 +182,33 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
       for (int j = 0; j < 3; ++j) {
         if (j < a.nmix) {
           const float mj = a.mix[j][i];
-          const float m = mj * xx + (1.f - mj) * p;
+          float m;
+          if constexpr (EXACT) {
+            // mix * xx + (1 - mix) * prev, each operation rounded on its own
+            m = __fadd_rn(__fmul_rn(mj, xx), __fmul_rn(__fsub_rn(1.f, mj), p));
+            maxes[j] = fmaxf(maxes[j], fabsf(m * a.qscale[j][i]));
+          } else {
+            m = mj * xx + (1.f - mj) * p;
+          }
           a.mixed[j][(size_t)b * E + i] = m;
-          sums[j] = fmaf(m, a.offset[j][i], sums[j]);
+          sums[j] += (acc_t)m * (acc_t)a.offset[j][i];
         }
       }
       prev_out[i] = xx;
     }
   }
-  block_sums<3>(sums, scratch);
+  block_sums<3>(sums, ascratch);
+  if constexpr (EXACT) block_maxes<3>(maxes, scratch);
   if (threadIdx.x == 0) {
-    const int n = a.mode == ROW_HEAD ? 1 : a.nmix;
-    for (int j = 0; j < n; ++j) a.off[j][b] = sums[j];
+    if (a.mode == ROW_HEAD) {
+      a.off_h[b] = (float)sums[0];
+      if constexpr (EXACT) a.amax[0][b] = maxes[0];
+    } else {
+      for (int j = 0; j < a.nmix; ++j) {
+        a.off[j][b] = (double)sums[j];
+        if constexpr (EXACT) a.amax[j][b] = maxes[j];
+      }
+    }
   }
 }
 
@@ -153,8 +226,10 @@ enum Ptr : int {
   P_XY_IN, P_AA_IN, P_BB_IN, P_PP_IN, P_DD_IN,
   P_XY_OUT, P_AA_OUT, P_BB_OUT, P_PP_OUT, P_DD_OUT,
   P_X, P_XK, P_XV, P_XR, P_RWKV, P_FK, P_FR, P_KK, P_XS_H, P_OFF_H,
-  P_OFFS,       // [5, B]: rank-1 terms of k, v, r, ffn key, ffn receptance
-  P_OFF_PARTS,  // [E/128 + F/128, B]: per-tile partials for att.output, ffn.value
+  P_OFFS,       // [5, B] double: rank-1 terms of k, v, r, ffn key, ffn receptance
+  P_OFF_PARTS,  // [E/128 + F/128, B] double: per-tile partials for att.output, ffn.value
+  P_AMAX,       // [6, B], a8: row maxima of the inputs of k, v, r, ffn key, ffn r, head
+  P_AMAX_PARTS, // [E/128 + F/128, B], a8: per-tile maxima of att.output's, ffn.value's input
   P_PARTIAL, P_COUNTERS,
   P_COUNT
 };
@@ -173,13 +248,18 @@ extern "C" int rwkv_decode_stack_pointer_count() { return P_COUNT; }
 // none) and the number of kernels launched in *n_launched. q4: the weight
 // pointers are nibble-packed [L, K / 2, O], and halves[7] gives half the
 // pairing block of att key, value, receptance, output, ffn key, value,
-// receptance, in rows (K / 2 for global pairing).
+// receptance, in rows (K / 2 for global pairing). a8_block > 0: W8A8, with
+// att.output's and ffn.value's inputs quantized per block of a8_block
+// channels (a multiple of 128 that divides E and F); q8 weights only.
 extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E, int F,
-                                 int n_emb, int q4, const int* halves, long long partial_cap,
-                                 int counter_cap, int target_blocks, void* stream,
-                                 int* n_launched) {
+                                 int n_emb, int q4, const int* halves, int a8_block,
+                                 long long partial_cap, int counter_cap, int target_blocks,
+                                 void* stream, int* n_launched) {
   *n_launched = 0;
   if (n_ptrs != P_COUNT) return (int)cudaErrorInvalidValue;
+  const bool a8 = a8_block > 0;
+  if (a8 && (q4 || a8_block % kTileO || E % a8_block || F % a8_block))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [&](int i) { return static_cast<float*>(p[i]); };
   auto i8 = [&](int i) { return static_cast<const int8_t*>(p[i]); };
@@ -191,24 +271,38 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
   const size_t row_smem = (size_t)E * sizeof(float);
   const int row_threads = E < kRowThreads ? (E + 31) / 32 * 32 : kRowThreads;
   if (row_smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)row_smem);
-    if (e != cudaSuccess) return (int)e;
+    for (auto* k : {row_kernel<false>, row_kernel<true>}) {
+      cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)row_smem);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
+  // a8: the row kernels repeat the plain version's arithmetic exactly
+  auto rows = [&](const RowArgs& r) {
+    if (a8)
+      row_kernel<true><<<B, row_threads, row_smem, st>>>(r);
+    else
+      row_kernel<false><<<B, row_threads, row_smem, st>>>(r);
+    return cudaGetLastError();
+  };
   const int tiles_e = (E + kTileO - 1) / kTileO;
-  float* offs = f(P_OFFS);
-  float* off_out = f(P_OFF_PARTS);                    // [tiles_e, B]
-  float* off_val = off_out + (size_t)tiles_e * B;     // [F / 128, B]
+  auto d = [&](int i) { return static_cast<double*>(p[i]); };
+  double* offs = d(P_OFFS);
+  double* off_out = d(P_OFF_PARTS);                   // [tiles_e, B]
+  double* off_val = off_out + (size_t)tiles_e * B;    // [F / 128, B]
   float* partial = f(P_PARTIAL);
   int* counters = static_cast<int*>(p[P_COUNTERS]);
+  float* amax = a8 ? f(P_AMAX) : nullptr;                      // [6, B]
+  float* amax_out = a8 ? f(P_AMAX_PARTS) : nullptr;            // [tiles_e, B]
+  float* amax_val = a8 ? amax_out + (size_t)tiles_e * B : nullptr;  // [F / 128, B]
 
   auto done = [&](cudaError_t e) -> int {  // after each launch
     ++*n_launched;
     return (int)e;
   };
-  auto mat = [](const float* x, const float* s, const float* off, int n_off, const int8_t* w,
+  auto mat = [](const float* x, const float* s, const double* off, int n_off, const int8_t* w,
                 int K, int half) {
-    Mat m;
+    Mat m = {};
     m.x = x;
     m.scale = s;
     m.off = off;
@@ -218,9 +312,17 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     m.half = half;
     return m;
   };
+  // a8: where matrix m's input maxima are (n parts over its K) and its block
+  auto quant = [&](Mat& m, float* parts, int n, int qblock) {
+    if (!a8) return;
+    m.amax = parts;
+    m.n_amax = n;
+    m.qblock = qblock;
+  };
   auto launch = [&](const QmvArgs& q) {
-    return q4 ? launch_qmv<true>(q, partial_cap, counter_cap, target_blocks, st)
-              : launch_qmv<false>(q, partial_cap, counter_cap, target_blocks, st);
+    if (a8) return launch_qmv<kA8>(q, partial_cap, counter_cap, target_blocks, st);
+    return q4 ? launch_qmv<kQ4>(q, partial_cap, counter_cap, target_blocks, st)
+              : launch_qmv<kQ8>(q, partial_cap, counter_cap, target_blocks, st);
   };
   auto qmv = [&](int nmat, int O, int epi, float* out) {
     QmvArgs q = {};
@@ -255,15 +357,17 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     const int mixes[3] = {P_ATT_MIX_K, P_ATT_MIX_V, P_ATT_MIX_R};
     const int outs[3] = {P_XK, P_XV, P_XR};
     const int offsets[3] = {P_ATT_K_O, P_ATT_V_O, P_ATT_R_O};
+    const int scales[3] = {P_ATT_K_S, P_ATT_V_S, P_ATT_R_S};
     for (int j = 0; j < 3; ++j) {
       ra.mix[j] = f(mixes[j]) + lE;
       ra.mixed[j] = f(outs[j]);
       ra.offset[j] = f(offsets[j]) + lE;
       ra.off[j] = offs + (size_t)j * B;
+      ra.qscale[j] = f(scales[j]) + lE;
+      ra.amax[j] = a8 ? amax + (size_t)j * B : nullptr;
     }
     ra.nmix = 3;
-    row_kernel<<<B, row_threads, row_smem, st>>>(ra);
-    if ((err = done(cudaGetLastError()))) return err;
+    if ((err = done(rows(ra)))) return err;
 
     QmvArgs q = qmv(3, E, EPI_WKV, f(P_RWKV));
     q.m[0] = mat(f(P_XK), f(P_ATT_K_S) + lE, offs, 1, i8(P_ATT_K_W) + l * EE, E, hv[0]);
@@ -280,11 +384,17 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     q.bonus = f(P_BONUS) + lE;
     q.next_offset = f(P_ATT_O_O) + lE;
     q.next_off = off_out;
+    for (int j = 0; j < 3; ++j) quant(q.m[j], amax + (a8 ? (size_t)j * B : 0), 1, E);
+    if (a8) {
+      q.next_scale = f(P_ATT_O_S) + lE;
+      q.next_amax = amax_out;
+    }
     if ((err = done(launch(q)))) return err;
 
     QmvArgs o = qmv(1, E, EPI_ADD, f(P_X));
     o.m[0] = mat(f(P_RWKV), f(P_ATT_O_S) + lE, off_out, tiles_e, i8(P_ATT_O_W) + l * EE, E,
                  hv[3]);
+    quant(o.m[0], amax_out, tiles_e, a8_block);
     if ((err = done(launch(o)))) return err;
 
     RowArgs rf = {};
@@ -305,15 +415,23 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
     rf.offset[1] = f(P_FFN_R_O) + lE;
     rf.off[0] = offs + 3 * B;
     rf.off[1] = offs + 4 * B;
+    rf.qscale[0] = f(P_FFN_K_S) + lE;
+    rf.qscale[1] = f(P_FFN_R_S) + lE;
+    rf.amax[0] = a8 ? amax + 3 * B : nullptr;
+    rf.amax[1] = a8 ? amax + 4 * B : nullptr;
     rf.nmix = 2;
-    row_kernel<<<B, row_threads, row_smem, st>>>(rf);
-    if ((err = done(cudaGetLastError()))) return err;
+    if ((err = done(rows(rf)))) return err;
 
     QmvArgs k = qmv(1, F, EPI_RELU2, f(P_KK));
     k.m[0] = mat(f(P_FK), f(P_FFN_K_S) + lE, offs + 3 * B, 1, i8(P_FFN_K_W) + l * EF, E,
                  hv[4]);
     k.next_offset = f(P_FFN_V_O) + lF;
     k.next_off = off_val;
+    quant(k.m[0], amax + (a8 ? 3 * B : 0), 1, E);
+    if (a8) {
+      k.next_scale = f(P_FFN_V_S) + lF;
+      k.next_amax = amax_val;
+    }
     if ((err = done(launch(k)))) return err;
 
     QmvArgs v = qmv(2, E, EPI_GATED_ADD, f(P_X));
@@ -321,6 +439,8 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
                  i8(P_FFN_V_W) + l * EF, F, hv[5]);
     v.m[1] = mat(f(P_FR), f(P_FFN_R_S) + lE, offs + 4 * B, 1, i8(P_FFN_R_W) + l * EE, E,
                  hv[6]);
+    quant(v.m[0], amax_val, (F + kTileO - 1) / kTileO, a8_block);
+    quant(v.m[1], amax + (a8 ? 4 * B : 0), 1, E);
     if ((err = done(launch(v)))) return err;
   }
 
@@ -334,8 +454,8 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
   rh.ln_b = f(P_LN_OUT_B);
   rh.head_scale = f(P_HEAD_S);
   rh.offset[0] = f(P_HEAD_O);
-  rh.off[0] = f(P_OFF_H);
+  rh.off_h = f(P_OFF_H);
   rh.xs_h = f(P_XS_H);
-  row_kernel<<<B, row_threads, row_smem, st>>>(rh);
-  return done(cudaGetLastError());
+  rh.amax[0] = a8 ? amax + 5 * B : nullptr;
+  return done(rows(rh));
 }

@@ -44,6 +44,6 @@ extern "C" int rwkv_mm4(const void* xs, const void* wp, void* out, const void* r
   a.col_add = static_cast<const float*>(col_add);
   a.partial = static_cast<float*>(partial);
   a.counters = static_cast<int*>(counters);
-  return (int)launch_qmv<true>(a, partial_cap, counter_cap, target_blocks,
+  return (int)launch_qmv<kQ4>(a, partial_cap, counter_cap, target_blocks,
                                static_cast<cudaStream_t>(stream));
 }

@@ -39,6 +39,6 @@ extern "C" int rwkv_mm8(const void* xs, const void* w, void* out, const void* ro
   a.col_add = static_cast<const float*>(col_add);
   a.partial = static_cast<float*>(partial);
   a.counters = static_cast<int*>(counters);
-  return (int)launch_qmv<false>(a, partial_cap, counter_cap, target_blocks,
+  return (int)launch_qmv<kQ8>(a, partial_cap, counter_cap, target_blocks,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Quantized-weight matvec tile shared by the mm8, mm4 and decode_stack kernels.
+// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8 and decode_stack
+// kernels.
 //
 // Computes, for up to three matrices that share an output width O,
 //
@@ -23,6 +24,29 @@
 // Q4 one such load is 16 columns of two contraction rows; the split of the
 // contraction below runs over packed rows, and each packed row stages the
 // activations of its two rows, so a split may start anywhere in a block.
+//
+// W8A8 (FMT kA8, kernel K5): W is int8 as in q8, and the activations are
+// quantized to int8 while they are staged: code = clip(rint(v / s), -127, 127)
+// with v = x * scale and s = max|v| / 127 (floored at 1e-30) over a block of
+// qblock input channels of the batch row (the whole row, or a block of a
+// row-tiled family). The producer of x leaves max|v| as partial maxima over
+// equal column ranges (Mat::amax: one per row from the row kernels, one per
+// 128-column tile from the epilogues), so the consumer takes the max of a
+// block's parts: a max is exact in any order. Each thread's 4 weight rows of
+// a group (rows ks + 32u) are transposed by byte-permutes into 16 words of 4
+// rows each, one per column, and __dp4a multiplies them by the 4 packed codes
+// of those rows into int32 sums: exact. With blocks smaller than K, a split of
+// the contraction covers a power of two of rows up to 128, or a multiple of
+// 128 (mat_split), so every 128-row group lies inside one block.
+//
+// On the short path (a split of at most 128 rows) a split's sum stays an
+// exact integer (at most 128 * 127^2, exact in float through the block's
+// reduction); the reduction adds the integers of each block's splits, then
+// takes sum_j float(int_j) * s_j over the blocks in order, each product and
+// sum rounded once: the plain version's arithmetic (ops/cuda/mm8.py's
+// mm8_a8_plain), so the decode stack's matvecs give its bits. On the long
+// path (the head: one split of all K rows) each 4-row integer sum is scaled
+// into a float accumulator, within f32 rounding of the plain version.
 //
 // Layout of a block (256 threads): 8 column threads x 16 columns = a tile of
 // 128 output columns; 32 row slices walk the contraction dim, each thread
@@ -56,6 +80,10 @@ constexpr int kChunkK = 512;                             // staged rows, long pa
 constexpr int kMaxMats = 3;
 constexpr int kMaxSplit = 32;
 
+// Weight formats: int8 rows (q8), nibble-packed rows (q4), int8 rows times
+// int8 activation codes (a8).
+enum Fmt : int { kQ8 = 0, kQ4 = 1, kA8 = 2 };
+
 enum Epilogue : int {
   EPI_STORE = 0,      // out = acc0 (+ row_add[b]) (+ col_add[c])
   EPI_WKV = 1,        // mats k, v, r: WKV step on aa/bb/pp, out = sigmoid(r) * y
@@ -67,22 +95,28 @@ enum Epilogue : int {
 struct Mat {
   const float* x;        // [B, K] activations
   const float* scale;    // [K], or null: x is already scaled
-  const float* off;      // [n_off, B] partials of the rank-1 term, or null
+  const double* off;     // [n_off, B] partials of the rank-1 term (double), or null
   int n_off;
   const int8_t* w;       // [K, O] int8 row-major; Q4: [K / 2, O] packed
   int K;
   int half;              // Q4: half the pairing block, in rows (K / 2: global)
+  const float* amax;     // A8: [n_amax, B] partial max|x * scale| over equal column ranges
+  int n_amax;
+  int qblock;            // A8: input channels per activation scale (K, or a multiple of 128)
+  int8_t* codes;         // A8, or null: [B, K] the codes, written by column tile 0
 };
 
 // Weight rows of a matrix: K, or K / 2 packed rows in Q4.
-template <bool Q4>
-__device__ __host__ __forceinline__ int mat_rows(const Mat& m) { return Q4 ? m.K / 2 : m.K; }
+template <int FMT>
+__device__ __host__ __forceinline__ int mat_rows(const Mat& m) {
+  return FMT == kQ4 ? m.K / 2 : m.K;
+}
 
 // The contraction row that packed row j's low (hi = 0) or high (hi = 1)
-// nibble holds; in q8 row j itself.
-template <bool Q4>
+// nibble holds; in q8 and a8 row j itself.
+template <int FMT>
 __device__ __forceinline__ int src_row(const Mat& m, int j, int hi) {
-  if constexpr (!Q4) return j;
+  if constexpr (FMT != kQ4) return j;
   const int blk = j / m.half;
   return blk * 2 * m.half + (j - blk * m.half) + hi * m.half;
 }
@@ -102,7 +136,9 @@ struct QmvArgs {
   const float* decay;           // EPI_WKV: [O]
   const float* bonus;
   const float* next_offset;     // [O] or null: offset vector of the matrix that reads `out`
-  float* next_off;              // [gridDim.x, B]: per-tile sum_c out[b, c] * next_offset[c]
+  double* next_off;             // [gridDim.x, B]: per-tile sum_c out[b, c] * next_offset[c]
+  const float* next_scale;      // [O] or null: scale vector of the a8 matrix that reads `out`
+  float* next_amax;             // [gridDim.x, B]: per-tile max_c |out[b, c] * next_scale[c]|
   float* partial;               // [S, nmat, B, O] when gridDim.y > 1
   int* counters;                // [gridDim.x], zero between launches
 };
@@ -113,10 +149,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // N sums over the block (up to 1024 threads, a multiple of 32) at once, each
-// in a fixed order; every thread gets the results. scratch holds N * 33 floats.
-template <int N>
-__device__ __forceinline__ void block_sums(float (&v)[N], float* scratch) {
+// in a fixed order; every thread gets the results. scratch holds N * 33 values.
+template <int N, typename T>
+__device__ __forceinline__ void block_sums(T (&v)[N], T* scratch) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < N; ++j) v[j] = warp_sum(v[j]);
@@ -128,7 +170,7 @@ __device__ __forceinline__ void block_sums(float (&v)[N], float* scratch) {
   if (wid == 0) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      float t = lane < (int)(blockDim.x >> 5) ? scratch[j * 32 + lane] : 0.f;
+      T t = lane < (int)(blockDim.x >> 5) ? scratch[j * 32 + lane] : T(0);
       t = warp_sum(t);
       if (lane == 0) scratch[N * 32 + j] = t;
     }
@@ -138,7 +180,40 @@ __device__ __forceinline__ void block_sums(float (&v)[N], float* scratch) {
   for (int j = 0; j < N; ++j) v[j] = scratch[N * 32 + j];
 }
 
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// As block_sums, for maxima.
+template <int N>
+__device__ __forceinline__ void block_maxes(float (&v)[N], float* scratch) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = warp_max(v[j]);
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < N; ++j) scratch[j * 32 + wid] = v[j];
+  __syncthreads();
+  if (wid == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float t = lane < (int)(blockDim.x >> 5) ? scratch[j * 32 + lane] : 0.f;
+      t = warp_max(t);
+      if (lane == 0) scratch[N * 32 + j] = t;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = scratch[N * 32 + j];
+}
+
+// torch.sigmoid's float arithmetic
+__device__ __forceinline__ float sigmoidf_(float x) {
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
+}
 
 // 16 int8 -> 16 float, exactly: (x ^ 0x80) is x + 128 as an unsigned byte;
 // placed in the low mantissa byte of 2^23 it reads as 2^23 + x + 128.
@@ -173,28 +248,108 @@ __device__ __forceinline__ void widen16_q4(const int4& v, float (&lo)[16], float
 
 // Staged activations a thread block holds: kMaxMats matrices of one 128-row
 // group (twice that in Q4: each packed row stages two rows), or one chunk.
-template <int BT, bool Q4>
+// (A8 stages one byte per row in the same space.)
+template <int BT, int FMT>
 constexpr int xs_floats() {
-  constexpr int group = kMaxMats * (Q4 ? 2 : 1) * kGroupRows;
+  constexpr int group = kMaxMats * (FMT == kQ4 ? 2 : 1) * kGroupRows;
   return BT * (group > kChunkK ? group : kChunkK);
 }
 
-template <int BT, bool Q4>
+template <int BT, int FMT>
 struct QmvSmem {
-  float xs[xs_floats<BT, Q4>()];       // staged, scaled activations
+  float xs[xs_floats<BT, FMT>()];      // staged, scaled activations (A8: int8 codes)
   float red[kWarps][BT][kTileO];       // per-warp partial sums
   float res[kMaxMats][BT][kTileO];     // the tile's sums, before the epilogue
   float offs[kMaxMats][BT];
-  float contrib[BT][kTileO];           // out * next_offset, per column
+  double contrib[BT][kTileO];          // out * next_offset, per column
+  float amaxc[BT][kTileO];             // |out * next_scale|, per column
+  float qs[kChunkK / kGroupRows * BT]; // A8: activation scales of the staged groups
+  // A8, short path: the scale of each split's block, per matrix and batch row,
+  // and each split's block (-1: an empty split)
+  float bscale[FMT == kA8 ? kMaxMats * BT * kMaxSplit : 1];
+  int sblock[FMT == kA8 ? kMaxMats * kMaxSplit : 1];
   int last;
 };
 
+// A8: the activation scale of the block holding input row k of batch row b.
+__device__ __forceinline__ float a8_scale(const Mat& m, int B, int b, int k) {
+  const int parts = m.n_amax * m.qblock / m.K;  // partial maxima per block
+  const float* p = m.amax + (size_t)(k / m.qblock) * parts * B + b;
+  float mx = 0.f;
+  for (int i = 0; i < parts; ++i) mx = fmaxf(mx, p[(size_t)i * B]);
+  return fmaxf(mx / 127.f, 1e-30f);
+}
+
+// A8: round half to even, as the JAX package's jnp.round; a true division.
+__device__ __forceinline__ int a8_code(float v, float s) {
+  return min(127, max(-127, __float2int_rn(v / s)));
+}
+
+// A8: where the code of row r of a 128-row group goes in its 128 staged
+// bytes: word r % 32 holds rows r % 32 + 32u in byte u, the 4 rows whose
+// weights one thread holds.
+__device__ __forceinline__ int a8_slot(int r) { return (r & 31) * 4 + ((r >> 5) & 3); }
+
+// A8: the 4 weight rows of wv (rows ks + 32u of a group) as 16 words of 4
+// rows each, one per column: a 4x4 byte transpose per 4 columns.
+__device__ __forceinline__ void a8_transpose(const int4 (&wv)[kUnroll],
+                                             int (&t)[kColsPerThread]) {
+  const int a[4] = {wv[0].x, wv[0].y, wv[0].z, wv[0].w};
+  const int b[4] = {wv[1].x, wv[1].y, wv[1].z, wv[1].w};
+  const int c[4] = {wv[2].x, wv[2].y, wv[2].z, wv[2].w};
+  const int d[4] = {wv[3].x, wv[3].y, wv[3].z, wv[3].w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // columns 4q..4q+3
+    const unsigned ab_lo = __byte_perm(a[q], b[q], 0x5140), ab_hi = __byte_perm(a[q], b[q], 0x7362);
+    const unsigned cd_lo = __byte_perm(c[q], d[q], 0x5140), cd_hi = __byte_perm(c[q], d[q], 0x7362);
+    t[q * 4 + 0] = (int)__byte_perm(ab_lo, cd_lo, 0x5410);
+    t[q * 4 + 1] = (int)__byte_perm(ab_lo, cd_lo, 0x7632);
+    t[q * 4 + 2] = (int)__byte_perm(ab_hi, cd_hi, 0x5410);
+    t[q * 4 + 3] = (int)__byte_perm(ab_hi, cd_hi, 0x7632);
+  }
+}
+
+// A8, short path: iacc[bi][j] += sum_u code(row u, bi) * W[row u, col + j],
+// exactly, for the 4 rows of wv; xw[bi * bstride] packs their 4 codes.
+template <int BT>
+__device__ __forceinline__ void accumulate_a8(int (&iacc)[BT][kColsPerThread],
+                                              const int4 (&wv)[kUnroll], const int* xw,
+                                              int bstride) {
+  int t[kColsPerThread];
+  a8_transpose(wv, t);
+#pragma unroll
+  for (int bi = 0; bi < BT; ++bi) {
+    const int x = xw[bi * bstride];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) iacc[bi][j] = __dp4a(t[j], x, iacc[bi][j]);
+  }
+}
+
+// A8, long path: acc[bi][j] += s[bi * sstride] * (the same 4-row sum), the
+// group's exact integer (at most 4 * 127^2) scaled into a float accumulator:
+// one accumulator a column, as in q8, not two.
+template <int BT>
+__device__ __forceinline__ void accumulate_a8_scaled(float (&acc)[BT][kColsPerThread],
+                                                     const int4 (&wv)[kUnroll], const int* xw,
+                                                     int bstride, const float* s, int sstride) {
+  int t[kColsPerThread];
+  a8_transpose(wv, t);
+#pragma unroll
+  for (int bi = 0; bi < BT; ++bi) {
+    const int x = xw[bi * bstride];
+    const float sc = s[bi * sstride];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j)
+      acc[bi][j] = fmaf(__int2float_rn(__dp4a(t[j], x, 0)), sc, acc[bi][j]);
+  }
+}
+
 // acc[bi][j] += xs[bi * bstride] * W[row, col + j]; in Q4 also
 // + xs[bi * bstride + hoff] * (the high nibbles' row)
-template <int BT, bool Q4>
+template <int BT, int FMT>
 __device__ __forceinline__ void accumulate(float (&acc)[BT][kColsPerThread], const int4& wv,
                                            const float* xs, int bstride, int hoff) {
-  if constexpr (Q4) {
+  if constexpr (FMT == kQ4) {
     float lo[kColsPerThread], hi[kColsPerThread];
     widen16_q4(wv, lo, hi);
 #pragma unroll
@@ -219,9 +374,9 @@ __device__ __forceinline__ void accumulate(float (&acc)[BT][kColsPerThread], con
 // Sum acc over the block's 32 row slices: the 4 slices of a warp by shuffles
 // (lane = slice * 8 + column thread), then the 8 warps through shared
 // memory. Writes dst[bi * stride + c] for the tile's columns c < O - col0.
-template <int BT, bool Q4>
+template <int BT, int FMT>
 __device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int col0,
-                            QmvSmem<BT, Q4>& sm, float* dst, int stride) {
+                            QmvSmem<BT, FMT>& sm, float* dst, int stride) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, ct = tid % kColThreads;
 #pragma unroll
   for (int bi = 0; bi < BT; ++bi)
@@ -250,8 +405,21 @@ __device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int
   __syncthreads();
 }
 
-__device__ __forceinline__ void split_range(int K, int s, int S, int& k0, int& k1) {
-  const int rows = (K + S - 1) / S;
+// Weight rows [k0, k1) of split s of S. In A8 with blocks smaller than K,
+// every 128-row group of a split lies inside one activation block.
+template <int FMT>
+__device__ __forceinline__ void mat_split(const Mat& m, int s, int S, int& k0, int& k1) {
+  const int K = mat_rows<FMT>(m);
+  int rows = (K + S - 1) / S;
+  if (FMT == kA8 && m.qblock < m.K) {
+    if (rows <= kGroupRows) {
+      int p = 1;
+      while (p < rows) p <<= 1;
+      rows = p;  // divides kGroupRows, which divides the block
+    } else {
+      rows = (rows + kGroupRows - 1) / kGroupRows * kGroupRows;
+    }
+  }
   k0 = min(K, s * rows);
   k1 = min(K, k0 + rows);
 }
@@ -260,11 +428,11 @@ __device__ __forceinline__ void split_range(int K, int s, int S, int& k0, int& k
 // contraction, where that share is at most kGroupRows weight rows: all
 // weight loads first, then the activations, one barrier, the FMAs. Matrix
 // m's sums go to dst[m * mstride + bi * stride + c].
-template <int BT, bool Q4>
+template <int BT, int FMT>
 __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s, int S,
-                              QmvSmem<BT, Q4>& sm, float* dst, size_t mstride, int stride) {
-  constexpr int R = Q4 ? 2 : 1;           // staged rows per weight row
-  constexpr int G = R * kGroupRows;       // staged floats per matrix and batch row
+                              QmvSmem<BT, FMT>& sm, float* dst, size_t mstride, int stride) {
+  constexpr int R = FMT == kQ4 ? 2 : 1;   // staged rows per weight row
+  constexpr int G = R * kGroupRows;       // staged values per matrix and batch row
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
   const int col = col0 + ct * kColsPerThread;
   const bool col_ok = col < a.O;  // O % 16 == 0: a column group is all in or all out
@@ -275,7 +443,7 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
     for (int u = 0; u < kUnroll; ++u) wv[m][u] = make_int4(0, 0, 0, 0);
     if (m < a.nmat && col_ok) {
       int k0, k1;
-      split_range(mat_rows<Q4>(a.m[m]), s, S, k0, k1);
+      mat_split<FMT>(a.m[m], s, S, k0, k1);
       const int8_t* wb = a.m[m].w + (size_t)k0 * a.O + col;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -284,21 +452,41 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
       }
     }
   }
+  if constexpr (FMT == kA8) {
+    // the split lies inside one activation block: one scale per (m, bi)
+    if (tid < a.nmat * BT) {
+      const int m = tid / BT, bi = tid - m * BT;
+      int k0, k1;
+      mat_split<FMT>(a.m[m], s, S, k0, k1);
+      sm.qs[tid] = bi < nb && k0 < k1 ? a8_scale(a.m[m], a.B, b0 + bi, k0) : 1.f;
+    }
+    __syncthreads();
+  }
   for (int m = 0; m < a.nmat; ++m) {
     const Mat& mt = a.m[m];
     int k0, k1;
-    split_range(mat_rows<Q4>(mt), s, S, k0, k1);
+    mat_split<FMT>(mt, s, S, k0, k1);
     const int rows = k1 - k0;
     for (int i = tid; i < BT * G; i += kThreads) {
       const int bi = i / G, rr = i - bi * G;
       const int hi = rr / kGroupRows, r = rr - hi * kGroupRows;
       float v = 0.f;
+      int k = 0;
       if (bi < nb && r < rows) {
-        const int k = src_row<Q4>(mt, k0 + r, hi);
+        k = src_row<FMT>(mt, k0 + r, hi);
         v = mt.x[(size_t)(b0 + bi) * mt.K + k];
         if (mt.scale) v *= mt.scale[k];
       }
-      sm.xs[(m * BT + bi) * G + rr] = v;
+      if constexpr (FMT == kA8) {
+        int q = 0;
+        if (bi < nb && r < rows) {
+          q = a8_code(v, sm.qs[m * BT + bi]);
+          if (mt.codes && blockIdx.x == 0) mt.codes[(size_t)(b0 + bi) * mt.K + k] = (int8_t)q;
+        }
+        reinterpret_cast<int8_t*>(sm.xs)[(m * BT + bi) * G + a8_slot(r)] = (int8_t)q;
+      } else {
+        sm.xs[(m * BT + bi) * G + rr] = v;
+      }
     }
   }
   __syncthreads();
@@ -310,21 +498,37 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
     for (int bi = 0; bi < BT; ++bi)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = 0.f;
+    if constexpr (FMT == kA8) {
+      // the split's exact integer sum, unscaled (see the A8 note above)
+      int iacc[BT][kColsPerThread];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      accumulate<BT, Q4>(acc, wv[m][u], &sm.xs[m * BT * G + ks + u * kKSlices], G, kGroupRows);
-    reduce_tile<BT, Q4>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
+      for (int bi = 0; bi < BT; ++bi)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) iacc[bi][j] = 0;
+      accumulate_a8<BT>(iacc, wv[m], reinterpret_cast<const int*>(sm.xs) + m * BT * (G / 4) + ks,
+                        G / 4);
+#pragma unroll
+      for (int bi = 0; bi < BT; ++bi)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) acc[bi][j] = __int2float_rn(iacc[bi][j]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        accumulate<BT, FMT>(acc, wv[m][u], &sm.xs[m * BT * G + ks + u * kKSlices], G, kGroupRows);
+    }
+    reduce_tile<BT, FMT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
   }
 }
 
 // One matrix over weight rows [k0, k1) of any length: activations staged in
 // chunks of kChunkK floats per batch row (CR weight rows), and the loads of
 // the next 128-row group issued before the FMAs of the current one.
-template <int BT, bool Q4>
-__device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int k0, int k1,
-                             QmvSmem<BT, Q4>& sm, float* dst, int stride) {
-  constexpr int R = Q4 ? 2 : 1;
+template <int BT, int FMT>
+__device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int nb, int k0,
+                             int k1, QmvSmem<BT, FMT>& sm, float* dst, int stride) {
+  constexpr int R = FMT == kQ4 ? 2 : 1;
   constexpr int CR = kChunkK / R;
+  constexpr int NG = kChunkK / kGroupRows;  // A8: groups per chunk
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
   const int col = col0 + ct * kColsPerThread;
   const bool col_ok = col < O;
@@ -345,16 +549,38 @@ __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int
                                : make_int4(0, 0, 0, 0);
     }
     __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < BT * R * kn; i += kThreads) {
-      const int bi = i / (R * kn), rr = i - bi * R * kn;
-      const int hi = rr / kn, k = rr - hi * kn;
-      float v = 0.f;
-      if (bi < nb) {
-        const int row = src_row<Q4>(mt, kc + k, hi);
-        v = mt.x[(size_t)(b0 + bi) * mt.K + row];
-        if (mt.scale) v *= mt.scale[row];
+    if constexpr (FMT == kA8) {
+      // each 128-row group lies inside one activation block
+      if (tid < BT * NG) {
+        const int bi = tid / NG, g = tid - bi * NG;
+        sm.qs[tid] = bi < nb && g * kGroupRows < kn
+                         ? a8_scale(mt, B, b0 + bi, kc + g * kGroupRows) : 1.f;
       }
-      sm.xs[bi * kChunkK + hi * CR + k] = v;
+      __syncthreads();
+      for (int i = tid; i < BT * kn; i += kThreads) {
+        const int bi = i / kn, k = i - bi * kn;
+        int q = 0;
+        if (bi < nb) {
+          float v = mt.x[(size_t)(b0 + bi) * mt.K + kc + k];
+          if (mt.scale) v *= mt.scale[kc + k];
+          q = a8_code(v, sm.qs[bi * NG + k / kGroupRows]);
+          if (mt.codes && blockIdx.x == 0) mt.codes[(size_t)(b0 + bi) * mt.K + kc + k] = (int8_t)q;
+        }
+        reinterpret_cast<int8_t*>(sm.xs)[bi * kChunkK + (k & ~(kGroupRows - 1)) + a8_slot(k)] =
+            (int8_t)q;
+      }
+    } else {
+      for (int i = tid; i < BT * R * kn; i += kThreads) {
+        const int bi = i / (R * kn), rr = i - bi * R * kn;
+        const int hi = rr / kn, k = rr - hi * kn;
+        float v = 0.f;
+        if (bi < nb) {
+          const int row = src_row<FMT>(mt, kc + k, hi);
+          v = mt.x[(size_t)(b0 + bi) * mt.K + row];
+          if (mt.scale) v *= mt.scale[row];
+        }
+        sm.xs[bi * kChunkK + hi * CR + k] = v;
+      }
     }
     __syncthreads();
     for (int g = 0; g < kn; g += kGroupRows) {
@@ -365,39 +591,54 @@ __device__ void partial_long(const Mat& mt, int O, int col0, int b0, int nb, int
         nx[u] = col_ok && r < kn ? __ldcs(reinterpret_cast<const int4*>(wb + (size_t)r * O))
                                  : make_int4(0, 0, 0, 0);
       }
+      if constexpr (FMT == kA8) {
+        // rows past kn have zero weights, whatever codes their bytes hold
+        accumulate_a8_scaled<BT>(acc, wv, reinterpret_cast<const int*>(sm.xs) + (g >> 2) + ks,
+                                 kChunkK / 4, &sm.qs[g / kGroupRows], NG);
+      } else {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = g + ks + u * kKSlices;
-        if (r < kn) accumulate<BT, Q4>(acc, wv[u], &sm.xs[r], kChunkK, CR);
+        for (int u = 0; u < kUnroll; ++u) {
+          const int r = g + ks + u * kKSlices;
+          if (r < kn) accumulate<BT, FMT>(acc, wv[u], &sm.xs[r], kChunkK, CR);
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) wv[u] = nx[u];
     }
   }
-  reduce_tile<BT, Q4>(acc, nb, O, col0, sm, dst, stride);
+  reduce_tile<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
 }
 
-template <int BT, bool Q4>
+// A8, short path: r = sum_j float(int_j) * s_j over the blocks in order, the
+// plain version's rounding (no contraction).
+__device__ __forceinline__ void a8_block_term(float& r, bool& first, int isum, float s) {
+  const float t = __fmul_rn(__int2float_rn(isum), s);
+  r = first ? t : __fadd_rn(r, t);
+  first = false;
+}
+
+template <int BT, int FMT>
 __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
-  __shared__ QmvSmem<BT, Q4> sm;
+  __shared__ QmvSmem<BT, FMT> sm;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, col0 = tile * kTileO;
   const int S = gridDim.y, s = blockIdx.y;
   const int nbg = (a.B + BT - 1) / BT;
   int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m) kmax = max(kmax, mat_rows<Q4>(a.m[m]));
+  for (int m = 0; m < a.nmat; ++m) kmax = max(kmax, mat_rows<FMT>(a.m[m]));
   const bool short_path = (kmax + S - 1) / S <= kGroupRows;
   const size_t sstride = (size_t)a.nmat * a.B * a.O;  // one split's partials
 
   // This block's partial sums for batch rows [b0, b0 + nb) into dst.
   auto partials = [&](int b0, int nb, float* dst, size_t mstride, int stride) {
     if (short_path) {
-      partial_short<BT, Q4>(a, col0, b0, nb, s, S, sm, dst, mstride, stride);
+      partial_short<BT, FMT>(a, col0, b0, nb, s, S, sm, dst, mstride, stride);
     } else {
       for (int m = 0; m < a.nmat; ++m) {
         int k0, k1;
-        split_range(mat_rows<Q4>(a.m[m]), s, S, k0, k1);
-        partial_long<BT, Q4>(a.m[m], a.O, col0, b0, nb, k0, k1, sm, dst + m * mstride, stride);
+        mat_split<FMT>(a.m[m], s, S, k0, k1);
+        partial_long<BT, FMT>(a.m[m], a.B, a.O, col0, b0, nb, k0, k1, sm, dst + m * mstride,
+                              stride);
       }
     }
   };
@@ -417,11 +658,39 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
     __threadfence();
   }
 
+  constexpr bool kA8Fmt = FMT == kA8;
+  const bool a8_raw = kA8Fmt && short_path;  // partials are unscaled integers
   for (int g = 0; g < nbg; ++g) {
     const int b0 = g * BT, nb = min(BT, a.B - b0);
+    if constexpr (kA8Fmt) {
+      if (a8_raw) {
+        for (int i = tid; i < a.nmat * BT * S; i += kThreads) {
+          const int m = i / (BT * S), rem = i - m * BT * S, bi = rem / S, ss = rem - bi * S;
+          int k0, k1;
+          mat_split<FMT>(a.m[m], ss, S, k0, k1);
+          const bool live = k0 < k1;
+          sm.bscale[(m * BT + bi) * kMaxSplit + ss] =
+              live && bi < nb ? a8_scale(a.m[m], a.B, b0 + bi, k0) : 0.f;
+          if (bi == 0) sm.sblock[m * kMaxSplit + ss] = live ? k0 / a.m[m].qblock : -1;
+        }
+        // read below, after the partials' barriers
+      }
+    }
     if (S == 1) {
       partials(b0, nb, &sm.res[0][0][0], (size_t)BT * kTileO, kTileO);
+      if constexpr (kA8Fmt) {
+        if (a8_raw) {
+          for (int i = tid; i < a.nmat * nb * kTileO; i += kThreads) {
+            const int m = i / (nb * kTileO), rem = i - m * nb * kTileO;
+            const int bi = rem / kTileO, c = rem - bi * kTileO;
+            sm.res[m][bi][c] = __fmul_rn(sm.res[m][bi][c], sm.bscale[(m * BT + bi) * kMaxSplit]);
+          }
+        }
+      }
     } else {
+      if constexpr (kA8Fmt) {
+        if (a8_raw) __syncthreads();  // bscale and sblock are written
+      }
       for (int i = tid; i < a.nmat * nb * kTileO; i += kThreads) {
         const int m = i / (nb * kTileO), rem = i - m * nb * kTileO;
         const int bi = rem / kTileO, c = rem - bi * kTileO;
@@ -431,78 +700,115 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
 #pragma unroll
         for (int ss = 0; ss < kMaxSplit; ++ss) v[ss] = ss < S ? __ldcg(p + ss * sstride) : 0.f;
         float sum = 0.f;
+        bool summed = false;
+        if constexpr (kA8Fmt) {
+          if (a8_raw) {
+            // the integers of each block's splits, then the blocks in order
+            bool first = true;
+            int isum = 0, cur = -1;
+            float sc = 0.f;
 #pragma unroll
-        for (int ss = 0; ss < kMaxSplit; ++ss) sum += v[ss];
+            for (int ss = 0; ss < kMaxSplit; ++ss) {
+              const int blk = ss < S ? sm.sblock[m * kMaxSplit + ss] : -1;
+              if (blk < 0) continue;
+              if (blk != cur) {
+                if (cur >= 0) a8_block_term(sum, first, isum, sc);
+                cur = blk;
+                isum = 0;
+                sc = sm.bscale[(m * BT + bi) * kMaxSplit + ss];
+              }
+              isum += __float2int_rn(v[ss]);
+            }
+            if (cur >= 0) a8_block_term(sum, first, isum, sc);
+            summed = true;
+          }
+        }
+        if (!summed) {
+#pragma unroll
+          for (int ss = 0; ss < kMaxSplit; ++ss) sum += v[ss];
+        }
         sm.res[m][bi][c] = sum;
       }
     }
     if (tid < a.nmat * BT) {
       const int m = tid / BT, bi = tid - m * BT;
       const Mat& mt = a.m[m];
-      float v = 0.f;
+      double v = 0.0;
       if (bi < nb && mt.off) {
 #pragma unroll 8
         for (int p = 0; p < mt.n_off; ++p) v += __ldcg(mt.off + (size_t)p * a.B + b0 + bi);
       }
-      sm.offs[m][bi] = v;
+      sm.offs[m][bi] = (float)v;  // the rank-1 term summed in double, rounded once
     }
     __syncthreads();
 
     for (int i = tid; i < nb * kTileO; i += kThreads) {
       const int bi = i / kTileO, c = i - bi * kTileO, gc = col0 + c;
-      sm.contrib[bi][c] = 0.f;
+      sm.contrib[bi][c] = 0.0;
+      sm.amaxc[bi][c] = 0.f;
       if (gc >= a.O) continue;
       const size_t idx = (size_t)(b0 + bi) * a.O + gc;
-      const float v0 = sm.res[0][bi][c] + sm.offs[0][bi];
+      // each operation rounded on its own, in the plain version's order
+      const float v0 = __fadd_rn(sm.res[0][bi][c], sm.offs[0][bi]);
       float o = 0.f;
       switch (a.epi) {
         case EPI_STORE:
           o = v0;
-          if (a.row_add) o += a.row_add[b0 + bi];
-          if (a.col_add) o += a.col_add[gc];
+          if (a.row_add) o = __fadd_rn(o, a.row_add[b0 + bi]);
+          if (a.col_add) o = __fadd_rn(o, a.col_add[gc]);
           break;
         case EPI_ADD:
-          o = a.out[idx] + v0;
+          o = __fadd_rn(a.out[idx], v0);
           break;
         case EPI_RELU2: {
           const float r = fmaxf(v0, 0.f);
-          o = r * r;
+          o = __fmul_rn(r, r);
           break;
         }
         case EPI_GATED_ADD:
-          o = a.out[idx] + sigmoidf_(sm.res[1][bi][c] + sm.offs[1][bi]) * v0;
+          o = __fadd_rn(a.out[idx],
+                        __fmul_rn(sigmoidf_(__fadd_rn(sm.res[1][bi][c], sm.offs[1][bi])), v0));
           break;
         case EPI_WKV: {
+          // ops/wkv.py::wkv_step, operation for operation
           const float k = v0;
-          const float v = sm.res[1][bi][c] + sm.offs[1][bi];
-          const float r = sm.res[2][bi][c] + sm.offs[2][bi];
+          const float v = __fadd_rn(sm.res[1][bi][c], sm.offs[1][bi]);
+          const float r = __fadd_rn(sm.res[2][bi][c], sm.offs[2][bi]);
           const float aa = a.aa_in[idx], bb = a.bb_in[idx], pp = a.pp_in[idx];
-          const float ww = a.bonus[gc] + k;
+          const float ww = __fadd_rn(a.bonus[gc], k);
           const float q = fmaxf(pp, ww);
-          const float e1 = expf(pp - q), e2 = expf(ww - q);
-          const float y = (e1 * aa + e2 * v) / (e1 * bb + e2);
-          const float ww2 = pp + a.decay[gc];
+          const float e1 = expf(__fsub_rn(pp, q)), e2 = expf(__fsub_rn(ww, q));
+          const float y = __fdiv_rn(__fadd_rn(__fmul_rn(e1, aa), __fmul_rn(e2, v)),
+                                    __fadd_rn(__fmul_rn(e1, bb), e2));
+          const float ww2 = __fadd_rn(pp, a.decay[gc]);
           const float p2 = fmaxf(ww2, k);
-          const float f1 = expf(ww2 - p2), f2 = expf(k - p2);
-          a.aa_out[idx] = f1 * aa + f2 * v;
-          a.bb_out[idx] = f1 * bb + f2;
+          const float f1 = expf(__fsub_rn(ww2, p2)), f2 = expf(__fsub_rn(k, p2));
+          a.aa_out[idx] = __fadd_rn(__fmul_rn(f1, aa), __fmul_rn(f2, v));
+          a.bb_out[idx] = __fadd_rn(__fmul_rn(f1, bb), f2);
           a.pp_out[idx] = p2;
-          o = sigmoidf_(r) * y;
+          o = __fmul_rn(sigmoidf_(r), y);
           break;
         }
       }
       a.out[idx] = o;
-      if (a.next_offset) sm.contrib[bi][c] = o * a.next_offset[gc];
+      if (a.next_offset) sm.contrib[bi][c] = (double)o * (double)a.next_offset[gc];  // exact
+      if (a.next_amax) sm.amaxc[bi][c] = fabsf(o * a.next_scale[gc]);
     }
-    if (a.next_offset) {
+    if (a.next_offset || a.next_amax) {
       __syncthreads();
       const int lane = tid & 31, wid = tid >> 5;
       if (wid < nb) {  // one warp per batch row, a fixed order
-        float v = 0.f;
+        double v = 0.0;
+        float mx = 0.f;
 #pragma unroll
-        for (int j = 0; j < kTileO / 32; ++j) v += sm.contrib[wid][lane + 32 * j];
+        for (int j = 0; j < kTileO / 32; ++j) {
+          v += sm.contrib[wid][lane + 32 * j];
+          mx = fmaxf(mx, sm.amaxc[wid][lane + 32 * j]);
+        }
         v = warp_sum(v);
-        if (lane == 0) a.next_off[(size_t)tile * a.B + b0 + wid] = v;
+        mx = warp_max(mx);
+        if (lane == 0 && a.next_offset) a.next_off[(size_t)tile * a.B + b0 + wid] = v;
+        if (lane == 0 && a.next_amax) a.next_amax[(size_t)tile * a.B + b0 + wid] = mx;
       }
     }
     __syncthreads();  // res/offs/contrib are rewritten by the next batch group
@@ -526,21 +832,23 @@ inline int qmv_split(int tiles, int kmax, int nmat, int B, int O, long long part
   return S < 1 ? 1 : S;
 }
 
-// Q4: every matrix of `a` is nibble-packed (Mat::w [K / 2, O], Mat::half set).
-template <bool Q4>
+// FMT kQ4: every matrix of `a` is nibble-packed (Mat::w [K / 2, O], Mat::half
+// set); kA8: every matrix has its amax parts and qblock set.
+template <int FMT>
 inline cudaError_t launch_qmv(const QmvArgs& a, long long partial_cap, int counter_cap,
                               int target_blocks, cudaStream_t st) {
   const int tiles = (a.O + kTileO - 1) / kTileO;
   int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m) kmax = mat_rows<Q4>(a.m[m]) > kmax ? mat_rows<Q4>(a.m[m]) : kmax;
+  for (int m = 0; m < a.nmat; ++m)
+    kmax = mat_rows<FMT>(a.m[m]) > kmax ? mat_rows<FMT>(a.m[m]) : kmax;
   const int S = qmv_split(tiles, kmax, a.nmat, a.B, a.O, partial_cap, counter_cap, target_blocks);
   const dim3 grid(tiles, S);
   if (a.B <= 1)
-    qmv_kernel<1, Q4><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<1, FMT><<<grid, kThreads, 0, st>>>(a);
   else if (a.B <= 2)
-    qmv_kernel<2, Q4><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
   else
-    qmv_kernel<4, Q4><<<grid, kThreads, 0, st>>>(a);
+    qmv_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

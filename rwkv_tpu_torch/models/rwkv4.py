@@ -170,11 +170,28 @@ def _layer(params: RWKVParams, i: int):
             map_params(params.att, pick), map_params(params.ffn, pick))
 
 
+def _ragged(length) -> bool:
+    return torch.is_tensor(length) and length.dim() > 0
+
+
 def _last_valid(xx: torch.Tensor, length) -> torch.Tensor:
-    """xx at the last valid position (the carried token-shift state)."""
+    """xx at the last valid position (the carried token-shift state). length:
+    a scalar, or [B] per-stream lengths with xx [T, B, E] (ragged batched
+    prefill; a zero-length lane reads position 0, which _carry_valid drops)."""
     if length is None:
         return xx[-1]
+    if _ragged(length):
+        idx = (length.to(xx.device) - 1).clamp(min=0).long()
+        return xx[idx, torch.arange(xx.shape[1], device=xx.device)]
     return xx[int(length) - 1]
+
+
+def _carry_valid(new: torch.Tensor, old: torch.Tensor, length) -> torch.Tensor:
+    """Ragged prefill: a stream with no valid token in this chunk keeps its
+    previous token-shift state."""
+    if not _ragged(length):
+        return new
+    return torch.where((length.to(new.device) > 0)[:, None], new, old)
 
 
 def _att_seq(x, att: AttParams, ln: LNParams, xy, chan, *, parallel, mask,
@@ -187,7 +204,7 @@ def _att_seq(x, att: AttParams, ln: LNParams, xy, chan, *, parallel, mask,
     wkv_fn = wkv_parallel if parallel else wkv_scan
     y, chan = wkv_fn(k, v, chan, att.decay, att.bonus, mask)
     out = _matmul(torch.sigmoid(r) * y, att.output)
-    return x + out, _last_valid(xx, length), chan
+    return x + out, _carry_valid(_last_valid(xx, length), xy, length), chan
 
 
 def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length):
@@ -197,25 +214,30 @@ def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length):
     r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * prev
     gate = torch.sigmoid(_matmul(r_in, ffn.receptance))
     kk = torch.square(torch.relu(_matmul(k_in, ffn.key)))
-    return x + gate * _matmul(kk, ffn.value), _last_valid(xx, length)
+    return x + gate * _matmul(kk, ffn.value), _carry_valid(_last_valid(xx, length), dd, length)
 
 
-def _att_step(x, att: AttParams, ln: LNParams, xy, chan):
+def _att_step(x, att: AttParams, ln: LNParams, xy, chan, mm=_matmul, mm_rows=_matmul):
+    """One token through the attention half. mm: the product of the
+    column-sliced families (k, v, r), mm_rows: att.output's; the plain W8A8
+    step (ops/cuda/decode_stack.py) passes its own."""
     xx = layer_norm(x, ln.weight, ln.bias)
-    k = _matmul(att.mix_k * xx + (1 - att.mix_k) * xy, att.key)
-    v = _matmul(att.mix_v * xx + (1 - att.mix_v) * xy, att.value)
-    r = _matmul(att.mix_r * xx + (1 - att.mix_r) * xy, att.receptance)
+    k = mm(att.mix_k * xx + (1 - att.mix_k) * xy, att.key)
+    v = mm(att.mix_v * xx + (1 - att.mix_v) * xy, att.value)
+    r = mm(att.mix_r * xx + (1 - att.mix_r) * xy, att.receptance)
     y, chan = wkv_step(k, v, chan, att.decay, att.bonus)
-    return x + _matmul(torch.sigmoid(r) * y, att.output), xx, chan
+    return x + mm_rows(torch.sigmoid(r) * y, att.output), xx, chan
 
 
-def _ffn_step(x, ffn: FFNParams, ln: LNParams, dd):
+def _ffn_step(x, ffn: FFNParams, ln: LNParams, dd, mm=_matmul, mm_rows=_matmul):
+    """One token through the FFN half; mm, mm_rows as in _att_step (mm_rows:
+    ffn.value's product)."""
     xx = layer_norm(x, ln.weight, ln.bias)
     k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * dd
     r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * dd
-    gate = torch.sigmoid(_matmul(r_in, ffn.receptance))
-    kk = torch.square(torch.relu(_matmul(k_in, ffn.key)))
-    return x + gate * _matmul(kk, ffn.value), xx
+    gate = torch.sigmoid(mm(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(mm(k_in, ffn.key)))
+    return x + gate * mm_rows(kk, ffn.value), xx
 
 
 def _head(params: RWKVParams, x):
@@ -231,17 +253,26 @@ def forward_seq(params: RWKVParams, tokens: torch.Tensor, state: WKVState, *,
                 length: int | None = None) -> Tuple[torch.Tensor, WKVState]:
     """Run a token sequence (GPT mode). tokens: [T] or [T, B].
 
-    length: optional scalar count of valid leading tokens; later positions
-    are padding whose state updates are no-ops (bucketed prefill).
+    length: optional count of valid leading tokens; later positions are
+    padding whose state updates are no-ops (bucketed prefill). A scalar, or
+    with tokens [T, B] and parallel=True a [B] tensor of per-stream lengths
+    (ragged batched prefill: a zero-length stream keeps its state).
     Returns (logits for the last valid position, or [T, ..., V] with
     return_all_logits; new state). The input state is not modified."""
     x = layer_norm(params.emb[tokens].float(), params.ln0.weight, params.ln0.bias)
     T = x.shape[0]
     mask = None
     if length is not None:
-        if torch.is_tensor(length) and length.dim() > 0:
-            raise ValueError("forward_seq takes a scalar length")
-        mask = torch.arange(T, device=x.device) < int(length)
+        if _ragged(length):
+            if not parallel:
+                raise ValueError("per-stream lengths need parallel=True")
+            if length.dim() != 1 or x.dim() != 3 or length.shape[0] != x.shape[1]:
+                raise ValueError(f"length {tuple(length.shape)} does not fit tokens "
+                                 f"{tuple(tokens.shape)}")
+            length = length.to(x.device)
+            mask = torch.arange(T, device=x.device)[:, None] < length[None, :]
+        else:
+            mask = torch.arange(T, device=x.device) < int(length)
 
     new = {f: [] for f in WKVState._fields}
     for i in range(params.n_layer):
@@ -341,6 +372,24 @@ def q4_pack_block(n_embd: int) -> int:
     for t in (n_embd, 512, 512, 384, 256, 128):
         if (n_embd % t == 0 and t % 128 == 0 and (t == n_embd or t <= 512)
                 and 12 * n_embd * t <= 15 * 1024 * 1024):
+            return t
+    if n_embd % 128 == 0:
+        return 128
+    raise ValueError(f"n_embd {n_embd} not divisible by any 128-multiple block")
+
+
+def a8_block_for(n_embd: int) -> int:
+    """The W8A8 activation-quantization block of the row-tiled families
+    (att.output, ffn.value) that the JAX engine's fused a8 step uses: its
+    decode tile, pick_tile(E) = E where 16 * E^2 <= 15 MiB, else the widest of
+    512, 384, 256, 128 that divides E and fits that budget (512 at 430M, 768
+    at E = 768, 256 at E = 2048 and 2560). Each block of that many input
+    channels gets its own int8 scale, so the block changes the numbers: it is
+    a numerical parameter of a8 decode, kept so that the port's a8 step gives
+    the JAX engine's results, not a tile model of the card."""
+    for t in (n_embd, 512, 512, 384, 256, 128):
+        if (n_embd % t == 0 and t % 128 == 0 and (t == n_embd or t <= 512)
+                and 16 * n_embd * t <= 15 * 1024 * 1024):
             return t
     if n_embd % 128 == 0:
         return 128

@@ -1,5 +1,5 @@
-"""One decode step over all L layers, q8 (kernel K1) or q4 (kernel K4)
-(counterpart of rwkv_tpu/ops/pallas/decode_stack.py).
+"""One decode step over all L layers, q8 (kernel K1), q4 (kernel K4) or W8A8
+(the stack of kernel K5) (counterpart of rwkv_tpu/ops/pallas/decode_stack.py).
 
 `decode_stack(params, token, state)` runs the embedding gather + ln0, every
 layer (ln1, token-shift mix, k/v/r matvecs, WKV step, out-projection; ln2,
@@ -16,6 +16,18 @@ Bound on the card: the layers' weight bytes, L * 13 * E^2 in q8 (327 MB at
 adds E * Vp (52 MB; 26 MB in q4). The kernel reads each weight byte once per
 step; csrc/decode_stack.cu describes the launch sequence (6 per layer, plus
 one for ln_out).
+
+a8=True runs every matvec as W8A8, as the JAX kernel's a8 branch does: the
+input of each matvec is quantized to int8 codes with a dynamic symmetric
+scale, and the codes times the int8 weights are summed exactly. The inputs of
+att k/v/r, ffn key/receptance and the head get one scale per batch row; those
+of att.output and ffn.value one per block of `a8_block` channels, where the
+JAX kernel quantizes each of its `tile`-wide slices. So the block is a
+numerical parameter: the JAX engine's is models.rwkv4.a8_block_for(E) (512
+at 430M), the default here; it must be a multiple of 128 that divides E.
+a8 with 4-bit weights raises. head_a8=True runs only the head as W8A8 (in
+the JAX package it applies to its standalone head, which the port always
+uses).
 
 In q4, att.output and ffn.value may pair rows within any even block that
 divides their K (ops.quant.Quant4Linear); the other families must pair
@@ -42,17 +54,20 @@ from rwkv_tpu_torch.models.rwkv4 import (
     _att_step,
     _ffn_step,
     _layer,
+    a8_block_for,
 )
 from rwkv_tpu_torch.ops.cuda import _build
 from rwkv_tpu_torch.ops.cuda.mm4 import block_half, mm4
-from rwkv_tpu_torch.ops.cuda.mm8 import mm8
+from rwkv_tpu_torch.ops.cuda.mm8 import mm8, mm8_a8, mm8_a8_plain
 from rwkv_tpu_torch.ops.layernorm import layer_norm
-from rwkv_tpu_torch.ops.quant import Quant4Linear
+from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState
 
-# kernel launches, for showing that a path ran on the kernel: q8 (K1), q4 (K4)
+# kernel launches, for showing that a path ran on the kernel: q8 (K1), q4
+# (K4), a8 (K5's stack)
 launches = 0
 launches_q4 = 0
+launches_a8 = 0
 
 _lib = None
 
@@ -73,7 +88,7 @@ _POINTERS = (
     "xy", "aa", "bb", "pp", "dd",
     "xy_out", "aa_out", "bb_out", "pp_out", "dd_out",
     "x", "xk", "xv", "xr", "rwkv", "fk", "fr", "kk", "xs_h", "off_h",
-    "offs", "off_parts", "partial", "counters",
+    "offs", "off_parts", "amax", "amax_parts", "partial", "counters",
 )
 _PARAM_NAMES = _POINTERS[1:40]
 # The matrix families in the order of rwkv_decode_stack()'s halves[], and
@@ -89,7 +104,7 @@ def _kernel():
         lib = _build.load("decode_stack")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rwkv_decode_stack.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I,
-                                          ctypes.POINTER(I), ctypes.c_longlong, I, I, P,
+                                          ctypes.POINTER(I), I, ctypes.c_longlong, I, I, P,
                                           ctypes.POINTER(I)]
         lib.rwkv_decode_stack.restype = I
         lib.rwkv_decode_stack_pointer_count.argtypes = []
@@ -187,7 +202,9 @@ class _Prepared:
             tiles = -(-E // 128) + -(-F // 128)  # column tiles of 128 (csrc/qmv.cuh)
             s = {"xk": z(B, E), "xv": z(B, E), "xr": z(B, E), "rwkv": z(B, E),
                  "fk": z(B, E), "fr": z(B, E), "kk": z(B, F),
-                 "offs": z(5, B), "off_parts": z(tiles, B)}
+                 # the rank-1 offset terms are summed in double
+                 "offs": z(5, B).double(), "off_parts": z(tiles, B).double(),
+                 "amax": z(6, B), "amax_parts": z(tiles, B)}
             self.scratch[B] = s
         return s
 
@@ -202,31 +219,68 @@ def _prepare(params: RWKVParams) -> _Prepared:
     return _prepared
 
 
-def decode_stack_plain(params: RWKVParams, token: torch.Tensor, state: WKVState):
+def _a8_block(params: RWKVParams, a8_block) -> int:
+    """The checked a8 block of the row-tiled families' inputs."""
+    if isinstance(params.att.key, Quant4Linear):
+        raise ValueError("a8 and 4-bit weights are mutually exclusive")
+    E, F = params.n_embd, params.ffn.key.out_features
+    block = a8_block_for(E) if a8_block is None else int(a8_block)
+    if block <= 0 or block % 128 or E % block or F % block:
+        raise ValueError(f"a8_block {block} must be a multiple of 128 that divides E ({E}) "
+                         f"and F ({F})")
+    return block
+
+
+def _offset_term(x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """x . offset per row, summed in double (exact products) and rounded
+    once, as the kernels sum the rank-1 term."""
+    return (x.double() @ offset.double()).float()
+
+
+def _qmm_a8(x: torch.Tensor, lin: QuantLinear, block: int | None = None) -> torch.Tensor:
+    """W8A8 x @ lin: x * scale quantized per row (or per `block` channels),
+    the exact integer product, plus the rank-1 offset term."""
+    return mm8_a8_plain(x * lin.scale, lin.w, block=block) + _offset_term(x, lin.offset)[:, None]
+
+
+def decode_stack_plain(params: RWKVParams, token: torch.Tensor, state: WKVState, *,
+                       a8: bool = False, a8_block: int | None = None):
     """The plain PyTorch version: returns (y [B, E], new state,
     xs_h [B, E] = ln_out(y) * head.scale, off_h [B] = ln_out(y) . head.offset)."""
+    mms = ()  # the products: f32-widening, or a8
+    if a8:  # the column-sliced families quantize per row, the row-tiled per block
+        block = _a8_block(params, a8_block)
+        mms = (_qmm_a8, lambda x, lin: _qmm_a8(x, lin, block))
     x = layer_norm(params.emb[token.long()].float(), params.ln0.weight, params.ln0.bias)
     new = {f: [] for f in WKVState._fields}
     for i in range(params.n_layer):
         ln1, ln2, att, ffn = _layer(params, i)
-        x, xy, chan = _att_step(x, att, ln1, state.xy[i],
-                                WKVChannelState(state.aa[i], state.bb[i], state.pp[i]))
-        x, dd = _ffn_step(x, ffn, ln2, state.dd[i])
+        chan = WKVChannelState(state.aa[i], state.bb[i], state.pp[i])
+        x, xy, chan = _att_step(x, att, ln1, state.xy[i], chan, *mms)
+        x, dd = _ffn_step(x, ffn, ln2, state.dd[i], *mms)
         for f, val in zip(WKVState._fields, (xy, chan.aa, chan.bb, chan.pp, dd)):
             new[f].append(val)
     h = layer_norm(x, params.ln_out.weight, params.ln_out.bias)
     return (x, WKVState(*(torch.stack(new[f]) for f in WKVState._fields)),
-            h * params.head.scale, h @ params.head.offset)
+            h * params.head.scale, _offset_term(h, params.head.offset))
 
 
-def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState):
+def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState, *,
+                 a8: bool = False, a8_block: int | None = None):
     """One decode step for B streams. token: [B] ints; state leaves [L, B, E].
     Returns (y [B, E], new state, xs_h [B, E], off_h [B]) as decode_stack_plain."""
+    return _decode(params, token, state, a8, a8_block)[:4]
+
+
+def _decode(params, token, state, a8, a8_block):
+    """decode_stack, and the row maxima of xs_h [B] that the a8 head reads
+    (None on the CPU and without a8)."""
     if params.emb.device.type == "cpu" and token.device.type == "cpu":
         if isinstance(params.att.key, Quant4Linear):
             _q4_halves(params)  # the same format checks as the kernel's
-        return decode_stack_plain(params, token, state)
-    global launches, launches_q4
+        return decode_stack_plain(params, token, state, a8=a8, a8_block=a8_block) + (None,)
+    global launches, launches_q4, launches_a8
+    block = _a8_block(params, a8_block) if a8 else 0
     prep = _prepare(params)
     dev = prep.device
     if dev.type != "cuda":
@@ -250,37 +304,47 @@ def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState):
              + [t.data_ptr() for t in state] + [t.data_ptr() for t in new_state]
              + [y.data_ptr()] + [buf[n].data_ptr() for n in ("xk", "xv", "xr", "rwkv", "fk",
                                                                "fr", "kk")]
-             + [xs_h.data_ptr(), off_h.data_ptr(), buf["offs"].data_ptr(),
-                buf["off_parts"].data_ptr(), partial.data_ptr(), counters.data_ptr()])
+             + [xs_h.data_ptr(), off_h.data_ptr()]
+             + [buf[n].data_ptr() for n in ("offs", "off_parts", "amax", "amax_parts")]
+             + [partial.data_ptr(), counters.data_ptr()])
     lib = _kernel()
     arr = (ctypes.c_void_p * len(table))(*table)
     halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
     n = ctypes.c_int(0)
     err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
-                                partial.numel(), counters.numel(), target,
+                                block, partial.numel(), counters.numel(), target,
                                 torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n))
-    if prep.q4:
+    if block:
+        launches_a8 += n.value
+    elif prep.q4:
         launches_q4 += n.value
     else:
         launches += n.value
     _build.check(lib, err, "decode_stack")
-    return y, new_state, xs_h, off_h
+    return y, new_state, xs_h, off_h, buf["amax"][5] if block else None
 
 
-def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState
+def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState, *,
+                       a8: bool = False, head_a8: bool = False, a8_block: int | None = None
                        ) -> Tuple[torch.Tensor, WKVState]:
-    """Full decode step on kernels K1 (layers) and K2 (head), or in q4 on K4
-    and K3, + logit_bias.
+    """Full decode step on kernels K1 (layers) and K2 (head), in q4 on K4 and
+    K3, with a8 on K5 (stack and head), + logit_bias.
 
     token: scalar (state leaves [L, E]) or [B] (state leaves [L, B, E]).
-    Returns (logits [..., Vp], new state), as models.rwkv4.forward_step."""
+    a8: every matvec W8A8 (a8_block: see the module docstring); head_a8:
+    only the head. Returns (logits [..., Vp], new state), as
+    models.rwkv4.forward_step."""
     unbatched = token.dim() == 0
     tok = token.reshape(1) if unbatched else token
     st = WKVState(*(s[:, None] for s in state)) if unbatched else state
-    _, new_state, xs_h, off_h = decode_stack(params, tok, st)
+    _, new_state, xs_h, off_h, amax_h = _decode(params, tok, st, a8, a8_block)
     head = params.head
     if isinstance(head, Quant4Linear):
+        if head_a8:
+            raise ValueError("head_a8 needs an int8 head; this one is 4-bit")
         logits = mm4(xs_h, head.wp, block=head.block, row_add=off_h, col_add=params.logit_bias)
+    elif a8 or head_a8:
+        logits = mm8_a8(xs_h, head.w, row_add=off_h, col_add=params.logit_bias, amax=amax_h)
     else:
         logits = mm8(xs_h, head.w, row_add=off_h, col_add=params.logit_bias)
     if unbatched:

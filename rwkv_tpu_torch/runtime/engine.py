@@ -6,9 +6,10 @@
     load_context(prompt)                tokenize + bucketed prefill
     generate(prompt, max_tokens, ...)   typical sampling, one decode step per token
 
-Decode runs `forward_step_fused`: on CUDA the hand-written kernels K1
-(decode stack) and K2 (int8 head), or K4 and K3 for 4-bit weights; on the
-CPU their plain PyTorch versions.
+Decode runs the engine's step, `_step_fn`: `forward_step_fused`, on CUDA the
+hand-written kernels K1 (decode stack) and K2 (int8 head), or K4 and K3 for
+4-bit weights; after `load_params(params, a8=True)` the W8A8 step on K5, as
+the JAX engine's a8 option. On the CPU their plain PyTorch versions.
 Prompt ingest runs `forward_seq(parallel=True)` in plain PyTorch, padded to
 a few fixed buckets with a length mask. State stays on the device between
 calls; during generation only the sampled token ids reach the host.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import enum
 import numbers
 import sys
+from functools import partial
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -31,6 +33,7 @@ from rwkv_tpu_torch.models.rwkv4 import (
     RWKVParams,
     WKVState,
     forward_seq,
+    a8_block_for,
     init_state,
     pad_vocab,
     params_to,
@@ -86,6 +89,9 @@ class RWKV:
         self._state: Optional[WKVState] = None  # leaves [L, max_streams, E]
         self._last_logits: dict[int, torch.Tensor] = {}  # stream -> logits [Vp]
         self._pending: dict[int, int] = {}  # emitted-but-not-absorbed token
+        # the decode step (params, tokens, state) -> (logits, state); the pool
+        # takes it as its step_fn
+        self._step_fn: Callable = forward_step_fused
         if model_path:
             self.load_file(model_path, max_streams)
         if vocab_dir:
@@ -130,19 +136,29 @@ class RWKV:
 
     loadFile = load_file
 
-    def load_params(self, params: RWKVParams) -> None:
+    def load_params(self, params: RWKVParams, a8: bool = False) -> None:
         """Use an already-built params tree (numpy or torch leaves; u8 or int8
         QuantLinear, or packed Quant4Linear families): padded to a head width
         the kernels take, re-centered to int8, and placed on the engine's
-        device."""
+        device. It may be the engine's own params (re-centering is a no-op).
+
+        a8: decode W8A8 (kernel K5 on CUDA): every matvec's input quantized
+        to int8 per batch row, and per block of a8_block_for(E) channels for
+        att.output and ffn.value, the block the JAX engine's fused a8 step
+        uses; adds activation-quantization noise. q8 weights only."""
         if not isinstance(params.head, (QuantLinear, Quant4Linear)):
             raise TypeError("the engine needs quantized (QuantLinear or Quant4Linear) params")
+        if a8 and isinstance(params.att.key, Quant4Linear):
+            raise ValueError("a8 and 4-bit weights are mutually exclusive")
         params = params_to(params, self.device)
         if params.head.out_features % 16:
             params = pad_vocab(params, multiple=512)
         params = signedize_params(params)
         self.params = params
         self.quant = "q4" if isinstance(params.att.key, Quant4Linear) else "q8"
+        self._step_fn = (partial(forward_step_fused, a8=True,
+                                 a8_block=a8_block_for(params.n_embd))
+                         if a8 else forward_step_fused)
         self.config = params.config
         # True (unpadded) vocab: padded ids carry a -1e9 logit_bias; forward()
         # returns logits sliced back to this size
@@ -227,7 +243,7 @@ class RWKV:
             if toks.shape != (self.max_streams,):
                 raise ValueError(f"PARALLEL mode needs one token per stream "
                                  f"({self.max_streams}), got shape {tuple(toks.shape)}")
-            logits, self._state = forward_step_fused(self.params, toks, self._state)
+            logits, self._state = self._step_fn(self.params, toks, self._state)
             for i in range(self.max_streams):
                 self._last_logits[i] = logits[i]
                 self._pending.pop(i, None)
@@ -249,7 +265,7 @@ class RWKV:
             chunk = tokens[start:start + K]
             if len(chunk) == 1:
                 tok = torch.tensor(chunk[0], dtype=torch.int64, device=self.device)
-                logits, state = forward_step_fused(self.params, tok, state)
+                logits, state = self._step_fn(self.params, tok, state)
                 continue
             bucket = next(b for b in self.prefill_buckets if b >= len(chunk))
             padded = torch.zeros(bucket, dtype=torch.int64)
@@ -366,7 +382,7 @@ class RWKV:
         while remaining > 0 and scanner.cut is None:
             toks = []
             for _ in range(min(chunk, remaining)):
-                logits, state = forward_step_fused(self.params, token, state)
+                logits, state = self._step_fn(self.params, token, state)
                 token = self._sample(logits, gen, temp, tau, ban)
                 toks.append(token)
             ids = torch.stack(toks).tolist()  # the one host read of the chunk

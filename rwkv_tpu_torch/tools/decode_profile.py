@@ -1,10 +1,11 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
-    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--batch 1 8] [--steps 30]
-                                                  [--seed 0]
+    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8] [--batch 1 8 16]
+                                                  [--steps 30] [--seed 0]
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
-(q4: the default pairing block), it measures:
+(q4: the default pairing block), and with --a8 the W8A8 step (q8 weights,
+kernel K5, the engine's a8 block), it measures:
   * wall ms per step of forward_step_fused (CUDA events around `steps`
     back-to-back steps: what a caller that does not read the logits sees);
   * host ms per step: the time the Python + C host code takes to enqueue a
@@ -33,6 +34,7 @@ import json
 import subprocess
 import time
 from collections import defaultdict
+from functools import partial
 
 
 PHASES = ("ln1+mix", "k/v/r+wkv", "output", "ln2+mix", "key", "value+gate")
@@ -49,10 +51,13 @@ def _device_us(evt) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quant", choices=["q8", "q4"], default="q8")
+    ap.add_argument("--a8", action="store_true", help="the W8A8 step (q8 weights only)")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.a8 and args.quant == "q4":
+        ap.error("--a8 runs on q8 weights")
 
     import numpy as np
     import torch
@@ -60,6 +65,7 @@ def main() -> None:
 
     from rwkv_tpu_torch.models.config import RWKVConfig
     from rwkv_tpu_torch.models.rwkv4 import (
+        a8_block_for,
         init_state,
         params_to,
         random_quantized_params_np,
@@ -77,7 +83,10 @@ def main() -> None:
     cfg = RWKVConfig.rwkv4_430m()
     host = random_quantized_params_np(cfg, seed=args.seed, q4=args.quant == "q4")
     params = params_to(signedize_params(host), dev)
-    head = "head (mm4)" if args.quant == "q4" else "head (mm8)"
+    head = "head (mm4)" if args.quant == "q4" else ("head (mm8_a8)" if args.a8 else "head (mm8)")
+    if args.a8:
+        forward_step_fused = partial(forward_step_fused, a8=True,
+                                     a8_block=a8_block_for(cfg.n_embd))
     rng = np.random.default_rng(args.seed)
 
     for B in args.batch:
@@ -158,7 +167,7 @@ def main() -> None:
         engine = {}
         if B == 1:
             eng = RWKV(device=dev)
-            eng.load_params(host)
+            eng.load_params(host, a8=args.a8)
             eng.load_tokenizer()
 
             def request():
@@ -185,7 +194,7 @@ def main() -> None:
                       "engine_host_ms_per_token_by_op": dict(top)}
             del eng
 
-        out = {"quant": args.quant, "batch": B, "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
+        out = {"quant": args.quant, "a8": args.a8, "batch": B, "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
                "graph_ms_per_step": graph_ms,
                "sampled_ms_per_token": sampled_ms,
                "sampled_device_busy_share": sampled_busy,

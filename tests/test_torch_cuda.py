@@ -19,6 +19,7 @@ import torch
 
 from rwkv_tpu_torch.models.config import RWKVConfig
 from rwkv_tpu_torch.models.rwkv4 import (
+    WKVState,
     forward_step,
     init_state,
     params_to,
@@ -196,3 +197,114 @@ def test_forward_step_fused_q4_runs_k4_and_k3(dev, small_q4):
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
     for a, b in zip(new, ref_state):
         assert _scaled(a, b) <= 1e-4
+
+
+# W8A8 (kernel K5). A code is clip(round-half-even(v / s), -127, 127); the
+# kernel and the plain version divide the same f32 numbers, so their codes
+# are equal, and the products differ only in the f32 rounding of the
+# per-group sums (<= 1e-6 scaled).
+@pytest.mark.parametrize("B,K,O", [(1, 64, 16), (3, 1000, 144), (8, 1536, 1040),
+                                   (16, 4096, 272), (2, 1024, 50688)])
+def test_mm8_a8_matches_plain(dev, B, K, O):
+    rng = np.random.default_rng(B * 11 + K)
+    xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 100).to(dev)
+    xs[0, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])  # s = 1: ties at .5
+    if B > 2:
+        xs[2] = 0.0  # an all-zero row: the 1e-30 floor of the scale
+    w = torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+    row = torch.from_numpy(rng.normal(size=(B,)).astype(np.float32)).to(dev)
+    col = torch.from_numpy(rng.normal(size=(O,)).astype(np.float32)).to(dev)
+    before = mm8_mod.launches_a8
+    got, codes, scale = mm8_mod.mm8_a8(xs, w, row_add=row, col_add=col, return_codes=True)
+    assert mm8_mod.launches_a8 == before + 1
+    q, s = mm8_mod.quant_rows(xs)
+    assert torch.equal(codes, q) and torch.equal(scale, s)
+    ref = mm8_mod.mm8_a8_plain(xs, w, row_add=row, col_add=col)
+    assert _scaled(got, ref) <= 1e-6
+    # the row maxima from the caller give the same result
+    again = mm8_mod.mm8_a8(xs, w, row_add=row, col_add=col, amax=xs.abs().amax(dim=1))
+    assert torch.equal(again, got)
+
+
+def _a8_params(E, seed):
+    cfg = RWKVConfig(n_layer=2, n_embd=E, vocab_size=1000)
+    p = params_to(signedize_params(random_quantized_params_np(cfg, seed=seed, pad_multiple=128)),
+                  torch.device("cuda", 0))
+    return cfg, p
+
+
+# The a8 stack against its plain version: the kernel repeats the plain
+# version's arithmetic up to every quantization, so the codes, and the
+# outputs, are the same (a rounding tie of a double sum aside): 1e-6 scaled.
+# And the kernel must be much nearer the plain version at its own block than
+# the plain versions at two blocks are to each other, which catches a kernel
+# that ignores the block.
+@pytest.mark.parametrize("E,block", [(256, 128), (1024, 512), (1024, 128)])
+def test_decode_stack_a8_matches_plain(dev, E, block):
+    cfg, p = _a8_params(E, seed=E + block)
+    other = 2 * block if E % (2 * block) == 0 else block // 2
+    rng = np.random.default_rng(block)
+    B = 5
+    st_k = st_p = init_state(cfg, (B,), device=dev)
+    worst, apart = 0.0, 0.0
+    for _ in range(3):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        before = (ds_mod.launches, ds_mod.launches_a8)
+        out_k = ds_mod.decode_stack(p, tok, st_k, a8=True, a8_block=block)
+        assert (ds_mod.launches, ds_mod.launches_a8) == (before[0],
+                                                         before[1] + 6 * cfg.n_layer + 1)
+        out_p = ds_mod.decode_stack_plain(p, tok, st_p, a8=True, a8_block=block)
+        out_o = ds_mod.decode_stack_plain(p, tok, st_p, a8=True, a8_block=other)
+        for a, b, c in zip(out_k[:1] + tuple(out_k[1]) + out_k[2:],
+                           out_p[:1] + tuple(out_p[1]) + out_p[2:],
+                           out_o[:1] + tuple(out_o[1]) + out_o[2:]):
+            worst = max(worst, _scaled(a, b))
+            apart = max(apart, _scaled(c, b))
+        st_k, st_p = out_k[1], out_p[1]
+    assert worst <= 1e-6, worst
+    assert worst < apart / 4, (worst, apart)
+
+
+def test_forward_step_fused_a8_runs_k5(dev):
+    cfg, p = _a8_params(256, seed=7)
+    st = init_state(cfg, (3,), device=dev)
+    tok = torch.tensor([17, 400, 5], device=dev)
+    counts = lambda: (ds_mod.launches, ds_mod.launches_a8, mm8_mod.launches,  # noqa: E731
+                      mm8_mod.launches_a8)
+    before = counts()
+    logits, new = ds_mod.forward_step_fused(p, tok, st, a8=True, a8_block=128)
+    assert [a - b for a, b in zip(counts(), before)] == [0, 6 * cfg.n_layer + 1, 0, 1]
+    _, ref_state, xs_h, off_h = ds_mod.decode_stack_plain(p, tok, st, a8=True, a8_block=128)
+    ref = mm8_mod.mm8_a8_plain(xs_h, p.head.w, row_add=off_h, col_add=p.logit_bias)
+    assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-5
+    assert torch.equal(logits.argmax(-1), ref.argmax(-1))
+    for a, b in zip(new, ref_state):
+        assert torch.equal(a, b)
+    # head_a8: the q8 stack (K1) with the a8 head
+    before = counts()
+    logits_h, _ = ds_mod.forward_step_fused(p, tok, st, head_a8=True)
+    assert [a - b for a, b in zip(counts(), before)] == [6 * cfg.n_layer + 1, 0, 0, 1]
+    _, _, xs_h, off_h = ds_mod.decode_stack_plain(p, tok, st)
+    ref_h = mm8_mod.mm8_a8_plain(xs_h, p.head.w, row_add=off_h, col_add=p.logit_bias)
+    assert _scaled(logits_h[:, :cfg.vocab_size], ref_h[:, :cfg.vocab_size]) <= 1e-5
+
+
+def test_a8_step_independent_of_batchmates(dev):
+    """Each batch row is quantized with its own scales, so a stream's a8 step
+    gives the same bits whatever the other rows hold."""
+    cfg, p = _a8_params(256, seed=8)
+    rng = np.random.default_rng(8)
+    st = init_state(cfg, (4,), device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4,))).to(dev)
+    for _ in range(3):  # non-trivial states
+        _, st = ds_mod.forward_step_fused(p, toks, st, a8=True, a8_block=128)
+    lg4, st4 = ds_mod.forward_step_fused(p, toks, st, a8=True, a8_block=128)
+    other = WKVState(*(s.clone() for s in st))
+    for s in other:
+        s[:, 1:] = s[:, 1:].flip(1) * 3.0
+    toks2 = toks.clone()
+    toks2[1:] = 999
+    lg_o, st_o = ds_mod.forward_step_fused(p, toks2, other, a8=True, a8_block=128)
+    assert torch.equal(lg4[0], lg_o[0])
+    for a, b in zip(st4, st_o):
+        assert torch.equal(a[:, 0], b[:, 0])
