@@ -53,6 +53,23 @@ Phases, in order; any failure raises and exits non-zero:
               pool gives the same text; tok/s and ms per pool step at full
               occupancy; then the first 8 requests at 32 tokens on the q8
               step (K1 + K2) and the a8 step, in turns (q8, a8, a8, q8).
+ 11. tp_halves kernel K6 (att_half + ffn_half, csrc/tp_halves.cu) against
+              its plain versions at 430M shard widths, tp in {1, 2, 4} on a
+              virtual mesh (one card named tp times: E/tp = 1024, 512, 256),
+              B in {1, 8}, every layer index: partial, aa/bb/pp, gate and the
+              new xy/dd within K6_TOL scaled, and the tp shards' partials
+              summed in the fixed order against the tp = 1 call within
+              K6_SUM_TOL; then 14B widths (E=5120, F=20480, L=2) at tp = 8
+              (E/tp = 640); times of one att_half + ffn_half at tp = 1 beside
+              K1's per-layer share (phase 3).
+ 12. tp serve the phase-4 .bin through RWKV(path, sharding=make_mesh(model=1)):
+              3 requests on the tensor-parallel step (K6 per layer, the head on
+              K2), K6's and K2's counters rising and K1's still, the logits
+              against the plain model, ms/token beside the K1 engine's; then
+              on a virtual model=2 mesh (one card twice): logits within
+              TP_TOL of tp = 1, the same 8 greedy ids, 3L + 2 collectives a
+              step; then a 4-slot InferencePool over it serving 6 requests.
+              Times on a virtual mesh are correctness runs, not speed-ups.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -94,6 +111,15 @@ DECODE_TOL = 1e-4
 # head's f32 rounding: K1's 1e-4 holds.
 MM8_A8_TOL = 1e-6
 A8_DECODE_TOL = 1e-4
+# K6 against its plain version: one layer half, its matvecs' f32 sums in
+# another order than torch.matmul's (the rank-1 offset terms in double on
+# both sides). The shards' partials summed against the tp = 1 call: the
+# partial sums of a contraction split over tp shards, then added, round
+# differently from one contraction. A tensor-parallel engine against the
+# tp = 1 one: tests/test_tp_step.py's pin.
+K6_TOL = 1e-5
+K6_SUM_TOL = 1e-4
+TP_TOL = 3e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -133,7 +159,10 @@ def main() -> int:
     from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
     from rwkv_tpu_torch.ops.cuda import mm4 as mm4_mod
     from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
     from rwkv_tpu_torch.ops.quant import Quant4Linear, unpack4
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params
     from rwkv_tpu_torch.runtime.engine import RWKV
     from rwkv_tpu_torch.runtime.pool import InferencePool
 
@@ -166,6 +195,24 @@ def main() -> int:
         a.record()
         for _ in range(iters):
             fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def graph_ms(fn, iters: int) -> float:
+        """Device ms per call of fn, `iters` calls captured in one CUDA graph
+        and replayed: the host's launch cost taken out."""
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / iters
@@ -336,12 +383,14 @@ def main() -> int:
                "In a hole in the ground there lived a hobbit.",
                "Question: what is the capital of France?\nAnswer:"]
     counters = (ds_mod, "launches"), (ds_mod, "launches_q4"), (mm8_mod, "launches"), \
-        (mm4_mod, "launches"), (ds_mod, "launches_a8"), (mm8_mod, "launches_a8")
+        (mm4_mod, "launches"), (ds_mod, "launches_a8"), (mm8_mod, "launches_a8"), \
+        (th, "launches_att"), (th, "launches_ffn")
+    ms_per_token = {}  # the last request's decode ms/token, by engine
 
-    def serve(eng, max_tokens=32):
+    def serve(eng, max_tokens=32, label=None):
         """Answer the prompts with every launch count set to 0 just before;
-        returns (decode steps, the counts just after: K1, K4, K2, K3, and
-        K5's stack and head)."""
+        returns (decode steps, the counts just after: K1, K4, K2, K3, K5's
+        stack and head, and K6's att and ffn halves)."""
         for mod, name in counters:
             setattr(mod, name, 0)
         steps, rates = 0, []
@@ -366,6 +415,8 @@ def main() -> int:
         pf, dc = rates[-1]
         print(f"  last request: prefill {pf:.1f} tok/s, decode {dc:.1f} tok/s, "
               f"{1e3 / dc:.2f} ms/token {card}")
+        if label:
+            ms_per_token[label] = 1e3 / dc
         return steps, counts
 
     def a8_step_plain(params, tok, state, block):
@@ -375,9 +426,10 @@ def main() -> int:
         return mm8_mod.mm8_a8_plain(xh, params.head.w, row_add=oh,
                                     col_add=params.logit_bias), new
 
-    def check_engine_logits(eng, vocab, a8_block=None):
+    def check_engine_logits(eng, vocab, a8_block=None, ref_params=None):
         """The engine's decode step on the loaded weights against the plain
-        model (a8_block: against the plain W8A8 step)."""
+        model (a8_block: against the plain W8A8 step; ref_params: the
+        weights the plain model runs, default the engine's)."""
         eng.reset_state()
         eng.load_context(prompts[0])
         state = eng.get_state(0)
@@ -385,7 +437,7 @@ def main() -> int:
         logits = eng.forward(tok)
         tok_d = torch.tensor(tok, device=dev)
         if a8_block is None:
-            ref, _ = forward_step(eng.params, tok_d, state)
+            ref, _ = forward_step(eng.params if ref_params is None else ref_params, tok_d, state)
             tol = DECODE_TOL
         else:
             ref = a8_step_plain(eng.params, tok_d, state, a8_block)[0][0]
@@ -400,7 +452,7 @@ def main() -> int:
               f"max abs err {err:.2e} (scaled {serr:.1e} <= {tol}), argmax "
               f"{int(logits.argmax())} == {int(ref[:vocab].argmax())}")
 
-    steps, (k1_launches, k4_seen, k2_launches, k3_seen, *_) = serve(eng)
+    steps, (k1_launches, k4_seen, k2_launches, k3_seen, *_) = serve(eng, label="K1")
     print(f"  launches during the requests: decode_stack q8 {k1_launches} "
           f"(= {per_step} per step x {steps} steps: {k1_launches == per_step * steps}), "
           f"mm8 {k2_launches}; q4 kernels {k4_seen}, {k3_seen}")
@@ -709,6 +761,181 @@ def main() -> int:
                                           f"occupancy)" for tps, ms in v)
                       for n, v in runs.items()) + f" {card}")
     del eng
+
+    # ------------------------------------------------------------------ 11
+    def check_halves(params, cfg_, tps, batches, tag):
+        """K6 against its plain versions for every shard of each tp, every
+        layer, each B; the shards' partials summed against the tp = 1 call
+        (tps[0] must be 1). Returns the worst absolute errors of att_half
+        and ffn_half at tp = 1, B = batches[0]."""
+        E_ = cfg_.n_embd
+        sharded = {tp: shard_params(params, make_mesh(model=tp, devices=[dev] * tp))
+                   for tp in tps}
+        worst, first = {}, {}
+        for B in batches:
+            for l in range(cfg_.n_layer):
+                x, xy, dd, aa, pp = (torch.randn((B, E_), device=dev) for _ in range(5))
+                bb = torch.randn((B, E_), device=dev).abs() + 0.5
+                ref = None
+                for tp in tps:
+                    sp, El = sharded[tp], E_ // tp
+                    parts, vparts, gates = [], [], []
+                    for j in range(tp):
+                        p = sp.rows[0][j]
+                        cut = [t[:, j * El:(j + 1) * El].contiguous() for t in (aa, bb, pp)]
+                        got = th.att_half(p, l, x, xy, *cut, *sp.local(0, j))
+                        got_f = th.ffn_half(p, l, x, dd)
+                        want = th.att_half_plain(p, l, x, xy, *cut, *sp.local(0, j))
+                        want_f = th.ffn_half_plain(p, l, x, dd)
+                        torch.cuda.synchronize()
+                        names = ("partial", "aa", "bb", "pp", "xy", "vpartial", "gate", "dd")
+                        for name, a, b in zip(names, got + got_f, want + want_f):
+                            require(bool(torch.isfinite(a).all()),
+                                    f"K6 {tag} tp={tp} B={B} layer {l} shard {j}: {name} not finite")
+                            err, serr = scaled_err(a, b)
+                            require(serr <= K6_TOL, f"K6 {tag} tp={tp} B={B} layer {l} shard {j}: "
+                                    f"{name} scaled error {serr:.3e} > {K6_TOL}")
+                            worst[tp, name] = max(worst.get((tp, name), (0.0, 0.0)), (err, serr))
+                            if tp == 1 and B == batches[0]:
+                                half = "att" if name in names[:5] else "ffn"
+                                first[half] = max(first.get(half, 0.0), err)
+                        parts.append(got[0])
+                        vparts.append(got_f[0])
+                        gates.append(got_f[1])
+                    if ref is None:
+                        ref = (parts[0], vparts[0], gates[0])
+                        continue
+                    total, vtotal = parts[0], vparts[0]
+                    for a, b in zip(parts[1:], vparts[1:]):  # the fixed order 0..tp-1
+                        total, vtotal = total + a, vtotal + b
+                    for name, a, b in (("partial", total, ref[0]), ("vpartial", vtotal, ref[1]),
+                                       ("gate", torch.cat(gates, dim=1), ref[2])):
+                        err, serr = scaled_err(a, b)
+                        require(serr <= K6_SUM_TOL, f"K6 {tag} tp={tp} B={B} layer {l}: summed "
+                                f"{name} vs tp=1 scaled error {serr:.3e} > {K6_SUM_TOL}")
+                        worst[tp, "sum " + name] = max(worst.get((tp, "sum " + name), (0.0, 0.0)),
+                                                       (err, serr))
+        for tp in tps:
+            print(f"  {tag} tp={tp} (E/tp={E_ // tp}, F/tp={cfg_.n_ffn // tp}), B in {batches}, "
+                  f"{cfg_.n_layer} layers: max abs err (scaled) "
+                  + ", ".join(f"{n} {e:.2e} ({r:.1e})" for (t, n), (e, r) in worst.items()
+                              if t == tp))
+        del sharded
+        return first
+
+    print(f"phase 11 tp_halves (K6) vs plain, 430M shard widths: L={L} E={E} F={F}, tp 1, 2, 4 "
+          "on a virtual mesh")
+    params = params_to(signedize_params(random_quantized_params_np(
+        cfg, seed=args.seed + 5, pad_multiple=512)), dev)
+    torch.manual_seed(args.seed)  # check_halves' inputs
+    k6_err = check_halves(params, cfg, (1, 2, 4), (1, 8), "430M")
+    El_bytes = lambda B, E_, El: 4 * E_ * El + (11 * E_ + 4 * El) * 4 + (4 * B * E_ + 6 * B * El) * 4  # noqa: E731,E501
+    k6_rows = {}
+    for B in (1, 8):
+        x, xy, dd = (torch.randn((B, E), device=dev) for _ in range(3))
+        aa, pp = torch.randn((B, E), device=dev), torch.randn((B, E), device=dev)
+        bb = torch.randn((B, E), device=dev).abs() + 0.5
+        dl, bl = params.att.decay, params.att.bonus
+        att = lambda: th.att_half(params, 0, x, xy, aa, bb, pp, dl, bl)  # noqa: E731,B023
+        ffn = lambda: th.ffn_half(params, 0, x, dd)  # noqa: E731,B023
+        att_eager, ffn_eager = cuda_ms(att, 50), cuda_ms(ffn, 50)
+        att_ms, ffn_ms = graph_ms(att, 50), graph_ms(ffn, 50)
+        att_plain = cuda_ms(lambda: th.att_half_plain(params, 0, x, xy, aa, bb, pp, dl, bl), 20)  # noqa: B023,E501
+        ffn_plain = cuda_ms(lambda: th.ffn_half_plain(params, 0, x, dd), 20)  # noqa: B023
+        att_b = bound(El_bytes(B, E, E), 2 * B * 4 * E * E)
+        # ffn: weights 2 E F + E E, vectors (ln2, mixes, key and receptance
+        # scale/offset: 8 E; value scale/offset: 2 F), x, dd in; partial, gate, dd out
+        ffn_b = bound(2 * E * F + E * E + (8 * E + 2 * F) * 4 + (5 * B * E) * 4,
+                      2 * B * (2 * E * F + E * E))
+        k6_rows[B] = dict(att_ms=att_ms, ffn_ms=ffn_ms, att_plain=att_plain, ffn_plain=ffn_plain,
+                          att_bound=att_b, ffn_bound=ffn_b)
+        share = ds_rows[1]["ms"] / L if B == 1 else ds_rows[8]["ms"] / L
+        print(f"  tp=1 B={B}: att_half {att_ms:.4f} ms (3 launches), ffn_half {ffn_ms:.4f} ms "
+              f"(4 launches) replayed from a CUDA graph, together {att_ms + ffn_ms:.4f} ms per "
+              f"layer against K1's per-layer share {share:.4f} ms (phase 3 step / L); called "
+              f"back to back from Python {att_eager:.4f} + {ffn_eager:.4f} ms; plain "
+              f"{att_plain:.4f} + {ffn_plain:.4f} ms; bounds {att_b[0]:.4f} ms ({att_b[1]}) + "
+              f"{ffn_b[0]:.4f} ms ({ffn_b[1]}) {card}")
+    del params
+    cfg14 = RWKVConfig(n_layer=2, n_embd=5120, vocab_size=512)
+    t0 = time.perf_counter()
+    params = params_to(signedize_params(random_quantized_params_np(
+        cfg14, seed=args.seed + 6, pad_multiple=512)), dev)
+    print(f"  14B widths, L=2 (E=5120, F=20480): params ready in {time.perf_counter() - t0:.1f} s;"
+          f" {weight_bytes(params) / 1e6:.1f} MB of layers")
+    check_halves(params, cfg14, (1, 8), (1, 8), "14B")
+    del params
+
+    # ------------------------------------------------------------------ 12
+    print("phase 12 tensor-parallel serving: RWKV(path, sharding=make_mesh(model=1)), 430M .bin")
+    t0 = time.perf_counter()
+    eng = RWKV(bin_path, sharding=make_mesh(model=1))
+    eng.load_tokenizer()
+    torch.cuda.synchronize()
+    print(f"  RWKV(path, sharding=make_mesh(model=1)) on {eng.device} in "
+          f"{time.perf_counter() - t0:.1f} s; step body {eng._step_fn.body}")
+    require(eng.device.type == "cuda" and eng._step_fn.body == "halves",
+            f"the tp=1 engine runs body {eng._step_fn.body} on {eng.device}")
+    steps12, counts12 = serve(eng, label="tp=1")
+    c12 = dict(zip(("K1", "K4", "K2", "K3", "K5 stack", "K5 head", "K6 att", "K6 ffn"), counts12))
+    print(f"  launches during the requests: {c12} (K6: 3 + 4 per layer, "
+          f"{7 * L} per step x {steps12} steps: "
+          f"{c12['K6 att'] + c12['K6 ffn'] == 7 * L * steps12}); K2 once per step")
+    require(c12["K6 att"] > 0 and c12["K6 ffn"] > 0, "K6 never launched on the tp path")
+    require(c12["K2"] > 0, "the tp path's head never launched K2")
+    require(all(c12[k] == 0 for k in ("K1", "K4", "K3", "K5 stack", "K5 head")),
+            f"the tp path launched another stack: {c12}")
+    k6_att_launches, k6_ffn_launches = c12["K6 att"], c12["K6 ffn"]
+    check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
+    print(f"  decode ms/token, last request: tp=1 engine {ms_per_token['tp=1']:.3f}, K1 engine "
+          f"{ms_per_token['K1']:.3f} (phase 4) {card}")
+
+    def greedy(e, n=8):
+        e.reset_state()
+        logits = e.forward(e.tokenizer.encode(prompts[2]))
+        first, ids = logits.clone(), []
+        for _ in range(n):
+            ids.append(int(logits.argmax()))
+            logits = e.forward(ids[-1])
+        return first, ids
+
+    l1, ids1 = greedy(eng)
+    mesh2 = make_mesh(model=2, devices=[dev, dev])
+    t0 = time.perf_counter()
+    eng2 = RWKV(bin_path, sharding=mesh2)
+    eng2.load_tokenizer()
+    torch.cuda.synchronize()
+    print(f"  virtual mesh model=2 (one card twice): loaded in {time.perf_counter() - t0:.1f} s, "
+          f"body {eng2._step_fn.body}, att.key shard {tuple(eng2.params.rows[0][1].att.key.w.shape)}")
+    l2, ids2 = greedy(eng2)
+    err, serr = scaled_err(l2, l1)
+    require(serr <= TP_TOL, f"tp=2 logits vs tp=1: scaled error {serr:.3e} > {TP_TOL}")
+    require(ids1 == ids2, f"tp=2 greedy ids {ids2} differ from tp=1's {ids1}")
+    mesh2.reset_collectives()
+    eng2.forward(ids2[-1])
+    torch.cuda.synchronize()
+    want = {"psum": 2 * L + 1, "all_gather": L + 1}
+    require(mesh2.collectives == want, f"collectives per step {mesh2.collectives}, want {want}")
+    print(f"  tp=2 vs tp=1: logits max abs err {err:.2e} (scaled {serr:.1e} <= {TP_TOL}); "
+          f"8 greedy ids equal {ids2}; collectives per step {mesh2.collectives} (3L + 2)")
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    pool = InferencePool(eng2.params, eng2.tokenizer, max_streams=4, prefill_bucket=128,
+                         step_fn=eng2._step_fn, prefill_fn=eng2._prefill_impl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [pool.submit(**dict(r, max_tokens=16)) for r in reqs[:6]]
+    out = pool.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(sorted(out) == sorted(rids) and all(isinstance(out[r], str) for r in rids),
+            "the tp=2 pool did not finish every request")
+    require(th.launches_att > 0 and th.launches_ffn > 0 and ds_mod.launches == 0,
+            "the tp=2 pool did not run on K6 alone")
+    print(f"  4-slot pool over the tp=2 engine: 6 requests, 16 tokens each, all finished in "
+          f"{wall:.2f} s (a correctness run on a virtual mesh, not a speed-up) {card}; "
+          f"request 0 -> {out[rids[0]][:40]!r}")
+    del eng, eng2, pool
     bin_dir.cleanup()
 
     kernels = [
@@ -750,6 +977,20 @@ def main() -> int:
          "plain_ms": a8_stack_rows[1]["plain_ms"], "bound_ms": a8_stack_rows[1]["bound_ms"],
          "bound_by": a8_stack_rows[1]["bound_by"], "library_ms": None,
          "shape": f"a8, B=1 L={L} E={E} F={F} a8_block {blk}, {per_step} launches per step"},
+        {"name": "att_half", "route": "cuda", "source": "rwkv_tpu_torch/csrc/tp_halves.cu",
+         "replaces": "rwkv_tpu/ops/pallas/tp_halves.py:189", "launches": k6_att_launches,
+         "max_abs_err": k6_err["att"], "ms": k6_rows[1]["att_ms"],
+         "plain_ms": k6_rows[1]["att_plain"], "bound_ms": k6_rows[1]["att_bound"][0],
+         "bound_by": k6_rows[1]["att_bound"][1], "library_ms": None,
+         "shape": f"tp=1, B=1, one layer: E={E}, E_loc={E}, 3 launches per call; ms replayed "
+                  "from a CUDA graph"},
+        {"name": "ffn_half", "route": "cuda", "source": "rwkv_tpu_torch/csrc/tp_halves.cu",
+         "replaces": "rwkv_tpu/ops/pallas/tp_halves.py:283", "launches": k6_ffn_launches,
+         "max_abs_err": k6_err["ffn"], "ms": k6_rows[1]["ffn_ms"],
+         "plain_ms": k6_rows[1]["ffn_plain"], "bound_ms": k6_rows[1]["ffn_bound"][0],
+         "bound_by": k6_rows[1]["ffn_bound"][1], "library_ms": None,
+         "shape": f"tp=1, B=1, one layer: E={E}, F_loc={F}, 4 launches per call; ms replayed "
+                  "from a CUDA graph"},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@
 // order and share nothing, so here layer l+1 waits for layer l through a fixed
 // sequence of launches on one stream, six per layer:
 //
-//   1. row_kernel ATT : ln1 + token-shift mix -> k/v/r inputs, new xy
+//   1. row_kernel ATT : (row.cuh) ln1 + token-shift mix -> k/v/r inputs, new xy
 //                       (layer 0 first gathers the embedding rows and runs ln0)
 //   2. qmv  k,v,r     : three matvecs + the WKV step -> sigmoid(r) * y, new aa/bb/pp
 //   3. qmv  output    : out-projection, added to the residual
@@ -63,154 +63,9 @@
 //
 // The new state is written to separate output tensors: the input state is
 // never modified, as in the JAX function.
-#include <type_traits>
-
-#include "qmv.cuh"
+#include "row.cuh"
 
 namespace rwkv {
-
-enum RowMode : int { ROW_ATT = 0, ROW_FFN = 1, ROW_HEAD = 2 };
-
-struct RowArgs {
-  int mode, B, E, n_emb;
-  float* x;                  // [B, E] residual stream
-  const int* tokens;         // [B], or null: x already holds the embedded rows
-  const float* emb;          // [n_emb, E]
-  const float* ln0_w;
-  const float* ln0_b;
-  const float* ln_w;         // ln1 / ln2 / ln_out
-  const float* ln_b;
-  const float* prev;         // [B, E] xy or dd before the step
-  float* prev_out;           // [B, E] xy or dd after the step
-  const float* mix[3];       // [E]
-  float* mixed[3];           // [B, E] mixed matvec inputs
-  const float* offset[3];    // [E] offset vector of the matrix that reads mixed[j]
-  double* off[3];            // [B] its rank-1 term, sum_i mixed[j][b, i] * offset[j][i]
-  int nmix;
-  const float* head_scale;   // ROW_HEAD: xs_h = ln_out(x) * head_scale,
-  float* xs_h;               // [B, E]   and off_h = ln_out(x) . offset[0]
-  float* off_h;              // [B]
-  const float* qscale[3];    // a8: [E] scale vector of the matrix that reads mixed[j]
-  float* amax[3];            // a8: [B] max_i |mixed[j][b, i] * qscale[j][i]|
-};                           //   (ROW_HEAD: amax[0] = max_i |xs_h[b, i]|)
-
-template <typename T>
-__device__ __forceinline__ T row_sum(T v, T* scratch) {
-  T t[1] = {v};
-  block_sums<1>(t, scratch);
-  return t[0];
-}
-
-// LayerNorm of the row in v[0:E] (shared memory), in place; eps 1e-8.
-// EXACT (the a8 step): the arithmetic of ops/layernorm.py, mean and variance
-// summed in double (exact products; the order of a double sum moves the f32
-// result only at a rounding tie), each f32 operation rounded on its own.
-// Else f32 sums and rsqrtf, within f32 rounding of it.
-template <bool EXACT>
-__device__ void row_layer_norm(float* v, int E, const float* w, const float* b,
-                               std::conditional_t<EXACT, double, float>* scratch) {
-  if constexpr (EXACT) {
-    double s = 0.0;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) s += (double)v[i];
-    const float mean = (float)(row_sum(s, scratch) / (double)E);
-    double q = 0.0;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const double c = (double)__fsub_rn(v[i], mean);
-      q += c * c;
-    }
-    const float var = (float)(row_sum(q, scratch) / (double)E);
-    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-8f)));
-    for (int i = threadIdx.x; i < E; i += blockDim.x)
-      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rs), w[i]), b[i]);
-  } else {
-    float s = 0.f;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) s += v[i];
-    const float mean = row_sum(s, scratch) / (float)E;
-    float q = 0.f;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const float c = v[i] - mean;
-      q = fmaf(c, c, q);
-    }
-    const float rs = rsqrtf(row_sum(q, scratch) / (float)E + 1e-8f);
-    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = (v[i] - mean) * rs * w[i] + b[i];
-  }
-  __syncthreads();
-}
-
-constexpr int kRowThreads = 1024;
-
-// One block per batch row, one thread per element up to 1024: LayerNorm, the
-// token-shift mixes, and the whole rank-1 offset sums of the matrices that
-// read the mixed rows (EXACT: in double, rounded once by the consumer).
-template <bool EXACT>
-__global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
-  using acc_t = std::conditional_t<EXACT, double, float>;
-  extern __shared__ float v[];  // [E]
-  __shared__ float scratch[3 * 33];
-  __shared__ acc_t ascratch[3 * 33];
-  const int b = blockIdx.x, E = a.E;
-  float* xrow = a.x + (size_t)b * E;
-  if (a.tokens) {
-    int t = a.tokens[b];
-    t = t < 0 ? 0 : (t >= a.n_emb ? a.n_emb - 1 : t);  // clamp like a gather
-    const float* er = a.emb + (size_t)t * E;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = er[i];
-    __syncthreads();
-    row_layer_norm<EXACT>(v, E, a.ln0_w, a.ln0_b, ascratch);
-    for (int i = threadIdx.x; i < E; i += blockDim.x) xrow[i] = v[i];
-  } else {
-    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = xrow[i];
-    __syncthreads();
-  }
-  row_layer_norm<EXACT>(v, E, a.ln_w, a.ln_b, ascratch);
-
-  acc_t sums[3] = {0, 0, 0};  // EXACT: exact products, summed in double
-  float maxes[3] = {0.f, 0.f, 0.f};
-  if (a.mode == ROW_HEAD) {
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const float xs = v[i] * a.head_scale[i];
-      a.xs_h[(size_t)b * E + i] = xs;
-      sums[0] += (acc_t)v[i] * (acc_t)a.offset[0][i];
-      if constexpr (EXACT) maxes[0] = fmaxf(maxes[0], fabsf(xs));
-    }
-  } else {
-    const float* prev = a.prev + (size_t)b * E;
-    float* prev_out = a.prev_out + (size_t)b * E;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const float xx = v[i], p = prev[i];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j < a.nmix) {
-          const float mj = a.mix[j][i];
-          float m;
-          if constexpr (EXACT) {
-            // mix * xx + (1 - mix) * prev, each operation rounded on its own
-            m = __fadd_rn(__fmul_rn(mj, xx), __fmul_rn(__fsub_rn(1.f, mj), p));
-            maxes[j] = fmaxf(maxes[j], fabsf(m * a.qscale[j][i]));
-          } else {
-            m = mj * xx + (1.f - mj) * p;
-          }
-          a.mixed[j][(size_t)b * E + i] = m;
-          sums[j] += (acc_t)m * (acc_t)a.offset[j][i];
-        }
-      }
-      prev_out[i] = xx;
-    }
-  }
-  block_sums<3>(sums, ascratch);
-  if constexpr (EXACT) block_maxes<3>(maxes, scratch);
-  if (threadIdx.x == 0) {
-    if (a.mode == ROW_HEAD) {
-      a.off_h[b] = (float)sums[0];
-      if constexpr (EXACT) a.amax[0][b] = maxes[0];
-    } else {
-      for (int j = 0; j < a.nmix; ++j) {
-        a.off[j][b] = (double)sums[j];
-        if constexpr (EXACT) a.amax[j][b] = maxes[j];
-      }
-    }
-  }
-}
 
 // Positions in the pointer table passed by rwkv_tpu_torch/ops/cuda/decode_stack.py
 // (_POINTERS there lists the same names in the same order).
@@ -268,22 +123,9 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
   const size_t BE = (size_t)B * E;
   static const int kGlobal[7] = {0, 0, 0, 0, 0, 0, 0};
   const int* hv = q4 ? halves : kGlobal;
-  const size_t row_smem = (size_t)E * sizeof(float);
-  const int row_threads = E < kRowThreads ? (E + 31) / 32 * 32 : kRowThreads;
-  if (row_smem > 48 * 1024) {
-    for (auto* k : {row_kernel<false>, row_kernel<true>}) {
-      cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)row_smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
-  // a8: the row kernels repeat the plain version's arithmetic exactly
+  // a8: the row kernels (row.cuh) repeat the plain version's arithmetic exactly
   auto rows = [&](const RowArgs& r) {
-    if (a8)
-      row_kernel<true><<<B, row_threads, row_smem, st>>>(r);
-    else
-      row_kernel<false><<<B, row_threads, row_smem, st>>>(r);
-    return cudaGetLastError();
+    return a8 ? launch_rows<true>(r, st) : launch_rows<false>(r, st);
   };
   const int tiles_e = (E + kTileO - 1) / kTileO;
   auto d = [&](int i) { return static_cast<double*>(p[i]); };

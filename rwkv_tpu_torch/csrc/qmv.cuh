@@ -1,5 +1,5 @@
-// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8 and decode_stack
-// kernels.
+// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8, decode_stack and
+// tp_halves kernels.
 //
 // Computes, for up to three matrices that share an output width O,
 //
@@ -12,7 +12,7 @@
 // minus 8, where h is half the matrix's pairing block and
 // lo(j) = (j / h) * 2h + j % h. Both halves widen to q - 8 in registers. Then it
 // runs one fused epilogue per output column (store, residual add, relu^2,
-// gated residual, or the WKV recurrence). off_m[b] is the rank-1 offset term
+// gated residual, sigmoid, or the WKV recurrence). off_m[b] is the rank-1 offset term
 // sum_k x_m[b, k] * offset_m[k]; the kernel that produced x_m computed it
 // (whole, or as one partial per column tile that is summed here in a fixed
 // order), so no block has to walk the whole contraction dim for it.
@@ -90,6 +90,7 @@ enum Epilogue : int {
   EPI_ADD = 2,        // out += acc0 (residual)
   EPI_RELU2 = 3,      // out = relu(acc0)^2
   EPI_GATED_ADD = 4,  // mats value, gate: out += sigmoid(acc1) * acc0
+  EPI_SIGMOID = 5,    // out = sigmoid(acc0) (the tensor-parallel ffn gate)
 };
 
 struct Mat {
@@ -765,6 +766,9 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
           o = __fmul_rn(r, r);
           break;
         }
+        case EPI_SIGMOID:
+          o = sigmoidf_(v0);
+          break;
         case EPI_GATED_ADD:
           o = __fadd_rn(a.out[idx],
                         __fmul_rn(sigmoidf_(__fadd_rn(sm.res[1][bi][c], sm.offs[1][bi])), v0));

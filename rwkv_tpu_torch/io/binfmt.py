@@ -37,14 +37,19 @@ def _take_tensor(path: str, layout: dict, name: str, dtype=None) -> np.ndarray:
     return arr
 
 
-def read_bin(path: str, device, *, pad_vocab_to: int | None = None,
+def read_bin(path: str, device, *, put=None, pad_vocab_to: int | None = None,
              signed: bool = False) -> RWKVParams:
     """Load a .bin into RWKVParams on `device`.
 
     signed=True re-centers each u8 family to int8 on the host copy before
     upload (XOR 0x80; offsets absorb +128*scale), so the device never holds
     both. pad_vocab_to pads emb rows / head columns up to that multiple and
-    adds the -1e9 logit_bias for the padding."""
+    adds the -1e9 logit_bias for the padding.
+
+    put(name, host_array) places each tensor instead of a plain copy to
+    `device` (parallel/sharding.py::make_put cuts it into its tensor-parallel
+    shards); names are the registry's (io/registry.py), plus "logit_bias",
+    "ln0.w", "ln0.b", "ln1.w", ..., "ln_out.b"."""
     cfg = read_header(path)
     a, b = cfg.n_layer, cfg.n_embd
     layout = {name: (off, spec.shape(a, b), spec.dtype)
@@ -54,14 +59,15 @@ def read_bin(path: str, device, *, pad_vocab_to: int | None = None,
     if pad_vocab_to:
         vpad = ((VOCAB + pad_vocab_to - 1) // pad_vocab_to) * pad_vocab_to - VOCAB
 
-    def put(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if put is None:
+        def put(name, arr):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     def take(name, dtype=None):
         return _take_tensor(path, layout, name, dtype)
 
     def f32(name):
-        return put(take(name, np.float32))
+        return put(name, take(name, np.float32))
 
     def qlin(wname, rname, oname) -> QuantLinear:
         w = take(wname)
@@ -70,13 +76,13 @@ def read_bin(path: str, device, *, pad_vocab_to: int | None = None,
         if signed:
             w ^= 0x80            # in place on the owned copy; pad bytes
             w = w.view(np.int8)  # 0x00 -> -128, masked by logit_bias
-        dev = put(w)
+        dev = put(wname, w)
         del w
         scale = take(rname, np.float32)
         offset = take(oname, np.float32)
         if signed:
             offset += np.float32(128.0) * scale
-        return QuantLinear(w=dev, scale=put(scale), offset=put(offset))
+        return QuantLinear(w=dev, scale=put(rname, scale), offset=put(oname, offset))
 
     # rows 0,1 = ln0 w,b; 4i+2,4i+3 = ln1_i; 4i+4,4i+5 = ln2_i;
     # 4L+2,4L+3 = ln_out
@@ -90,15 +96,15 @@ def read_bin(path: str, device, *, pad_vocab_to: int | None = None,
         emb = np.pad(emb, ((0, vpad), (0, 0)))
         bias = np.zeros((VOCAB + vpad,), np.float32)
         bias[VOCAB:] = -1e9
-        logit_bias = put(bias)
-    emb_dev = put(emb)
+        logit_bias = put("logit_bias", bias)
+    emb_dev = put("embed", emb)
     del emb
 
     return RWKVParams(
         emb=emb_dev,
-        ln0=LNParams(put(ln[0]), put(ln[1])),
-        ln1=LNParams(put(ln[4 * idx + 2]), put(ln[4 * idx + 3])),
-        ln2=LNParams(put(ln[4 * idx + 4]), put(ln[4 * idx + 5])),
+        ln0=LNParams(put("ln0.w", ln[0]), put("ln0.b", ln[1])),
+        ln1=LNParams(put("ln1.w", ln[4 * idx + 2]), put("ln1.b", ln[4 * idx + 3])),
+        ln2=LNParams(put("ln2.w", ln[4 * idx + 4]), put("ln2.b", ln[4 * idx + 5])),
         att=AttParams(
             mix_k=f32("mix_k"), mix_v=f32("mix_v"), mix_r=f32("mix_r"),
             key=qlin("km", "kr", "o1"),
@@ -114,7 +120,7 @@ def read_bin(path: str, device, *, pad_vocab_to: int | None = None,
             value=qlin("ffn_v", "ffn_vr", "ffn_vo"),
             receptance=qlin("ffn_r", "ffn_rr", "ffn_ro"),
         ),
-        ln_out=LNParams(put(ln[4 * L + 2]), put(ln[4 * L + 3])),
+        ln_out=LNParams(put("ln_out.w", ln[4 * L + 2]), put("ln_out.b", ln[4 * L + 3])),
         head=qlin("head", "head_r", "head_o"),
         logit_bias=logit_bias,
     )

@@ -31,7 +31,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("mm8", "mm4", "mm8_a8", "decode_stack")
+KERNELS = ("mm8", "mm4", "mm8_a8", "decode_stack", "tp_halves")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,111 @@
+"""Device mesh for tensor- and data-parallel decode (counterpart of
+rwkv_tpu/parallel/mesh.py).
+
+A Mesh is a [data, model] grid of torch devices:
+
+  'data'  independent streams: the batch is split over the data rows;
+  'model' tensor parallelism: every quantized matmul's contracted or output
+          dim is split over the model shards of a row (parallel/sharding.py).
+
+A device may appear more than once. make_mesh(model=4, devices=[cuda] * 4) is
+a virtual mesh: one card runs the four shards' real sharded shapes in turn,
+as the JAX tests run their meshes on virtual CPU devices. On the CPU the tests
+use [torch.device("cpu")] * n.
+
+The design is single-controller, as JAX's shard_map is: one process drives
+every shard, and the mesh owns the two collectives of the tensor-parallel
+schedule (parallel/tp_step.py), each over the model shards of every data row
+at once:
+
+  psum(parts)        parts[d][j] summed over j in the fixed order 0..tp-1 on
+                     shard 0's device, then placed on each shard's device;
+  all_gather(parts)  parts[d][j] concatenated over j along `dim`.
+
+It counts them in `collectives`, so tests can pin the 3L + 2 schedule. On
+distinct GPUs these collectives are device-to-device copies issued by the one
+controlling process: correct, but not fast. NCCL collectives, and measuring
+how decode scales across cards, wait for a machine with two or more GPUs
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+
+def canonical(device) -> torch.device:
+    """torch.device(device), with a CUDA device's index filled in."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("a CUDA device was asked for and this host has none")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class Mesh:
+    """A [data, model] grid of devices, and its collectives."""
+
+    def __init__(self, devices: Sequence[Sequence]):
+        grid = [[canonical(d) for d in row] for row in devices]
+        if not grid or not grid[0] or any(len(row) != len(grid[0]) for row in grid):
+            raise ValueError("a mesh needs a non-empty rectangular [data][model] grid of devices")
+        self.devices = grid
+        self.shape = {"data": len(grid), "model": len(grid[0])}
+        self.collectives = {"psum": 0, "all_gather": 0}
+
+    @property
+    def first_device(self) -> torch.device:
+        return self.devices[0][0]
+
+    def reset_collectives(self) -> None:
+        for k in self.collectives:
+            self.collectives[k] = 0
+
+    def psum(self, parts):
+        """[data][model] grid of tensors -> the grid of their sums over the
+        model shards of each data row, in the fixed order 0..tp-1."""
+        self.collectives["psum"] += 1
+        out = []
+        for row, devs in zip(parts, self.devices):
+            s = row[0]
+            for p in row[1:]:
+                s = s + p.to(devs[0])
+            out.append([s.to(dev) for dev in devs])
+        return out
+
+    def all_gather(self, parts, dim: int = -1):
+        """[data][model] grid of tensors -> the grid of their concatenations
+        over the model shards of each data row, along `dim`."""
+        self.collectives["all_gather"] += 1
+        out = []
+        for row, devs in zip(parts, self.devices):
+            g = torch.cat([p.to(devs[0]) for p in row], dim=dim)
+            out.append([g.to(dev) for dev in devs])
+        return out
+
+
+def make_mesh(model: Optional[int] = None, data: int = 1, *,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A [data, model] mesh over `devices` (default: every visible CUDA
+    device), taken in order. model=None uses all of them over `data` rows."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: this host has no CUDA device; pass devices=[...] "
+                               "(for example [torch.device('cpu')] * 4)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    n = len(devices)
+    if model is None:
+        if n % data:
+            raise ValueError(f"{n} devices not divisible by data={data}")
+        model = n // data
+    if model < 1 or data < 1 or data * model > n:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} devices, have {n}")
+    return Mesh([devices[d * model:(d + 1) * model] for d in range(data)])
+
+
+def single_device_mesh() -> Mesh:
+    return make_mesh(model=1, data=1)

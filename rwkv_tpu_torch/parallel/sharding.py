@@ -1,0 +1,288 @@
+"""How RWKV-v4 params and state split over a mesh (counterpart of
+rwkv_tpu/parallel/sharding.py).
+
+The tensor-parallel layout (Megatron-style column -> row pairing):
+
+  att half, per block:
+    key/value/receptance [L, E, E]  column-parallel: split on the output dim,
+        so k, v, r come out split on E; the WKV step is elementwise over
+        channels, so it runs on the shard's channels with no communication,
+        and aa/bb/pp split on E with it.
+    output               [L, E, E]  row-parallel: split on the contracted
+        dim; each shard's product is a partial, summed by one psum.
+  ffn half:
+    key [L, E, 4E] column-parallel; relu^2 is elementwise on the shard.
+    value [L, 4E, E] row-parallel: the second psum of the block.
+    receptance [L, E, E] column-parallel: the gate is all-gathered.
+  head [E, V] column-parallel: logits split on V, then all-gathered.
+  emb [V, E] split on V: each shard gathers its rows, then one psum.
+  layer norms, mixes, decay/bonus, the token-shift states: replicated.
+
+A scale/offset vector splits with the contracted dim of its matrix for the
+row-parallel families (the rank-1 offset term then rides the same psum) and
+is replicated for the column-parallel ones. Streams (the batch dim of tokens
+and state) split over the mesh's data rows.
+
+A layout is a tree shaped like the params whose leaves say which dim of the
+leaf splits over the model shards (None: replicated). shard_params() cuts
+every leaf once, into contiguous tensors on each shard's device: a column
+slice of [L, E, O] is a strided view, and the kernels read contiguous rows.
+
+Not ported: the JAX package's 4-D pretiled layout (the port has none).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rwkv_tpu_torch.models.config import RWKVConfig
+from rwkv_tpu_torch.models.rwkv4 import (
+    AttParams,
+    FFNParams,
+    LNParams,
+    RWKVParams,
+    WKVState,
+    params_to,
+)
+from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
+from rwkv_tpu_torch.parallel.mesh import Mesh
+
+
+class Shards(tuple):
+    """One leaf already cut over the model shards (make_put): element j lives
+    on model shard j's device."""
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, np.ndarray):
+        # a read-only array is a view of a mapped file: copy it out
+        return torch.from_numpy(np.array(a) if not a.flags.writeable
+                                else np.ascontiguousarray(a))
+    return a
+
+
+def _zip_map(fn, tree, spec):
+    """fn(leaf, leaf's spec) over the array leaves of a params tree."""
+    if tree is None or isinstance(tree, int):
+        return tree
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _zip_map(fn, getattr(tree, f.name), getattr(spec, f.name))
+            for f in dataclasses.fields(tree)})
+    return fn(tree, spec)
+
+
+def _vocab(params: RWKVParams) -> int:
+    emb = params.emb
+    return sum(p.shape[0] for p in emb) if isinstance(emb, Shards) else emb.shape[0]
+
+
+def param_pspecs(params: RWKVParams, n_model: Optional[int] = None) -> RWKVParams:
+    """The layout: a tree shaped like `params` whose leaves are the dim that
+    splits over the model shards, or None (replicated).
+
+    n_model: the model shards, used to decide whether the vocab dim of
+    emb/head/logit_bias splits evenly (pad_vocab first for real models; an
+    unpadded odd vocab stays replicated)."""
+    vocab_ok = n_model is None or _vocab(params) % n_model == 0
+
+    def mk(lin, row_parallel):
+        w = -2 if row_parallel else -1
+        vec = -1 if row_parallel else None
+        if isinstance(lin, Quant4Linear):  # packed [L, K/2, O]: whole pack blocks per shard
+            return Quant4Linear(wp=w, scale=vec, offset=vec, block=lin.block)
+        if isinstance(lin, QuantLinear):
+            return QuantLinear(w=w, scale=vec, offset=vec)
+        return w
+
+    ln = LNParams(None, None)
+    vocab = 0 if vocab_ok else None
+    head_w = -1 if vocab_ok else None
+    head = params.head
+    if isinstance(head, Quant4Linear):
+        head = Quant4Linear(wp=head_w, scale=None, offset=None, block=head.block)
+    elif isinstance(head, QuantLinear):
+        head = QuantLinear(w=head_w, scale=None, offset=None)
+    else:
+        head = head_w
+    return RWKVParams(
+        emb=vocab, ln0=ln, ln1=ln, ln2=ln,
+        att=AttParams(mix_k=None, mix_v=None, mix_r=None,
+                      key=mk(params.att.key, False), value=mk(params.att.value, False),
+                      receptance=mk(params.att.receptance, False),
+                      output=mk(params.att.output, True), decay=None, bonus=None),
+        ffn=FFNParams(mix_k=None, mix_r=None, key=mk(params.ffn.key, False),
+                      value=mk(params.ffn.value, True),
+                      receptance=mk(params.ffn.receptance, False)),
+        ln_out=ln, head=head,
+        logit_bias=None if params.logit_bias is None else vocab,
+    )
+
+
+def _cut(t, dim: Optional[int], devices) -> list:
+    """t cut into len(devices) contiguous pieces along dim, piece j on
+    devices[j] (dim None: t itself on every device)."""
+    if isinstance(t, Shards):
+        return list(t)
+    t = _as_tensor(t)
+    if dim is None:
+        return [t.to(dev) for dev in devices]
+    n = len(devices)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split over {n} shards")
+    return [c.contiguous().to(dev) for c, dev in zip(torch.chunk(t, n, dim), devices)]
+
+
+class ShardedParams:
+    """RWKVParams cut over a mesh: rows[d][j] is model shard j of data row d,
+    every leaf a contiguous tensor on mesh.devices[d][j] (data rows share a
+    shard's tensors where they name the same device)."""
+
+    def __init__(self, rows, mesh: Mesh, vocab_size: int):
+        self.rows = rows
+        self.mesh = mesh
+        self.vocab_size = vocab_size
+        self._local: dict = {}
+        self._bias = None
+
+    @property
+    def n_layer(self) -> int:
+        return self.rows[0][0].n_layer
+
+    @property
+    def n_embd(self) -> int:
+        return self.rows[0][0].n_embd
+
+    @property
+    def config(self) -> RWKVConfig:
+        return RWKVConfig(n_layer=self.n_layer, n_embd=self.n_embd, vocab_size=self.vocab_size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.first_device
+
+    @property
+    def logit_bias(self) -> Optional[torch.Tensor]:
+        """The whole [Vp] logit bias on the first device, or None."""
+        if self._bias is None and self.rows[0][0].logit_bias is not None:
+            parts = [p.logit_bias.to(self.device) for p in self.rows[0]]
+            vocab_split = parts[0].shape[0] != self.vocab_size
+            self._bias = torch.cat(parts) if vocab_split else parts[0]
+        return self._bias
+
+    def local(self, d: int, j: int):
+        """(decay, bonus) of shard (d, j): its channel slice [L, E / tp] of
+        the replicated vectors, contiguous, cut once."""
+        got = self._local.get((d, j))
+        if got is None:
+            p, tp = self.rows[d][j], self.mesh.shape["model"]
+            El = p.n_embd // tp
+            got = tuple(v[:, j * El:(j + 1) * El].contiguous()
+                        for v in (p.att.decay, p.att.bonus))
+            self._local[(d, j)] = got
+        return got
+
+
+def shard_params(params: RWKVParams, mesh: Mesh) -> ShardedParams:
+    """Cut `params` (numpy or torch leaves, or Shards leaves from make_put)
+    over `mesh` by param_pspecs."""
+    tp = mesh.shape["model"]
+    vocab = _vocab(params)
+    specs = param_pspecs(params, n_model=tp)
+    cut = _zip_map(lambda leaf, dim: Shards(_cut(leaf, dim, mesh.devices[0])), params, specs)
+    row0 = [_zip_map(lambda pieces, _: pieces[j], cut, specs) for j in range(tp)]
+    rows = [row0]
+    for devs in mesh.devices[1:]:
+        rows.append([p if dev == p.emb.device else params_to(p, dev)
+                     for p, dev in zip(row0, devs)])
+    return ShardedParams(rows, mesh, vocab)
+
+
+def state_pspecs(n_model: int = 0) -> WKVState:
+    """The layout of a state with [L, B, E] leaves: (dim split over the data
+    rows, dim split over the model shards) per leaf. aa/bb/pp split on E over
+    the model shards; the token-shift memories xy/dd are replicated; streams
+    split over data. n_model=1 splits nothing over the model axis."""
+    shift = (1, None)
+    chan = shift if n_model == 1 else (1, -1)
+    return WKVState(xy=shift, aa=chan, bb=chan, pp=chan, dd=shift)
+
+
+def shard_state(state: WKVState, mesh: Mesh):
+    """A full state ([L, B, E] leaves) cut into a [data][model] grid of
+    WKVStates, each leaf contiguous on its shard's device. B must split
+    evenly over the data rows."""
+    nd, tp = mesh.shape["data"], mesh.shape["model"]
+    specs = state_pspecs(n_model=tp)
+    cells = [[{} for _ in range(tp)] for _ in range(nd)]
+    for name, t, (ddim, mdim) in zip(WKVState._fields, state, specs):
+        if t.shape[ddim] % nd:
+            raise ValueError(f"batch {t.shape[ddim]} does not split over data={nd}")
+        rows = torch.chunk(t, nd, ddim)
+        for d, row in enumerate(rows):
+            cols = torch.chunk(row, tp, mdim) if mdim is not None else [row] * tp
+            for j, c in enumerate(cols):
+                cells[d][j][name] = c.contiguous().to(mesh.devices[d][j])
+    return [[WKVState(**c) for c in row] for row in cells]
+
+
+def unshard_state(grid, mesh: Mesh) -> WKVState:
+    """The inverse of shard_state: full leaves on the mesh's first device."""
+    specs = state_pspecs(n_model=mesh.shape["model"])
+    first = mesh.first_device
+    out = []
+    for i, (ddim, mdim) in enumerate(specs):
+        rows = []
+        for row in grid:
+            if mdim is None:
+                rows.append(row[0][i].to(first))
+            else:
+                rows.append(torch.cat([cell[i].to(first) for cell in row], dim=mdim))
+        out.append(torch.cat(rows, dim=ddim) if len(rows) > 1 else rows[0])
+    return WKVState(*out)
+
+
+@dataclasses.dataclass
+class ShardingContext:
+    """Carried by the engine: the mesh."""
+
+    mesh: Mesh
+
+
+# .bin tensor name (io/registry.py) -> the dim split over the model shards
+_PUT_DIMS = {
+    "embed": 0, "km": -1, "vm": -1, "rm": -1,
+    "att_out": -2, "att_out_r": -1, "att_out_o": -1,
+    "ffn_k": -1, "ffn_r": -1, "ffn_v": -2, "ffn_vr": -1, "ffn_vo": -1,
+    "head": -1, "logit_bias": 0,
+}
+_VOCAB_DIM = {"embed": 0, "head": 1, "logit_bias": 0}
+
+
+def make_put(ctx: "ShardingContext | Mesh"):
+    """A put(name, host_array) for io.binfmt.read_bin that cuts each tensor
+    straight into its shards (Shards; a replicated tensor goes to the first
+    device whole), so the host holds one tensor at a time and each device
+    only its pieces. shard_params then takes the result as it is."""
+    mesh = ctx.mesh if isinstance(ctx, ShardingContext) else ctx
+    tp = mesh.shape["model"]
+
+    def put(name: str, arr: np.ndarray):
+        dim = _PUT_DIMS.get(name)
+        vd = _VOCAB_DIM.get(name)
+        if dim is None or (vd is not None and arr.shape[vd] % tp):
+            return _as_tensor(arr).to(mesh.first_device)
+        return Shards(_cut(arr, dim, mesh.devices[0]))
+
+    return put
+
+
+def tp_vocab_multiple(tp: int) -> int:
+    """The padded vocab a tp-wide mesh needs: each shard's Vp / tp a multiple
+    of 128, and Vp a multiple of 512 (the engine's unsharded padding)."""
+    return math.lcm(512, 128 * tp)

@@ -14,8 +14,17 @@ Prompt ingest runs `forward_seq(parallel=True)` in plain PyTorch, padded to
 a few fixed buckets with a length mask. State stays on the device between
 calls; during generation only the sampled token ids reach the host.
 
-The engine runs on "cuda" unless the caller passes device="cpu"; it never
-falls back to the CPU on its own.
+    RWKV("model.bin", sharding=make_mesh(model=tp))   tensor-parallel serving
+
+With a mesh (parallel/mesh.py) the params are cut over it
+(parallel/sharding.py) and decode and prefill run the tensor-parallel step of
+parallel/tp_step.py, by default on kernel K6 per shard and layer with the
+head on K2 (tp_body: "halves", "plain"; "fused" is kernel K7, not ported).
+The state stays one set of whole tensors on the mesh's first device, cut for
+each call. W8A8 (a8) has no sharded step, as in the JAX engine.
+
+The engine runs on "cuda" unless the caller passes device="cpu" (or a mesh
+of CPU devices); it never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -42,6 +51,14 @@ from rwkv_tpu_torch.models.rwkv4 import (
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.sampling import typical
+from rwkv_tpu_torch.parallel.mesh import canonical
+from rwkv_tpu_torch.parallel.sharding import (
+    ShardedParams,
+    make_put,
+    shard_params,
+    tp_vocab_multiple,
+)
+from rwkv_tpu_torch.parallel.tp_step import make_engine_prefill, make_engine_step
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.text import StopScanner
 
@@ -76,7 +93,19 @@ class RWKV:
         max_streams: int = 1,
         prefill_buckets: Sequence[int] = (32, 128, 512),
         quant: str = "q8",
+        sharding=None,
+        tp_body: Optional[str] = None,
     ):
+        """sharding: a parallel.mesh.Mesh or a parallel.sharding.ShardingContext
+        for tensor-parallel serving, or None. tp_body: the sharded step's body
+        (parallel/tp_step.py; None picks it)."""
+        self._mesh = getattr(sharding, "mesh", sharding)
+        if self._mesh is not None:
+            first = self._mesh.first_device
+            if device is not None and canonical(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
+        self._tp_body = tp_body
         self.device = resolve_device(device)
         if quant not in ("q8", "q4"):
             raise ValueError(f"quant must be 'q8' or 'q4', got {quant!r}")
@@ -92,6 +121,8 @@ class RWKV:
         # the decode step (params, tokens, state) -> (logits, state); the pool
         # takes it as its step_fn
         self._step_fn: Callable = forward_step_fused
+        # prompt ingest (params, tokens, state, length); None: forward_seq
+        self._prefill_impl: Optional[Callable] = None
         if model_path:
             self.load_file(model_path, max_streams)
         if vocab_dir:
@@ -131,21 +162,38 @@ class RWKV:
                 "top of Q8 would stack quantization noise")
         if not path.endswith(".bin"):
             raise ValueError(f"{path}: this engine loads .bin, .safetensors and .pth files")
+        if self._mesh is not None:
+            # each shard's Vp / tp a multiple of 128; every tensor cut into its
+            # shards as it is read
+            self.load_params(shard_params(read_bin(
+                path, self.device, put=make_put(self._mesh),
+                pad_vocab_to=tp_vocab_multiple(self._mesh.shape["model"]), signed=True),
+                self._mesh))
+            return
         # 512, not 128: 50277 -> 50688, a multiple of the kernels' 16-column loads
         self.load_params(read_bin(path, self.device, pad_vocab_to=512, signed=True))
 
     loadFile = load_file
 
-    def load_params(self, params: RWKVParams, a8: bool = False) -> None:
+    def load_params(self, params, a8: bool = False) -> None:
         """Use an already-built params tree (numpy or torch leaves; u8 or int8
         QuantLinear, or packed Quant4Linear families): padded to a head width
         the kernels take, re-centered to int8, and placed on the engine's
         device. It may be the engine's own params (re-centering is a no-op).
 
+        With a mesh: padded so that each shard's vocab is a multiple of 128,
+        re-centered, cut over the mesh (or taken as they are if already a
+        ShardedParams), and decode and prefill switch to the tensor-parallel
+        step and prefill.
+
         a8: decode W8A8 (kernel K5 on CUDA): every matvec's input quantized
         to int8 per batch row, and per block of a8_block_for(E) channels for
         att.output and ffn.value, the block the JAX engine's fused a8 step
-        uses; adds activation-quantization noise. q8 weights only."""
+        uses; adds activation-quantization noise. q8 weights only, and no
+        mesh."""
+        if self._mesh is not None:
+            self._load_sharded(params, a8)
+            return
         if not isinstance(params.head, (QuantLinear, Quant4Linear)):
             raise TypeError("the engine needs quantized (QuantLinear or Quant4Linear) params")
         if a8 and isinstance(params.att.key, Quant4Linear):
@@ -154,11 +202,34 @@ class RWKV:
         if params.head.out_features % 16:
             params = pad_vocab(params, multiple=512)
         params = signedize_params(params)
-        self.params = params
         self.quant = "q4" if isinstance(params.att.key, Quant4Linear) else "q8"
         self._step_fn = (partial(forward_step_fused, a8=True,
                                  a8_block=a8_block_for(params.n_embd))
                          if a8 else forward_step_fused)
+        self._prefill_impl = None
+        self._loaded(params)
+
+    def _load_sharded(self, params, a8: bool) -> None:
+        """load_params with a mesh (the JAX engine's sharded branch)."""
+        if a8:
+            raise ValueError("a8 has no tensor-parallel step (nor has the JAX engine): "
+                             "load without a mesh for W8A8")
+        mesh = self._mesh
+        if not isinstance(params, ShardedParams):
+            if not isinstance(params.head, (QuantLinear, Quant4Linear)):
+                raise TypeError("the sharded engine needs quantized (QuantLinear) params")
+            params = params_to(params, self.device)
+            multiple = tp_vocab_multiple(mesh.shape["model"])
+            if params.head.out_features % (128 * mesh.shape["model"]):
+                params = pad_vocab(params, multiple=multiple)
+            params = shard_params(signedize_params(params), mesh)
+        self._step_fn = make_engine_step(mesh, params, body=self._tp_body)
+        self._prefill_impl = make_engine_prefill(mesh, params)
+        self.quant = "q8"
+        self._loaded(params)
+
+    def _loaded(self, params) -> None:
+        self.params = params
         self.config = params.config
         # True (unpadded) vocab: padded ids carry a -1e9 logit_bias; forward()
         # returns logits sliced back to this size
@@ -272,8 +343,12 @@ class RWKV:
             padded[: len(chunk)] = torch.tensor(chunk)
             # an exactly bucket-sized chunk needs no mask
             length = None if len(chunk) == bucket else len(chunk)
-            logits, state = forward_seq(self.params, padded.to(self.device), state,
-                                        parallel=True, length=length)
+            if self._prefill_impl is not None:
+                logits, state = self._prefill_impl(self.params, padded.to(self.device), state,
+                                                   length)
+            else:
+                logits, state = forward_seq(self.params, padded.to(self.device), state,
+                                            parallel=True, length=length)
         self.set_state(state, stream)
         self._last_logits[stream] = logits
         return logits[..., : self._true_vocab]

@@ -1,11 +1,13 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
-    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8] [--batch 1 8 16]
-                                                  [--steps 30] [--seed 0]
+    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8] [--tp N]
+                                                  [--batch 1 8 16] [--steps 30] [--seed 0]
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
 (q4: the default pairing block), and with --a8 the W8A8 step (q8 weights,
-kernel K5, the engine's a8 block), it measures:
+kernel K5, the engine's a8 block), or with --tp N the tensor-parallel step
+(parallel/tp_step.py, the "halves" body: kernel K6 per shard and layer, the
+head on K2) on a mesh that names the card N times, it measures:
   * wall ms per step of forward_step_fused (CUDA events around `steps`
     back-to-back steps: what a caller that does not read the logits sees);
   * host ms per step: the time the Python + C host code takes to enqueue a
@@ -15,7 +17,12 @@ kernel K5, the engine's a8 block), it measures:
     device's busy share of the wall time;
   * device ms per step by launch position: the step's rwkv kernels in the
     order decode_stack.cu launches them (per layer: ln1+mix, k/v/r + WKV,
-    output, ln2+mix, key, value+gate; then ln_out and the mm8 or mm4 head);
+    output, ln2+mix, key, value+gate; then ln_out and the mm8 or mm4 head),
+    or with --tp tp_halves.cu (per layer and shard: ln1+mix, k/v/r + WKV,
+    output partial; ln2+mix, gate, key, value partial; then the mm8 head of
+    each shard);
+  * with --tp, wall ms per step of the K1 step (forward_step_fused) and of
+    the tensor-parallel step in turns (K1, tp, tp, K1), CUDA events;
   * graph ms per step: the same step captured once in a CUDA graph and
     replayed, which takes the host's launch cost out of the wall time;
   * sampled ms per token: the engine's generate loop without the tokenizer
@@ -38,6 +45,8 @@ from functools import partial
 
 
 PHASES = ("ln1+mix", "k/v/r+wkv", "output", "ln2+mix", "key", "value+gate")
+TP_PHASES = ("ln1+mix", "k/v/r+wkv", "output partial", "ln2+mix", "gate", "key",
+             "value partial")
 
 
 def _device_us(evt) -> float:
@@ -52,12 +61,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quant", choices=["q8", "q4"], default="q8")
     ap.add_argument("--a8", action="store_true", help="the W8A8 step (q8 weights only)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="the tensor-parallel step on a mesh naming the card N times")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.a8 and args.quant == "q4":
         ap.error("--a8 runs on q8 weights")
+    if args.tp and (args.a8 or args.quant == "q4"):
+        ap.error("--tp runs on q8 weights without --a8")
 
     import numpy as np
     import torch
@@ -73,6 +86,9 @@ def main() -> None:
     )
     from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
     from rwkv_tpu_torch.ops.sampling import typical
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params
+    from rwkv_tpu_torch.parallel.tp_step import make_engine_step
     from rwkv_tpu_torch.runtime.engine import RWKV
 
     if not torch.cuda.is_available():
@@ -84,9 +100,20 @@ def main() -> None:
     host = random_quantized_params_np(cfg, seed=args.seed, q4=args.quant == "q4")
     params = params_to(signedize_params(host), dev)
     head = "head (mm4)" if args.quant == "q4" else ("head (mm8_a8)" if args.a8 else "head (mm8)")
+    k1_step = forward_step_fused
+    mesh = None
     if args.a8:
         forward_step_fused = partial(forward_step_fused, a8=True,
                                      a8_block=a8_block_for(cfg.n_embd))
+    if args.tp:
+        mesh = make_mesh(model=args.tp, devices=[dev] * args.tp)
+        sharded = shard_params(params, mesh)
+        tp_step = make_engine_step(mesh, sharded, body="halves")
+
+        def forward_step_fused(_, token, state):  # noqa: F811: the step profiled
+            return tp_step(sharded, token, state)
+
+        head = "head (mm8)"
     rng = np.random.default_rng(args.seed)
 
     for B in args.batch:
@@ -109,6 +136,23 @@ def main() -> None:
         b.record()
         b.synchronize()
         wall_ms = a.elapsed_time(b) / args.steps
+
+        turns = {}
+        if args.tp:  # K1 and the tp step, in turns
+            def timed(fn):
+                fn(params, tok, st)
+                torch.cuda.synchronize()
+                a.record()
+                s = st
+                for _ in range(args.steps):
+                    _, s = fn(params, tok, s)
+                b.record()
+                b.synchronize()
+                return a.elapsed_time(b) / args.steps
+
+            for name in ("k1", "tp", "tp", "k1"):
+                turns.setdefault(name, []).append(
+                    timed(k1_step if name == "k1" else forward_step_fused))
 
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -134,12 +178,18 @@ def main() -> None:
         ours = sorted((e for e in prof.events()
                        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
                        and "rwkv::" in e.name), key=lambda e: e.time_range.start)
-        per_step = 6 * cfg.n_layer + 2
+        n = args.tp
+        per_step = 7 * cfg.n_layer * n + n if n else 6 * cfg.n_layer + 2
         by_position = defaultdict(float)
         for i, e in enumerate(ours):
             j = i % per_step
-            label = (PHASES[j % 6] if j < 6 * cfg.n_layer
-                     else ("ln_out" if j == 6 * cfg.n_layer else head))
+            if n:  # per layer: n att halves (3 launches), then n ffn halves (4)
+                k = j % (7 * n)
+                label = (head if j >= 7 * cfg.n_layer * n
+                         else TP_PHASES[k % 3] if k < 3 * n else TP_PHASES[3 + (k - 3 * n) % 4])
+            else:
+                label = (PHASES[j % 6] if j < 6 * cfg.n_layer
+                         else ("ln_out" if j == 6 * cfg.n_layer else head))
             by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
@@ -166,7 +216,7 @@ def main() -> None:
 
         engine = {}
         if B == 1:
-            eng = RWKV(device=dev)
+            eng = RWKV(device=dev, sharding=mesh)
             eng.load_params(host, a8=args.a8)
             eng.load_tokenizer()
 
@@ -194,7 +244,9 @@ def main() -> None:
                       "engine_host_ms_per_token_by_op": dict(top)}
             del eng
 
-        out = {"quant": args.quant, "a8": args.a8, "batch": B, "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
+        out = {"quant": args.quant, "a8": args.a8, "tp": args.tp, "batch": B,
+               "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
+               **({"wall_ms_per_step_in_turns": turns} if turns else {}),
                "graph_ms_per_step": graph_ms,
                "sampled_ms_per_token": sampled_ms,
                "sampled_device_busy_share": sampled_busy,

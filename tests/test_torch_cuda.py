@@ -308,3 +308,89 @@ def test_a8_step_independent_of_batchmates(dev):
     assert torch.equal(lg4[0], lg_o[0])
     for a, b in zip(st4, st_o):
         assert torch.equal(a[:, 0], b[:, 0])
+
+
+# Kernel K6 (csrc/tp_halves.cu): one layer's att and ffn halves per
+# tensor-parallel shard, against their plain versions, at shard widths that
+# are not powers of two (E / tp = 640, F / tp = 2560: the contraction splits
+# of qmv.cuh must cover K = 640 exactly) and narrow (E / tp = 128); and the
+# shards' partials, summed in the fixed order, against the tp = 1 call.
+@pytest.fixture(scope="module")
+def tp_setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params
+
+    dev = torch.device("cuda", 0)
+    cfg = RWKVConfig(n_layer=2, n_embd=1280, vocab_size=1000)
+    p = params_to(signedize_params(random_quantized_params_np(cfg, seed=9, pad_multiple=640)),
+                  dev)
+    return cfg, {tp: shard_params(p, make_mesh(model=tp, devices=[dev] * tp))
+                 for tp in (1, 2, 10)}
+
+
+@pytest.mark.parametrize("tp", [2, 10])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_tp_halves_match_plain_and_sum_to_tp1(dev, tp_setup, tp, B):
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    cfg, sharded = tp_setup
+    E, l = cfg.n_embd, 1
+    El = E // tp
+    rng = np.random.default_rng(tp * 10 + B)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+    x, xy, dd, aa, pp = f(B, E), f(B, E), f(B, E), f(B, E), f(B, E)
+    bb = f(B, E).abs() + 0.5
+    full = sharded[1]
+    att1 = th.att_half(full.rows[0][0], l, x, xy, aa, bb, pp, *full.local(0, 0))
+    ffn1 = th.ffn_half(full.rows[0][0], l, x, dd)
+    sp = sharded[tp]
+    parts, vparts, gates = [], [], []
+    for j in range(tp):
+        p = sp.rows[0][j]
+        cut = [t[:, j * El:(j + 1) * El].contiguous() for t in (aa, bb, pp)]
+        before = (th.launches_att, th.launches_ffn, ds_mod.launches)
+        got = th.att_half(p, l, x, xy, *cut, *sp.local(0, j))
+        got_f = th.ffn_half(p, l, x, dd)
+        assert (th.launches_att, th.launches_ffn, ds_mod.launches) == (before[0] + 3,
+                                                                       before[1] + 4, before[2])
+        want = th.att_half_plain(p, l, x, xy, *cut, *sp.local(0, j))
+        want_f = th.ffn_half_plain(p, l, x, dd)
+        for name, a, b in zip(("partial", "aa", "bb", "pp", "xx", "vpartial", "gate", "xx2"),
+                              got + got_f, want + want_f):
+            assert _scaled(a, b) <= 1e-5, (name, j, _scaled(a, b))
+        for a, b in zip(got[1:4], att1[1:4]):  # the WKV step is per channel
+            assert _scaled(a, b[:, j * El:(j + 1) * El]) <= 1e-5
+        parts.append(got[0])
+        vparts.append(got_f[0])
+        gates.append(got_f[1])
+    total, vtotal = parts[0], vparts[0]
+    for a, b in zip(parts[1:], vparts[1:]):
+        total, vtotal = total + a, vtotal + b
+    assert _scaled(total, att1[0]) <= 1e-4
+    assert _scaled(vtotal, ffn1[0]) <= 1e-4
+    assert _scaled(torch.cat(gates, dim=1), ffn1[1]) <= 1e-5
+
+
+def test_tp_step_halves_runs_k6_and_k2(dev, tp_setup):
+    """The halves body on a virtual tp = 2 mesh: K6 and K2 launch, K1 does
+    not, and the step matches the plain model."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
+
+    cfg, sharded = tp_setup
+    sp = sharded[2]
+    step = make_tp_step(sp.mesh, sp)
+    assert step.body == "halves"
+    st = init_state(cfg, (3,), device=dev)
+    tok = torch.tensor([17, 400, 5], device=dev)
+    counts = lambda: (th.launches_att, th.launches_ffn, mm8_mod.launches, ds_mod.launches)  # noqa: E731
+    before = counts()
+    logits, new = step(sp, tok, st)
+    L = cfg.n_layer
+    assert [a - b for a, b in zip(counts(), before)] == [3 * L * 2, 4 * L * 2, 2, 0]
+    ref, ref_state = forward_step(sharded[1].rows[0][0], tok, st)
+    assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
+    for a, b in zip(new, ref_state):
+        assert _scaled(a, b) <= 1e-4
