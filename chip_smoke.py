@@ -62,14 +62,35 @@ Phases, in order; any failure raises and exits non-zero:
               K6_SUM_TOL; then 14B widths (E=5120, F=20480, L=2) at tp = 8
               (E/tp = 640); times of one att_half + ffn_half at tp = 1 beside
               K1's per-layer share (phase 3).
- 12. tp serve the phase-4 .bin through RWKV(path, sharding=make_mesh(model=1)):
-              3 requests on the tensor-parallel step (K6 per layer, the head on
-              K2), K6's and K2's counters rising and K1's still, the logits
-              against the plain model, ms/token beside the K1 engine's; then
-              on a virtual model=2 mesh (one card twice): logits within
-              TP_TOL of tp = 1, the same 8 greedy ids, 3L + 2 collectives a
-              step; then a 4-slot InferencePool over it serving 6 requests.
-              Times on a virtual mesh are correctness runs, not speed-ups.
+ 12. tp serve the phase-4 .bin through RWKV(path, sharding=make_mesh(model=1),
+              tp_body="halves"): 3 requests on the tensor-parallel step (K6
+              per layer, the head on K2), K6's and K2's counters rising and
+              K1's and K7's still, the logits against the plain model,
+              ms/token beside the K1 engine's; then on a virtual model=2 mesh
+              (one card twice): logits within TP_TOL of tp = 1, the same 8
+              greedy ids, 3L + 2 collectives a step; then a 4-slot
+              InferencePool over it serving 6 requests. Times on a virtual
+              mesh are correctness runs, not speed-ups.
+ 13. tp_fused kernel K7 (csrc/decode_stack_tp.cu: the whole step of a data
+              row's shards) against its plain version at 430M widths, q8 and
+              q4 (block 256, inside a shard up to tp = 4), tp in {1, 2, 4} on
+              a virtual mesh, B in {1, 8} with the embedding gather in the
+              step and B = 16 with x given, 2 carried steps: every shard's
+              logits and state within DECODE_TOL scaled; at tp = 1 against
+              the unsharded step (K1 + K2, K4 + K3) on the same params, and
+              the tp >= 2 logits gathered against tp = 1; then 14B widths
+              (E=5120, F=20480, L=2) at tp = 8 (and 1), q8 and q4 (block
+              128); ms per step at tp = 1 beside the unsharded step, in
+              turns, eager and replayed from a CUDA graph.
+ 14. tp_fused serve  the phase-4 .bin through RWKV(path, sharding=
+              make_mesh(model=1), tp_body="fused"): 3 requests on K7 alone
+              (K6, K2 and K1 still), the logits against the plain model and
+              the same greedy ids as the K1 engine; a virtual model=2 fused
+              engine: the same 8 greedy ids, 1 gather and 0 psums a step; a
+              4-slot pool over it serving 6 requests; then a q4 engine on a
+              virtual model=2 mesh and an unsharded q4 engine fed the same
+              4-bit params (block 512): the same greedy ids, on K7's q4
+              instantiation.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -152,17 +173,20 @@ def main() -> int:
         init_state,
         map_params,
         params_to,
+        q4_pack_block,
         random_quantized_params_np,
         signedize_params,
     )
+    from rwkv_tpu_torch.ops.layernorm import layer_norm
     from rwkv_tpu_torch.ops.cuda import _build
     from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
     from rwkv_tpu_torch.ops.cuda import mm4 as mm4_mod
     from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
     from rwkv_tpu_torch.ops.cuda import tp_halves as th
     from rwkv_tpu_torch.ops.quant import Quant4Linear, unpack4
     from rwkv_tpu_torch.parallel.mesh import make_mesh
-    from rwkv_tpu_torch.parallel.sharding import shard_params
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
     from rwkv_tpu_torch.runtime.engine import RWKV
     from rwkv_tpu_torch.runtime.pool import InferencePool
 
@@ -384,13 +408,15 @@ def main() -> int:
                "Question: what is the capital of France?\nAnswer:"]
     counters = (ds_mod, "launches"), (ds_mod, "launches_q4"), (mm8_mod, "launches"), \
         (mm4_mod, "launches"), (ds_mod, "launches_a8"), (mm8_mod, "launches_a8"), \
-        (th, "launches_att"), (th, "launches_ffn")
+        (th, "launches_att"), (th, "launches_ffn"), (k7, "launches"), (k7, "launches_q4")
+    COUNTER_NAMES = ("K1", "K4", "K2", "K3", "K5 stack", "K5 head", "K6 att", "K6 ffn", "K7",
+                     "K7 q4")
     ms_per_token = {}  # the last request's decode ms/token, by engine
 
     def serve(eng, max_tokens=32, label=None):
         """Answer the prompts with every launch count set to 0 just before;
         returns (decode steps, the counts just after: K1, K4, K2, K3, K5's
-        stack and head, and K6's att and ffn halves)."""
+        stack and head, K6's att and ffn halves, K7 q8 and q4)."""
         for mod, name in counters:
             setattr(mod, name, 0)
         steps, rates = 0, []
@@ -869,21 +895,21 @@ def main() -> int:
     # ------------------------------------------------------------------ 12
     print("phase 12 tensor-parallel serving: RWKV(path, sharding=make_mesh(model=1)), 430M .bin")
     t0 = time.perf_counter()
-    eng = RWKV(bin_path, sharding=make_mesh(model=1))
+    eng = RWKV(bin_path, sharding=make_mesh(model=1), tp_body="halves")
     eng.load_tokenizer()
     torch.cuda.synchronize()
-    print(f"  RWKV(path, sharding=make_mesh(model=1)) on {eng.device} in "
+    print(f"  RWKV(path, sharding=make_mesh(model=1), tp_body='halves') on {eng.device} in "
           f"{time.perf_counter() - t0:.1f} s; step body {eng._step_fn.body}")
     require(eng.device.type == "cuda" and eng._step_fn.body == "halves",
             f"the tp=1 engine runs body {eng._step_fn.body} on {eng.device}")
     steps12, counts12 = serve(eng, label="tp=1")
-    c12 = dict(zip(("K1", "K4", "K2", "K3", "K5 stack", "K5 head", "K6 att", "K6 ffn"), counts12))
+    c12 = dict(zip(COUNTER_NAMES, counts12))
     print(f"  launches during the requests: {c12} (K6: 3 + 4 per layer, "
           f"{7 * L} per step x {steps12} steps: "
           f"{c12['K6 att'] + c12['K6 ffn'] == 7 * L * steps12}); K2 once per step")
     require(c12["K6 att"] > 0 and c12["K6 ffn"] > 0, "K6 never launched on the tp path")
     require(c12["K2"] > 0, "the tp path's head never launched K2")
-    require(all(c12[k] == 0 for k in ("K1", "K4", "K3", "K5 stack", "K5 head")),
+    require(all(c12[k] == 0 for k in ("K1", "K4", "K3", "K5 stack", "K5 head", "K7", "K7 q4")),
             f"the tp path launched another stack: {c12}")
     k6_att_launches, k6_ffn_launches = c12["K6 att"], c12["K6 ffn"]
     check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
@@ -902,7 +928,7 @@ def main() -> int:
     l1, ids1 = greedy(eng)
     mesh2 = make_mesh(model=2, devices=[dev, dev])
     t0 = time.perf_counter()
-    eng2 = RWKV(bin_path, sharding=mesh2)
+    eng2 = RWKV(bin_path, sharding=mesh2, tp_body="halves")
     eng2.load_tokenizer()
     torch.cuda.synchronize()
     print(f"  virtual mesh model=2 (one card twice): loaded in {time.perf_counter() - t0:.1f} s, "
@@ -936,6 +962,215 @@ def main() -> int:
           f"{wall:.2f} s (a correctness run on a virtual mesh, not a speed-up) {card}; "
           f"request 0 -> {out[rids[0]][:40]!r}")
     del eng, eng2, pool
+
+    # ------------------------------------------------------------------ 13
+    def k7_kwargs(params, tok, B):
+        """K7's input: the tokens (B <= 8: the gather rides in the step) or x."""
+        if B <= k7.FUSE_EMBED_MAX_B:
+            return {"token": tok}
+        return {"x": layer_norm(params.emb[tok], params.ln0.weight, params.ln0.bias)}
+
+    def check_k7(params, cfg_, tps, batches, tag, steps=2):
+        """K7 against its plain version for each tp and B over `steps` carried
+        steps; at tp = 1 also against the unsharded step (K1 + K2 or K4 +
+        K3); the last step's gathered logits of each tp against tp = 1's.
+        Returns the worst absolute error over shards' logits and states."""
+        V_ = cfg_.vocab_size
+        sharded = {tp: shard_params(params, make_mesh(model=tp, devices=[dev] * tp))
+                   for tp in tps}
+        worst, k7_worst = {}, 0.0
+        for B in batches:
+            toks = [torch.from_numpy(rng.integers(0, V_, size=(B,))).to(dev)
+                    for _ in range(steps)]
+            first = None
+            for tp in tps:
+                sp = sharded[tp]
+                local = [sp.local(0, j) for j in range(tp)]
+                st_k = st_p = shard_state(init_state(cfg_, (B,), device=dev), sp.mesh)[0]
+                st_u = init_state(cfg_, (B,), device=dev)
+                for step, tok in enumerate(toks):
+                    kw = k7_kwargs(params, tok, B)
+                    lg_k, n_k = k7.decode_stack_tp(sp.rows[0], st_k, local, **kw)
+                    lg_p, n_p = k7.decode_stack_tp_reference(sp.rows[0], st_p, local, **kw)
+                    pairs = [(f"logits[{j}]", lg_k[j], lg_p[j]) for j in range(tp)]
+                    pairs += [(f"{n}[{j}]", a, b) for j in range(tp)
+                              for n, a, b in zip(WKVState._fields, n_k[j], n_p[j])]
+                    if tp == 1:  # the unsharded step on the same params
+                        lg_u, st_u = ds_mod.forward_step_fused(params, tok, st_u)
+                        pairs.append(("logits vs unsharded", lg_k[0][:, :V_], lg_u[:, :V_]))
+                        pairs += [(f"{n} vs unsharded", a, b)
+                                  for n, a, b in zip(WKVState._fields, n_k[0], st_u)]
+                    torch.cuda.synchronize()
+                    for name, a, b in pairs:
+                        require(bool(torch.isfinite(a).all()),
+                                f"K7 {tag} tp={tp} B={B} step {step}: {name} not finite")
+                        err, serr = scaled_err(a, b)
+                        require(serr <= DECODE_TOL, f"K7 {tag} tp={tp} B={B} step {step}: "
+                                f"{name} scaled error {serr:.3e} > {DECODE_TOL}")
+                        key = (tp, name.split("[")[0])
+                        worst[key] = max(worst.get(key, (0.0, 0.0)), (err, serr))
+                        if "unsharded" not in name:
+                            k7_worst = max(k7_worst, err)
+                    st_k, st_p = n_k, n_p
+                full = torch.cat(lg_k, dim=-1)[:, :V_]
+                if first is None:
+                    first = full
+                    continue
+                err, serr = scaled_err(full, first)
+                require(serr <= DECODE_TOL, f"K7 {tag} tp={tp} B={B}: gathered logits vs tp=1 "
+                        f"scaled error {serr:.3e} > {DECODE_TOL}")
+                worst[tp, "gathered vs tp=1"] = max(worst.get((tp, "gathered vs tp=1"),
+                                                              (0.0, 0.0)), (err, serr))
+        for tp in tps:
+            print(f"  {tag} tp={tp} (E/tp={cfg_.n_embd // tp}), B in {batches}, {steps} steps: "
+                  "max abs err (scaled) " + ", ".join(
+                      f"{n} {e:.2e} ({r:.1e})" for (t, n), (e, r) in worst.items() if t == tp))
+        return k7_worst, sharded
+
+    def time_k7(params, sharded, cfg_, tag):
+        """ms per step of K7 at each tp (B = 1 and 8), the unsharded step in
+        turns at tp = 1, a CUDA graph's replay, the plain version and the
+        bound. Returns the tp = 1, B = 1 row."""
+        L_, E_ = cfg_.n_layer, cfg_.n_embd
+        head = params.head
+        head_bytes = nbytes([head.wp if isinstance(head, Quant4Linear) else head.w])
+        wb, vb = weight_bytes(params), vector_bytes(params)
+        rows = {}
+        for B in (1, 8):
+            tok = torch.from_numpy(rng.integers(0, cfg_.vocab_size, size=(B,))).to(dev)
+            for tp, sp in sharded.items():
+                local = [sp.local(0, j) for j in range(tp)]
+                st = shard_state(init_state(cfg_, (B,), device=dev), sp.mesh)[0]
+                fused = lambda: k7.decode_stack_tp(sp.rows[0], st, local, token=tok)  # noqa: E731,B023,E501
+                if tp > 1:
+                    print(f"  {tag} tp={tp} B={B}: K7 {cuda_ms(fused, 20):.3f} ms/step on one "
+                          f"card named {tp} times (a correctness run, not scaling) {card}")
+                    continue
+                st_u = init_state(cfg_, (B,), device=dev)
+                unsharded = lambda: ds_mod.forward_step_fused(params, tok, st_u)  # noqa: E731,B023,E501
+                t = {"unsharded": [], "K7": []}
+                for name in ("unsharded", "K7", "K7", "unsharded"):  # in turns
+                    t[name].append(cuda_ms(fused if name == "K7" else unsharded, 20))
+                g_ms = graph_ms(fused, 20)
+                plain_ms = cuda_ms(lambda: k7.decode_stack_tp_reference(  # noqa: B023
+                    sp.rows[0], st, local, token=tok), 3, warmup=1)
+                # + B embedding rows, state in and out, the logits out
+                nb = wb + vb + head_bytes + (B * E_ + 10 * L_ * B * E_ + B * head.out_features) * 4
+                b_ms, b_by = bound(nb, 2 * B * (L_ * 13 * E_ * E_ + E_ * head.out_features))
+                rows[B] = dict(ms=min(t["K7"]), plain_ms=plain_ms, graph_ms=g_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+                print(f"  {tag} tp=1 B={B}: K7 {', '.join(f'{v:.3f}' for v in t['K7'])} ms/step, "
+                      f"unsharded step {', '.join(f'{v:.3f}' for v in t['unsharded'])} ms/step "
+                      f"(in turns: unsharded, K7, K7, unsharded); K7 replayed from a CUDA graph "
+                      f"{g_ms:.3f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, "
+                      f"{nb / 1e6:.1f} MB); {7 * L_ + 2} launches per step {card}")
+        return rows[1]
+
+    print(f"phase 13 decode_stack_tp (K7) vs plain, 430M: L={L} E={E} F={F}, tp 1, 2, 4 on a "
+          "virtual mesh, q8 and q4")
+    params = params_to(signedize_params(random_quantized_params_np(
+        cfg, seed=args.seed + 7, pad_multiple=512)), dev)
+    k7_err, sharded = check_k7(params, cfg, (1, 2, 4), (1, 8, 16), "430M q8")
+    k7_row = time_k7(params, sharded, cfg, "430M q8")
+    del params, sharded
+    blk4 = q4_pack_block(E, 4)
+    params = params_to(random_quantized_params_np(cfg, seed=args.seed + 8, pad_multiple=512,
+                                                  q4=True, q4_block=blk4), dev)
+    print(f"  q4 params: row-parallel pack block {blk4}")
+    k7q4_err, sharded = check_k7(params, cfg, (1, 2, 4), (1, 8, 16), "430M q4")
+    k7q4_row = time_k7(params, sharded, cfg, "430M q4")
+    del params, sharded
+    cfg14 = RWKVConfig(n_layer=2, n_embd=5120, vocab_size=1000)
+    for quant in ("q8", "q4"):
+        host = random_quantized_params_np(cfg14, seed=args.seed + 9, pad_multiple=1024,
+                                          q4=quant == "q4", q4_block=q4_pack_block(5120, 8))
+        params = params_to(signedize_params(host), dev)
+        check_k7(params, cfg14, (1, 8), (1, 8, 16), f"14B widths L=2 {quant}", steps=1)
+        del host, params
+
+    # ------------------------------------------------------------------ 14
+    print("phase 14 fused tensor-parallel serving: RWKV(path, sharding=make_mesh(model=1), "
+          "tp_body='fused'), 430M .bin")
+    eng_k1 = RWKV(bin_path)
+    eng_k1.load_tokenizer()
+    _, ids_k1 = greedy(eng_k1)
+    del eng_k1
+    eng = RWKV(bin_path, sharding=make_mesh(model=1), tp_body="fused")
+    eng.load_tokenizer()
+    require(eng._step_fn.body == "fused" and eng.quant == "q8",
+            f"the tp=1 engine runs body {eng._step_fn.body}, quant {eng.quant}")
+    steps14, counts14 = serve(eng, label="fused tp=1")
+    c14 = dict(zip(COUNTER_NAMES, counts14))
+    k7_launches = c14["K7"]
+    print(f"  launches during the requests: {c14} (K7: {7 * L + 2} per step x {steps14} steps: "
+          f"{c14['K7'] == (7 * L + 2) * steps14})")
+    require(k7_launches > 0, "K7 never launched on the fused path")
+    require(all(c14[k] == 0 for k in COUNTER_NAMES if k != "K7"),
+            f"the fused path launched another kernel: {c14}")
+    check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
+    _, ids_f1 = greedy(eng)
+    require(ids_f1 == ids_k1, f"fused tp=1 greedy ids {ids_f1} differ from the K1 engine's {ids_k1}")
+    print(f"  greedy ids equal the K1 engine's: {ids_k1}; decode ms/token, last request: fused "
+          f"tp=1 engine {ms_per_token['fused tp=1']:.3f}, halves tp=1 {ms_per_token['tp=1']:.3f}, "
+          f"K1 engine {ms_per_token['K1']:.3f} {card}")
+    mesh2 = make_mesh(model=2, devices=[dev, dev])
+    eng2 = RWKV(bin_path, sharding=mesh2, tp_body="fused")
+    eng2.load_tokenizer()
+    require(eng2._step_fn.body == "fused", f"the tp=2 engine runs body {eng2._step_fn.body}")
+    _, ids2 = greedy(eng2)
+    require(ids2 == ids_k1, f"fused tp=2 greedy ids {ids2} differ from the K1 engine's {ids_k1}")
+    mesh2.reset_collectives()
+    eng2.forward(ids2[-1])
+    torch.cuda.synchronize()
+    want = {"psum": 0, "all_gather": 1}
+    require(mesh2.collectives == want, f"collectives per step {mesh2.collectives}, want {want}")
+    print(f"  virtual model=2 fused engine: 8 greedy ids equal {ids2}; collectives per step "
+          f"{mesh2.collectives}")
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    pool = InferencePool(eng2.params, eng2.tokenizer, max_streams=4, prefill_bucket=128,
+                         step_fn=eng2._step_fn, prefill_fn=eng2._prefill_impl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [pool.submit(**dict(r, max_tokens=16)) for r in reqs[:6]]
+    out = pool.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c_pool = {n: getattr(mod, a) for n, (mod, a) in zip(COUNTER_NAMES, counters)}
+    require(sorted(out) == sorted(rids) and all(isinstance(out[r], str) for r in rids),
+            "the fused tp=2 pool did not finish every request")
+    require(c_pool["K7"] > 0 and all(v == 0 for k, v in c_pool.items() if k != "K7"),
+            f"the fused tp=2 pool did not run on K7 alone: {c_pool}")
+    print(f"  4-slot pool over the fused tp=2 engine: 6 requests, 16 tokens each, all finished "
+          f"in {wall:.2f} s (a correctness run on a virtual mesh) {card}; launches {c_pool}; "
+          f"request 0 -> {out[rids[0]][:40]!r}")
+    del eng, eng2, pool
+    host_q4 = random_quantized_params_np(cfg, seed=args.seed + 10, pad_multiple=512, q4=True,
+                                         q4_block=512)
+    eng_u = RWKV(quant="q4")
+    eng_u.load_params(host_q4)
+    eng_u.load_tokenizer()
+    _, ids_u = greedy(eng_u)
+    del eng_u
+    mesh_q = make_mesh(model=2, devices=[dev, dev])
+    eng_q = RWKV(sharding=mesh_q, quant="q4")
+    eng_q.load_params(host_q4)
+    eng_q.load_tokenizer()
+    require(eng_q.quant == "q4" and eng_q._step_fn.body == "fused",
+            f"the q4 mesh engine runs {eng_q.quant} on body {eng_q._step_fn.body}")
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    _, ids_q = greedy(eng_q)
+    torch.cuda.synchronize()
+    c_q = {n: getattr(mod, a) for n, (mod, a) in zip(COUNTER_NAMES, counters)}
+    k7q4_launches = c_q["K7 q4"]
+    require(ids_q == ids_u, f"q4 tp=2 greedy ids {ids_q} differ from the unsharded q4 engine's "
+            f"{ids_u}")
+    require(k7q4_launches > 0 and all(v == 0 for k, v in c_q.items() if k != "K7 q4"),
+            f"the q4 tp=2 engine did not run on K7's q4 instantiation alone: {c_q}")
+    print(f"  q4 engine on a virtual model=2 mesh (block 512): 8 greedy ids equal the unsharded "
+          f"q4 engine's {ids_u}; launches {c_q}")
+    del eng_q, host_q4
     bin_dir.cleanup()
 
     kernels = [
@@ -991,6 +1226,20 @@ def main() -> int:
          "bound_by": k6_rows[1]["ffn_bound"][1], "library_ms": None,
          "shape": f"tp=1, B=1, one layer: E={E}, F_loc={F}, 4 launches per call; ms replayed "
                   "from a CUDA graph"},
+        {"name": "decode_stack_tp", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack_tp.cu",
+         "replaces": "rwkv_tpu/ops/pallas/decode_stack_tp.py:519", "launches": k7_launches,
+         "max_abs_err": k7_err, "ms": k7_row["ms"], "plain_ms": k7_row["plain_ms"],
+         "bound_ms": k7_row["bound_ms"], "bound_by": k7_row["bound_by"], "library_ms": None,
+         "shape": f"q8, tp=1, B=1, L={L} E={E} F={F}, head included, {7 * L + 2} launches per "
+                  f"step; replayed from a CUDA graph {k7_row['graph_ms']:.4f} ms"},
+        {"name": "decode_stack_tp_q4", "route": "cuda",
+         "source": "rwkv_tpu_torch/csrc/decode_stack_tp.cu",
+         "replaces": "rwkv_tpu/ops/pallas/decode_stack_tp.py:519", "launches": k7q4_launches,
+         "max_abs_err": k7q4_err, "ms": k7q4_row["ms"], "plain_ms": k7q4_row["plain_ms"],
+         "bound_ms": k7q4_row["bound_ms"], "bound_by": k7q4_row["bound_by"], "library_ms": None,
+         "shape": f"q4 (block {blk4}), tp=1, B=1, L={L} E={E} F={F}, head included, "
+                  f"{7 * L + 2} launches per step; replayed from a CUDA graph "
+                  f"{k7q4_row['graph_ms']:.4f} ms"},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8, decode_stack and
-// tp_halves kernels.
+// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8, decode_stack,
+// tp_halves and decode_stack_tp kernels.
 //
 // Computes, for up to three matrices that share an output width O,
 //
@@ -618,8 +618,10 @@ __device__ __forceinline__ void a8_block_term(float& r, bool& first, int isum, f
   first = false;
 }
 
+// One block of a matvec launch: column tile blockIdx.x, split blockIdx.y of
+// gridDim.y (the body of qmv_kernel and qmv_shards_kernel).
 template <int BT, int FMT>
-__global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
+__device__ __forceinline__ void qmv_run(const QmvArgs& a) {
   __shared__ QmvSmem<BT, FMT> sm;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, col0 = tile * kTileO;
@@ -819,6 +821,25 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
   }
 }
 
+template <int BT, int FMT>
+__global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
+  qmv_run<BT, FMT>(a);
+}
+
+// The shards of one tensor-parallel data row in one launch (kernel K7):
+// shard blockIdx.z runs s[blockIdx.z]. The shards run at once, so each has
+// its own split-K partials and counters.
+constexpr int kMaxShards = 8;
+
+struct QmvShards {
+  QmvArgs s[kMaxShards];
+};
+
+template <int BT, int FMT>
+__global__ void __launch_bounds__(kThreads) qmv_shards_kernel(const __grid_constant__ QmvShards a) {
+  qmv_run<BT, FMT>(a.s[blockIdx.z]);
+}
+
 // Split of the contraction dim: enough blocks to fill the card, and at least
 // enough splits that a block's share is one 128-row group (the short path),
 // within kMaxSplit and the partial scratch.
@@ -853,6 +874,29 @@ inline cudaError_t launch_qmv(const QmvArgs& a, long long partial_cap, int count
     qmv_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
   else
     qmv_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The first n of a.s in one launch, grid (tiles, S, n): every shard has the
+// shapes of a.s[0], and partial_cap, counter_cap and target_blocks are each
+// shard's share.
+template <int FMT>
+inline cudaError_t launch_qmv_shards(const QmvShards& a, int n, long long partial_cap,
+                                     int counter_cap, int target_blocks, cudaStream_t st) {
+  if (n < 1 || n > kMaxShards) return cudaErrorInvalidValue;
+  const QmvArgs& q = a.s[0];
+  const int tiles = (q.O + kTileO - 1) / kTileO;
+  int kmax = 0;
+  for (int m = 0; m < q.nmat; ++m)
+    kmax = mat_rows<FMT>(q.m[m]) > kmax ? mat_rows<FMT>(q.m[m]) : kmax;
+  const int S = qmv_split(tiles, kmax, q.nmat, q.B, q.O, partial_cap, counter_cap, target_blocks);
+  const dim3 grid(tiles, S, n);
+  if (q.B <= 1)
+    qmv_shards_kernel<1, FMT><<<grid, kThreads, 0, st>>>(a);
+  else if (q.B <= 2)
+    qmv_shards_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
+  else
+    qmv_shards_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

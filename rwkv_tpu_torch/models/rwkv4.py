@@ -362,20 +362,27 @@ def pad_vocab(params: RWKVParams, multiple: int = 128) -> RWKVParams:
     return dataclasses.replace(params, emb=emb, head=head, logit_bias=bias)
 
 
-def q4_pack_block(n_embd: int) -> int:
+def q4_pack_block(n_embd: int, tp: int = 1) -> int:
     """The q4 format's default pairing block for the row-tiled families
     (att.output, ffn.value): n_embd where 12 * n_embd^2 <= 15 MiB, else the
     widest of 512, 384, 256, 128 that divides n_embd and fits that budget
     (1024 at 430M, 256 at 7B). The same arithmetic as the JAX package's
     pick_tile_q4, kept so that artifacts packed by either package carry the
-    same blocks; the port's kernels take any even block that divides K."""
+    same blocks; the port's kernels take any even block that divides K.
+
+    tp > 1: the widest of those candidates that also divides a shard's rows,
+    n_embd / tp and 4 * n_embd / tp, so that no block straddles two shards
+    of a tensor-parallel mesh (430M: 512 at tp = 2, 256 at tp = 4; 14B at
+    tp = 8: 128). The JAX engine picks this block with its TP kernel's VMEM
+    tile model (pick_tp_fused_tile), which the port does not have."""
+    el, fl = n_embd // tp, 4 * n_embd // tp
     for t in (n_embd, 512, 512, 384, 256, 128):
-        if (n_embd % t == 0 and t % 128 == 0 and (t == n_embd or t <= 512)
+        if (el % t == 0 and fl % t == 0 and t % 128 == 0 and (t == n_embd or t <= 512)
                 and 12 * n_embd * t <= 15 * 1024 * 1024):
             return t
-    if n_embd % 128 == 0:
+    if n_embd % tp == 0 and el % 128 == 0:
         return 128
-    raise ValueError(f"n_embd {n_embd} not divisible by any 128-multiple block")
+    raise ValueError(f"n_embd {n_embd} / tp {tp} not divisible by any 128-multiple block")
 
 
 def a8_block_for(n_embd: int) -> int:
@@ -426,7 +433,7 @@ def quantize_params_q4(params: RWKVParams, tile: int | None = None) -> RWKVParam
 
 def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
                                pad_multiple: int | None = 512, *,
-                               q4: bool = False) -> RWKVParams:
+                               q4: bool = False, q4_block: int | None = None) -> RWKVParams:
     """Random quantized params built on the host in numpy (leaves are
     numpy arrays; `params_to` puts them on a device). The same recipe as
     the JAX package's random_quantized_params_np: u8 codes with scales
@@ -436,14 +443,17 @@ def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
     JAX package's random_quantized_params_device(q4=True)): random bytes as
     the packed codes, 16-level scales, the +8 * scale centering in the
     offsets. The row-tiled families (att.output, ffn.value) carry the
-    default pairing block, q4_pack_block(E); the others pair globally. The
-    bytes are random, so any other valid block tag gives valid params too."""
+    pairing block q4_block (default q4_pack_block(E); a tensor-parallel
+    mesh needs one inside a shard, q4_pack_block(E, tp)); the others pair
+    globally. The bytes are random, so any valid block tag gives valid
+    params."""
     rng = np.random.default_rng(seed)
     E, L, V, F = cfg.n_embd, cfg.n_layer, cfg.vocab_size, cfg.n_ffn
     Vp = V
     if pad_multiple:
         Vp = ((V + pad_multiple - 1) // pad_multiple) * pad_multiple
-    q4_block = q4_pack_block(E) if q4 else None
+    if q4 and q4_block is None:
+        q4_block = q4_pack_block(E)
 
     def qrand(shape, row_tiled=False):
         span = 8.0 * shape[-2] ** -0.5  # ~±4 sigma

@@ -31,7 +31,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("mm8", "mm4", "mm8_a8", "decode_stack", "tp_halves")
+KERNELS = ("mm8", "mm4", "mm8_a8", "decode_stack", "tp_halves", "decode_stack_tp")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,8 +113,8 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-_SPLIT_FLOATS = 1 << 22   # 16 MB of split-K partials (qmv.cuh)
-_SPLIT_TILES = 4096       # column tiles with a split-K counter
+SPLIT_FLOATS = 1 << 22   # 16 MB of split-K partials (qmv.cuh)
+SPLIT_TILES = 4096       # column tiles with a split-K counter
 _SCRATCH: dict = {}
 
 
@@ -127,8 +127,8 @@ def split_scratch(device: torch.device, owner: str):
     s = _SCRATCH.get(key)
     if s is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        s = (torch.empty(_SPLIT_FLOATS, dtype=torch.float32, device=device),
-             torch.zeros(_SPLIT_TILES, dtype=torch.int32, device=device),
+        s = (torch.empty(SPLIT_FLOATS, dtype=torch.float32, device=device),
+             torch.zeros(SPLIT_TILES, dtype=torch.int32, device=device),
              2 * sms)
         _SCRATCH[key] = s
     return s

@@ -1,0 +1,459 @@
+"""One tensor-parallel decode step of every model shard of a data row,
+kernel K7 (counterpart of rwkv_tpu/ops/pallas/decode_stack_tp.py).
+
+    decode_stack_tp(shards, states, local, token=tokens [B])   (B <= 8)
+    decode_stack_tp(shards, states, local, x=x [B, E])         x after ln0
+        -> (logits_loc: tp tensors [B, Vp / tp], new states: tp WKVStates)
+
+`shards` is one data row of parallel/sharding.py's ShardedParams
+(`sp.rows[d]`), `states` each shard's state (xy/dd [L, B, E], aa/bb/pp
+[L, B, E / tp]) and `local` each shard's (decay, bonus) channel slices
+(`sp.local(d, j)`). The step runs every layer of every shard: the
+vocab-sharded embedding gather and its sum over the shards + ln0 (with
+`token`), ln1 + mix, the column-parallel k/v/r and the WKV step on each
+shard's channels, the row-parallel out-projection partials and their sum,
+ln2 + mix, each shard's gate and relu(key)^2, the value partials and the
+residual x + gate * sum, then ln_out and each shard's head columns. The
+logits carry no logit bias (as in the JAX kernel): the caller adds each
+shard's slice and gathers them. The replicated xy/dd of the new states are
+the same tensors for every shard.
+
+On CUDA tensors the wrapper launches csrc/decode_stack_tp.cu, where one host
+call enqueues the whole step of all the shards (7 * L + 2 launches, each
+covering every shard) and the exchanges are sums of the shards' partials in
+shard order 0..tp-1; every shard of the row must lie on that one device. On
+CPU tensors it runs `decode_stack_tp_reference`, which does the exchanges as
+the same explicit sums. Weights: signed int8 (models.rwkv4.signedize_params)
+or, in q4, every family Quant4Linear, with att.output and ffn.value packed in
+blocks that divide E / tp and F / tp. Bound on the card: the weight bytes of
+all shards per step over device memory bandwidth (379 MB in q8, 189.5 MB in
+q4 at 430M: 0.113 and 0.057 ms at 3.35 TB/s).
+
+Not ported: the JAX module's pick_tp_fused_tile and pick_tp_head_tile, models
+of the TPU's VMEM, and its 4-D pretiled weight layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from rwkv_tpu_torch.models.rwkv4 import RWKVParams, WKVState
+from rwkv_tpu_torch.ops.cuda import _build
+from rwkv_tpu_torch.ops.cuda.decode_stack import _get, _offset_term
+from rwkv_tpu_torch.ops.cuda.mm4 import block_half
+from rwkv_tpu_torch.ops.layernorm import layer_norm
+from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear, unpack4
+from rwkv_tpu_torch.ops.wkv import WKVChannelState, wkv_step
+
+# kernel launches, for showing that a path ran on the kernel: q8, q4
+launches = 0
+launches_q4 = 0
+
+MAX_SHARDS = 8    # csrc/qmv.cuh's kMaxShards: one launch's shards
+FUSE_EMBED_MAX_B = 8  # the embedding gather rides in the step up to this batch
+
+_lib = None
+
+# The pointer table of rwkv_decode_stack_tp(): the data row's pointers in the
+# order of `enum SharedPtr` in csrc/decode_stack_tp.cu, then one block per
+# shard in the order of `enum ShardPtr`.
+_SHARED = (
+    "tokens", "x_in", "x", "xk", "xv", "xr", "fk", "fr", "xs_h", "off_h", "offs",
+    "xy", "dd", "xy_out", "dd_out", "apart", "vpart", "gate", "rwkv", "kk", "off_parts",
+    "logits", "partial", "counters",
+)
+_SHARD = (
+    "emb", "ln0.weight", "ln0.bias", "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
+    "att.mix_k", "att.mix_v", "att.mix_r", "ffn.mix_k", "ffn.mix_r",
+    "att.key.w", "att.key.scale", "att.key.offset",
+    "att.value.w", "att.value.scale", "att.value.offset",
+    "att.receptance.w", "att.receptance.scale", "att.receptance.offset",
+    "att.output.w", "att.output.scale", "att.output.offset",
+    "ffn.key.w", "ffn.key.scale", "ffn.key.offset",
+    "ffn.value.w", "ffn.value.scale", "ffn.value.offset",
+    "ffn.receptance.w", "ffn.receptance.scale", "ffn.receptance.offset",
+    "ln_out.weight", "ln_out.bias", "head.w", "head.scale", "head.offset",
+    "decay", "bonus", "aa", "bb", "pp", "aa_out", "bb_out", "pp_out",
+)
+_SHARD_PARAMS = _SHARD[:_SHARD.index("decay")]
+_SHARD_IO = _SHARD[_SHARD.index("decay"):]
+# The matrix families in the order of rwkv_decode_stack_tp()'s halves[]; the
+# row-parallel ones pair 4-bit rows within a block that lies inside a shard.
+_FAMILIES = ("att.key", "att.value", "att.receptance", "att.output",
+             "ffn.key", "ffn.value", "ffn.receptance", "head")
+_ROW_PARALLEL = ("att.output", "ffn.value")
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("decode_stack_tp")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rwkv_decode_stack_tp.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I, I, I, I,
+                                             ctypes.POINTER(I), ctypes.c_longlong, I, I, P,
+                                             ctypes.POINTER(I)]
+        for fn in (lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_shared_count,
+                   lib.rwkv_decode_stack_tp_shard_count, lib.rwkv_decode_stack_tp_max_shards):
+            fn.restype = I
+        if (lib.rwkv_decode_stack_tp_shared_count() != len(_SHARED)
+                or lib.rwkv_decode_stack_tp_shard_count() != len(_SHARD)
+                or lib.rwkv_decode_stack_tp_max_shards() != MAX_SHARDS):
+            raise RuntimeError("decode_stack_tp.cu's pointer tables do not match this module's")
+        _lib = lib
+    return _lib
+
+
+def fused_problem(p: RWKVParams, tp: int, E: int, F: int, V: int):
+    """Why kernel K7 cannot run params shaped like `p` (a shard, or the whole
+    params) over `tp` model shards with whole widths E, F and padded vocab V:
+    (exception class, message), or None. The JAX kernel's checks: signed int8
+    or all-Quant4Linear families, E / tp a multiple of 128, each shard's
+    vocab a multiple of 128, and, in q4, the row-parallel pack blocks inside
+    a shard (the port has no VMEM tile model, so the block need not equal a
+    tile: it must divide E / tp and F / tp)."""
+    fams = {f: _get(p, f) for f in _FAMILIES}
+    q4 = isinstance(p.att.key, Quant4Linear)
+    if q4:
+        bad = [f for f, lin in fams.items() if not isinstance(lin, Quant4Linear)]
+        if bad:
+            return TypeError, (f"4-bit tensor-parallel decode needs every matrix family "
+                               f"Quant4Linear; {', '.join(bad)} are not "
+                               "(models.rwkv4.quantize_params_q4)")
+    elif not all(isinstance(lin, QuantLinear) and lin.w.dtype == torch.int8
+                 for lin in fams.values()):
+        return TypeError, ("decode_stack_tp needs signed int8 QuantLinear weights "
+                           "(models.rwkv4.signedize_params) or 4-bit Quant4Linear ones")
+    if not 1 <= tp <= MAX_SHARDS:
+        return ValueError, f"decode_stack_tp runs 1 to {MAX_SHARDS} model shards, got {tp}"
+    if E % tp or (E // tp) % 128:
+        return ValueError, f"decode_stack_tp needs E/tp a multiple of 128 (E={E}, tp={tp})"
+    if V % tp or (V // tp) % 128:
+        return ValueError, (f"local vocab shard {V}/{tp} is not a multiple of 128; pad the "
+                            "vocab to a multiple of 128*tp (models.rwkv4.pad_vocab)")
+    if q4:
+        for f, lin in fams.items():
+            if f not in _ROW_PARALLEL and lin.block is not None:
+                return ValueError, (f"4-bit column-parallel family {f} must pair globally "
+                                    f"(block None), got block {lin.block}")
+        for f, K in (("att.output", E), ("ffn.value", F)):
+            b = fams[f].block or K
+            if (K // tp) % b:
+                return ValueError, (f"4-bit {f} is packed in blocks of {b} rows, which do "
+                                    f"not divide its {K // tp} rows per shard at model={tp}; "
+                                    "requantize with quantize_params_q4(tile="
+                                    "models.rwkv4.q4_pack_block(E, tp))")
+    return None
+
+
+def _meta(shards: Sequence[RWKVParams]):
+    """(L, E, El, Fl, Vl, q4) of a data row, after the JAX kernel's checks."""
+    p0, tp = shards[0], len(shards)
+    q4 = isinstance(p0.att.key, Quant4Linear)
+    El, Fl = p0.att.key.out_features, p0.ffn.key.out_features
+    Vl = p0.head.out_features
+    E = p0.n_embd
+    problem = fused_problem(p0, tp, El * tp, Fl * tp, Vl * tp)
+    if problem is None and El * tp != E:
+        problem = ValueError, f"a shard's {El} channels times {tp} shards is not E={E}"
+    if problem is not None:
+        raise problem[0](problem[1])
+    return p0.n_layer, E, El, Fl, Vl, q4
+
+
+def _qmm(x: torch.Tensor, lin, l: Optional[int] = None) -> torch.Tensor:
+    """x @ (layer l of) lin, q8 or q4, the rank-1 offset term summed in
+    double as the kernels sum it."""
+    pick = (lambda t: t) if l is None else (lambda t: t[l])  # noqa: E731
+    if isinstance(lin, Quant4Linear):
+        w = unpack4(pick(lin.wp), lin.block).float()
+    else:
+        w = pick(lin.w).float()
+    return torch.matmul(x * pick(lin.scale), w) + _offset_term(x, pick(lin.offset))[:, None]
+
+
+def _in_order(parts):
+    """parts[0] + parts[1] + ... in shard order, as the exchanges sum them."""
+    s = parts[0]
+    for t in parts[1:]:
+        s = s + t
+    return s
+
+
+def _embed(shards, token: torch.Tensor) -> torch.Tensor:
+    """The vocab-sharded gather: shard j holds rows [j * Vl, (j + 1) * Vl); a
+    row outside every shard is zero; summed in shard order, then ln0."""
+    rows = []
+    for j, p in enumerate(shards):
+        Vl = p.emb.shape[0]
+        t = token.long() - j * Vl
+        mine = ((t >= 0) & (t < Vl))[:, None]
+        got = p.emb[t.clamp(0, Vl - 1)]
+        rows.append(torch.where(mine, got, torch.zeros_like(got)))
+    p0 = shards[0]
+    return layer_norm(_in_order(rows), p0.ln0.weight, p0.ln0.bias)
+
+
+def decode_stack_tp_reference(shards: Sequence[RWKVParams], states: Sequence[WKVState],
+                              local, *, x: Optional[torch.Tensor] = None,
+                              token: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of decode_stack_tp: the same step, shard by
+    shard, the exchanges as explicit sums in shard order 0..tp-1."""
+    shards = list(shards)
+    _meta(shards)
+    p0 = shards[0]
+    if (x is None) == (token is None):
+        raise ValueError("decode_stack_tp takes exactly one of x and token")
+    if token is not None:
+        if token.shape[0] > FUSE_EMBED_MAX_B:
+            raise ValueError(f"decode_stack_tp's embedding gather takes B <= "
+                             f"{FUSE_EMBED_MAX_B}; pass x for more")
+        x = _embed(shards, token)
+    new = [[] for _ in shards]
+    for i in range(p0.n_layer):
+        att = p0.att
+        xx = layer_norm(x, p0.ln1.weight[i], p0.ln1.bias[i])
+        xy = states[0].xy[i]
+        ik = att.mix_k[i] * xx + (1 - att.mix_k[i]) * xy
+        iv = att.mix_v[i] * xx + (1 - att.mix_v[i]) * xy
+        ir = att.mix_r[i] * xx + (1 - att.mix_r[i]) * xy
+        parts, chans = [], []
+        for p, st, (decay, bonus) in zip(shards, states, local):
+            k, v, r = _qmm(ik, p.att.key, i), _qmm(iv, p.att.value, i), _qmm(ir, p.att.receptance, i)
+            y, chan = wkv_step(k, v, WKVChannelState(st.aa[i], st.bb[i], st.pp[i]), decay[i],
+                               bonus[i])
+            parts.append(_qmm(torch.sigmoid(r) * y, p.att.output, i))
+            chans.append(chan)
+        x = x + _in_order(parts)
+        ffn = p0.ffn
+        xx2 = layer_norm(x, p0.ln2.weight[i], p0.ln2.bias[i])
+        dd = states[0].dd[i]
+        fk = ffn.mix_k[i] * xx2 + (1 - ffn.mix_k[i]) * dd
+        fr = ffn.mix_r[i] * xx2 + (1 - ffn.mix_r[i]) * dd
+        gates, vparts = [], []
+        for p in shards:
+            gates.append(torch.sigmoid(_qmm(fr, p.ffn.receptance, i)))
+            h = torch.square(torch.relu(_qmm(fk, p.ffn.key, i)))
+            vparts.append(_qmm(h, p.ffn.value, i))
+        x = x + torch.cat(gates, dim=-1) * _in_order(vparts)
+        for j, chan in enumerate(chans):
+            new[j].append((xx, chan.aa, chan.bb, chan.pp, xx2))
+    h = layer_norm(x, p0.ln_out.weight, p0.ln_out.bias)
+    xs_h, off_h = h * p0.head.scale, _offset_term(h, p0.head.offset)
+    logits = []
+    for p in shards:
+        head = p.head
+        w = unpack4(head.wp, head.block) if isinstance(head, Quant4Linear) else head.w
+        logits.append(torch.matmul(xs_h, w.float()) + off_h[:, None])
+    xy, dd = torch.stack([n[0] for n in new[0]]), torch.stack([n[4] for n in new[0]])
+    return logits, [WKVState(xy, *(torch.stack([n[k] for n in layers]) for k in (1, 2, 3)), dd)
+                    for layers in new]
+
+
+def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"decode_stack_tp: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"decode_stack_tp: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"decode_stack_tp: {name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"decode_stack_tp: {name} must be contiguous")
+
+
+def _io(t: torch.Tensor, name: str, device, shape) -> None:
+    """An input's check, in the few attribute reads the common case needs."""
+    if (t.device != device or t.dtype != torch.float32 or t.shape != shape
+            or not t.is_contiguous()):
+        _check(t, name, torch.float32, device, shape)
+
+
+def _param_shapes(L, E, El, Fl, Vl, n_emb, q4) -> dict:
+    h = 2 if q4 else 1
+    sh = {"emb": (n_emb, E), "ln0.weight": (E,), "ln0.bias": (E,), "ln_out.weight": (E,),
+          "ln_out.bias": (E,), "head.w": (E // h, Vl), "head.scale": (E,), "head.offset": (E,)}
+    for n in ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "att.mix_k", "att.mix_v",
+              "att.mix_r", "ffn.mix_k", "ffn.mix_r"):
+        sh[n] = (L, E)
+    for fam, (K, O) in {"att.key": (E, El), "att.value": (E, El), "att.receptance": (E, El),
+                        "att.output": (El, E), "ffn.key": (E, Fl), "ffn.value": (Fl, E),
+                        "ffn.receptance": (E, El)}.items():
+        sh[fam + ".w"] = (L, K // h, O)
+        sh[fam + ".scale"] = (L, K)
+        sh[fam + ".offset"] = (L, K)
+    return sh
+
+
+def _row_device(shards) -> torch.device:
+    """The one CUDA device of a data row's shards; raises otherwise."""
+    dev = shards[0].emb.device
+    others = sorted({str(p.emb.device) for p in shards if p.emb.device != dev})
+    if dev.type != "cuda" or others:
+        raise ValueError(
+            f"decode_stack_tp runs the shards of a data row on one CUDA device; these lie on "
+            f"{[str(dev)] + others}: the exchange across distinct devices waits for a machine "
+            "with two or more GPUs (ROADMAP.md, 'The queue now', item 5)")
+    return dev
+
+
+class _Prepared:
+    """A data row's checked parameter pointers, scratch and pointer tables by
+    batch size. A table's parameter and scratch slots are filled once; a call
+    fills the slots of its inputs and outputs and passes the same array."""
+
+    def __init__(self, shards):
+        self.shards = shards
+        tp = len(shards)
+        dev = _row_device(shards)
+        L, E, El, Fl, Vl, q4 = _meta(shards)
+        n_emb = shards[0].emb.shape[0]
+        shapes = _param_shapes(L, E, El, Fl, Vl, n_emb, q4)
+        ptrs = []
+        for j, p in enumerate(shards):
+            for name in _SHARD_PARAMS:
+                t = _get(p, name[:-2] + ".wp" if q4 and name.endswith(".w") else name)
+                dtype = torch.int8 if name.endswith(".w") else torch.float32
+                _check(t, f"shard {j} {name}", dtype, dev, shapes[name])
+                if dtype == torch.int8 and t.data_ptr() % 16:
+                    raise ValueError(f"decode_stack_tp: shard {j} {name} must be 16-byte aligned")
+                ptrs.append(t.data_ptr())
+        halves = [block_half(_get(shards[0], f).block, K, f"decode_stack_tp: {f}") if q4 else 0
+                  for f, K in zip(_FAMILIES, (E, E, E, El, E, Fl, E, E))]
+        self.halves = (ctypes.c_int * len(halves))(*halves)
+        self.param_ptrs = ptrs
+        self.device, self.tp, self.q4 = dev, tp, q4
+        self.dims = (L, E, El, Fl, Vl, n_emb)
+        self.split = _split_scratch(dev, tp)
+        self.tables: dict = {}
+
+    def table(self, B: int):
+        """The pointer array for batch size B (its scratch kept beside it)."""
+        got = self.tables.get(B)
+        if got is None:
+            L, E, El, Fl, Vl, _ = self.dims
+            tp, dev = self.tp, self.device
+            z = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+            tiles = -(-El // 128) + -(-Fl // 128)  # column tiles of 128 (csrc/qmv.cuh)
+            buf = {"x": z(B, E), "xk": z(B, E), "xv": z(B, E), "xr": z(B, E), "fk": z(B, E),
+                   "fr": z(B, E), "xs_h": z(B, E), "off_h": z(B),
+                   # the rank-1 offset terms are summed in double
+                   "offs": z(5, B).double(), "apart": z(tp, B, E), "vpart": z(tp, B, E),
+                   "gate": z(tp, B, El), "rwkv": z(tp, B, El), "kk": z(tp, B, Fl),
+                   "off_parts": z(tp, tiles, B).double()}
+            partial, counters, _ = self.split
+            fixed = {n: t.data_ptr() for n, t in buf.items()}
+            fixed.update(partial=partial.data_ptr(), counters=counters.data_ptr())
+            arr = (ctypes.c_void_p * (len(_SHARED) + tp * len(_SHARD)))(
+                *(fixed.get(n) for n in _SHARED))
+            m = len(_SHARD_PARAMS)
+            for j in range(tp):
+                base = len(_SHARED) + j * len(_SHARD)
+                arr[base:base + m] = self.param_ptrs[j * m:(j + 1) * m]
+            got = self.tables[B] = (arr, buf)
+        return got[0]
+
+
+_SPLIT: dict = {}
+
+
+def _split_scratch(device: torch.device, tp: int):
+    """(partial f32 [tp, 2^22], zeroed int32 counters [tp, 4096], target
+    blocks per shard) for the split-K matvecs of one launch's tp shards,
+    which run at once and so need a set each (qmv.cuh)."""
+    key = (device, tp)
+    s = _SPLIT.get(key)
+    if s is None:
+        target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+        s = (torch.empty((tp, _build.SPLIT_FLOATS), dtype=torch.float32, device=device),
+             torch.zeros((tp, _build.SPLIT_TILES), dtype=torch.int32, device=device),
+             -(-target // tp))
+        _SPLIT[key] = s
+    return s
+
+
+_prepared: dict = {}
+
+
+def _prepare(shards) -> _Prepared:
+    key = tuple(id(p) for p in shards)
+    prep = _prepared.get(key)
+    if prep is None or any(a is not b for a, b in zip(prep.shards, shards)):
+        if len(_prepared) > 64:  # the rows of earlier engines: drop them all
+            _prepared.clear()
+        prep = _prepared[key] = _Prepared(list(shards))
+    return prep
+
+
+_S = {n: i for i, n in enumerate(_SHARED)}
+_D = {n: i for i, n in enumerate(_SHARD)}
+
+
+def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], local, *,
+                    x: Optional[torch.Tensor] = None, token: Optional[torch.Tensor] = None):
+    """One decode step of the shards of a data row; returns (logits_loc, new
+    states) as decode_stack_tp_reference. token [B] (B <= 8) or x [B, E]."""
+    given = token if x is None else x
+    if shards[0].emb.device.type == "cpu" and given is not None and given.device.type == "cpu":
+        return decode_stack_tp_reference(shards, states, local, x=x, token=token)
+    global launches, launches_q4
+    prep = _prepare(shards)
+    dev, tp = prep.device, prep.tp
+    L, E, El, Fl, Vl, n_emb = prep.dims
+    if (x is None) == (token is None):
+        raise ValueError("decode_stack_tp takes exactly one of x and token")
+    if len(states) != tp or len(local) != tp:
+        raise ValueError(f"decode_stack_tp: {len(states)} states and {len(local)} (decay, "
+                         f"bonus) pairs for {tp} shards")
+    if token is not None:
+        if token.dim() != 1 or token.device != dev:
+            raise ValueError(f"decode_stack_tp: token must be [B] on {dev}, got "
+                             f"{tuple(token.shape)} on {token.device}")
+        B = token.shape[0]
+        if B > FUSE_EMBED_MAX_B:
+            raise ValueError(f"decode_stack_tp's embedding gather takes B <= "
+                             f"{FUSE_EMBED_MAX_B}; pass x for more")
+        tok = token.to(torch.int32).contiguous()
+    else:
+        B = x.shape[0]
+        _io(x, "x", dev, (B, E))
+    be, bl = (L, B, E), (L, B, El)
+    for j, st in enumerate(states):
+        for name, t in zip(WKVState._fields, st):
+            if j == 0 or name in ("aa", "bb", "pp"):
+                _io(t, f"shard {j} state.{name}", dev, be if name in ("xy", "dd") else bl)
+    arr = prep.table(B)
+    f32 = torch.float32
+    xy_out, dd_out = torch.empty(be, dtype=f32, device=dev), torch.empty(be, dtype=f32, device=dev)
+    logits = torch.empty((tp, B, Vl), dtype=f32, device=dev)
+    outs = [[torch.empty(bl, dtype=f32, device=dev) for _ in range(3)] for _ in range(tp)]
+    arr[_S["tokens"]] = tok.data_ptr() if token is not None else None
+    arr[_S["x_in"]] = x.data_ptr() if token is None else None
+    arr[_S["xy"]], arr[_S["dd"]] = states[0].xy.data_ptr(), states[0].dd.data_ptr()
+    arr[_S["xy_out"]], arr[_S["dd_out"]] = xy_out.data_ptr(), dd_out.data_ptr()
+    arr[_S["logits"]] = logits.data_ptr()
+    k, n = len(_SHARED), len(_SHARD)
+    for j in range(tp):
+        decay, bonus = local[j]
+        _io(decay, f"shard {j} decay", dev, (L, El))
+        _io(bonus, f"shard {j} bonus", dev, (L, El))
+        st = states[j]
+        base = k + j * n
+        for name, t in zip(_SHARD_IO, (decay, bonus, st.aa, st.bb, st.pp, *outs[j])):
+            arr[base + _D[name]] = t.data_ptr()
+    partial, counters, target = prep.split
+    lib = _kernel()
+    launched = ctypes.c_int(0)
+    err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, L, B, E, El, Fl, Vl, n_emb, int(prep.q4),
+                                   prep.halves, partial.shape[1], counters.shape[1], target,
+                                   torch.cuda.current_stream(dev).cuda_stream,
+                                   ctypes.byref(launched))
+    if prep.q4:
+        launches_q4 += launched.value
+    else:
+        launches += launched.value
+    _build.check(lib, err, "decode_stack_tp")
+    return (list(logits.unbind(0)),
+            [WKVState(xy_out, *outs[j], dd_out) for j in range(tp)])

@@ -188,10 +188,27 @@ class ShardedParams:
         return got
 
 
+def _check_q4_blocks(params: RWKVParams, tp: int) -> None:
+    """A 4-bit row-parallel family is cut on its packed rows: each shard must
+    hold whole pairing blocks, or a block would straddle two shards."""
+    for name, lin in (("att.output", params.att.output), ("ffn.value", params.ffn.value)):
+        if not isinstance(lin, Quant4Linear) or isinstance(lin.wp, Shards):
+            continue
+        K = lin.in_features
+        b = lin.block or K
+        if (K // tp) % b:
+            raise ValueError(
+                f"4-bit {name} is packed in blocks of {b} rows, which do not divide its "
+                f"{K // tp} rows per shard at model={tp}: a block would straddle two shards; "
+                f"requantize with quantize_params_q4(tile=models.rwkv4.q4_pack_block(E, {tp}))")
+
+
 def shard_params(params: RWKVParams, mesh: Mesh) -> ShardedParams:
     """Cut `params` (numpy or torch leaves, or Shards leaves from make_put)
-    over `mesh` by param_pspecs."""
+    over `mesh` by param_pspecs. A 4-bit row-parallel family's pairing block
+    must divide its rows per shard (ValueError otherwise)."""
     tp = mesh.shape["model"]
+    _check_q4_blocks(params, tp)
     vocab = _vocab(params)
     specs = param_pspecs(params, n_model=tp)
     cut = _zip_map(lambda leaf, dim: Shards(_cut(leaf, dim, mesh.devices[0])), params, specs)

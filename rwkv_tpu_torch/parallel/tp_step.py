@@ -20,14 +20,23 @@ shard_map runs one program over all of them. Bodies, by their JAX names:
   "halves" <-> "pallas"  per shard and layer, kernel K6 (ops/cuda/tp_halves.py:
                          att_half, ffn_half) between the collectives, and the
                          vocab-shard head on kernel K2 (ops/cuda/mm8.py);
-  "fused"  <-> "fused"   the whole per-shard step as one kernel with in-kernel
-                         collectives: kernel K7, not ported yet (ROADMAP.md);
-                         asking for it raises NotImplementedError.
+  "fused"  <-> "fused"   the whole step of every shard of a data row as one
+                         call of kernel K7 (ops/cuda/decode_stack_tp.py), the
+                         exchanges inside it: at B <= 8 per data row the
+                         embedding gather rides in it too and the logits
+                         gather is the mesh's only collective (0 psums and 1
+                         gather a step at tp >= 2); at B > 8 the embedding
+                         psum feeds it an x (1 and 1); none at tp = 1. q8 or
+                         q4 weights.
 
-body=None picks "halves" where the JAX rule makes the Pallas body eligible
-(signed int8 weights, E % tp == 0, (E / tp) % 128 == 0), else "plain", as
-make_tp_step does on a CPU backend. On CPU tensors "halves" runs K6's and
-K2's plain versions; on CUDA tensors their kernels.
+4-bit params run only through "fused", as in JAX. body=None picks "fused"
+where K7 is eligible (signed int8 or 4-bit weights, E / tp and each shard's
+vocab multiples of 128) and every data row's shards lie on one CUDA device,
+the JAX rule on an accelerator; else "halves" where the Pallas rule makes it
+eligible (signed int8 weights, (E / tp) % 128 == 0), else "plain", as
+make_tp_step does on a CPU backend. On CPU tensors the kernel bodies run
+their kernels' plain versions; on CUDA tensors the kernels. A data row over
+distinct GPUs has no fused body yet: asking for it raises.
 
 The step takes and returns the whole state ([L, B, E] leaves on the mesh's
 first device): it cuts it into per-shard contiguous pieces for each call and
@@ -47,6 +56,11 @@ from rwkv_tpu_torch.models.rwkv4 import (
     _last_valid,
     _layer,
     _matmul,
+)
+from rwkv_tpu_torch.ops.cuda.decode_stack_tp import (
+    FUSE_EMBED_MAX_B,
+    decode_stack_tp,
+    fused_problem,
 )
 from rwkv_tpu_torch.ops.cuda.mm8 import mm8
 from rwkv_tpu_torch.ops.cuda.tp_halves import att_half, ffn_half
@@ -210,6 +224,24 @@ def _tp_step_local_halves(sp: ShardedParams, tokens, states, comm: _Collectives)
     return logits, _grid(mesh, lambda d, j: _stack(new[d][j]))
 
 
+def _tp_step_local_fused(sp: ShardedParams, tokens, states, comm: _Collectives):
+    """The K7 body: one decode_stack_tp call per data row, then each shard's
+    logit-bias slice and the logits gather."""
+    mesh = sp.mesh
+    tp = mesh.shape["model"]
+    fuse = tokens[0][0].shape[0] <= FUSE_EMBED_MAX_B
+    x = None if fuse else _embed_psum(sp, tokens, comm)
+    logits, new = [], []
+    for d in range(mesh.shape["data"]):
+        lg, st = decode_stack_tp(sp.rows[d], states[d], [sp.local(d, j) for j in range(tp)],
+                                 x=None if fuse else x[d][0],
+                                 token=tokens[d][0] if fuse else None)
+        bias = [p.logit_bias for p in sp.rows[d]]
+        logits.append([g if b is None else g + b for g, b in zip(lg, bias)])
+        new.append(st)
+    return comm.gather(logits), new
+
+
 def _meta(params):
     """(a shard or the whole params, the whole padded vocab, E) for the checks."""
     if isinstance(params, ShardedParams):
@@ -217,26 +249,34 @@ def _meta(params):
     return params, params.emb.shape[0], params.emb.shape[1]
 
 
+def _one_device_rows(mesh: Mesh) -> bool:
+    """Every data row's shards on one CUDA device (a virtual mesh)."""
+    return all(row[0].type == "cuda" and len(set(row)) == 1 for row in mesh.devices)
+
+
 def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
     """A (params, token [B], state) -> (logits [B, Vp], state) decode step
-    over `mesh` with 3L + 2 collectives per token; params is the
+    over `mesh` with its body's collectives per token (3L + 2 for "plain"
+    and "halves", at most 2 for "fused": the module docstring); params is the
     ShardedParams the step will be given (or the whole params, for the
     checks); state leaves [L, B, E], B divisible by the data rows; the
     results lie on the mesh's first device.
 
     body: "plain", "halves" (kernel K6; signed int8 weights and E / tp a
-    multiple of 128), "fused" (kernel K7: not ported, raises
-    NotImplementedError) or None (auto: "halves" where eligible, else
-    "plain")."""
+    multiple of 128), "fused" (kernel K7; signed int8 or 4-bit weights, E /
+    tp and each shard's vocab multiples of 128, every data row on one
+    device; the only body of 4-bit params) or None (auto: "fused" where
+    eligible and every data row lies on one CUDA device, else "halves"
+    where eligible, else "plain")."""
     tp = mesh.shape["model"]
     p0, V, E = _meta(params)
     q4 = isinstance(p0.att.key, Quant4Linear)
     if not q4 and (not isinstance(p0.head, QuantLinear)
                    or not isinstance(p0.att.key, QuantLinear)):
         raise TypeError("tp_step requires quantized params (models.rwkv4.quantize_params)")
-    head_o = (p0.head.wp if q4 else p0.head.w).shape[-1]
-    if isinstance(params, ShardedParams) and V != p0.emb.shape[0]:
-        head_o *= tp  # the vocab is split: each shard holds Vp / tp columns
+    sharded = isinstance(params, ShardedParams) and V != p0.emb.shape[0]
+    head_o = p0.head.out_features * (tp if sharded else 1)  # a shard holds Vp / tp columns
+    F = p0.ffn.key.out_features * (tp if isinstance(params, ShardedParams) else 1)
     if V % tp or head_o % tp:
         raise ValueError(f"tp_step needs the (padded) vocab divisible by model={tp}; apply "
                          f"models.rwkv4.pad_vocab first (got {V})")
@@ -247,19 +287,28 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
             raise ValueError("4-bit params run only through body='fused' (the plain and "
                              "halves bodies stream q8); quantize with quantize_params for those")
         body = "fused"
+    problem = fused_problem(p0, tp, E, F, V)
+    if body is None and problem is None and _one_device_rows(mesh):
+        body = "fused"
     if body == "fused":
-        raise NotImplementedError(
-            "body='fused' is the whole per-shard step as one kernel with in-kernel "
-            "collectives, kernel K7 (rwkv_tpu/ops/pallas/decode_stack_tp.py); it is not "
-            "ported yet (ROADMAP.md): use body='halves' or 'plain'")
-    eligible = (p0.att.key.w.dtype == torch.int8 and E % tp == 0 and (E // tp) % 128 == 0)
+        if problem is not None:
+            raise problem[0](f"body='fused': {problem[1]}")
+        if any(len(set(row)) > 1 for row in mesh.devices):
+            raise ValueError(
+                "body='fused' runs every shard of a data row on one device (kernel K7's "
+                "exchanges read the shards' partials from one device's memory); a row over "
+                "distinct GPUs needs the cross-card exchange, which waits for a machine with "
+                "two or more GPUs (ROADMAP.md, 'The queue now', item 5): use body='halves'")
+    eligible = (not q4 and p0.att.key.w.dtype == torch.int8 and E % tp == 0
+                and (E // tp) % 128 == 0)
     if body is None:
         body = "halves" if eligible else "plain"
     if body == "halves" and not eligible:
         raise ValueError(
             f"body='halves' requires signed int8 weights (models.rwkv4.signedize_params) and "
             f"E/tp a multiple of 128 (got dtype={p0.att.key.w.dtype}, E={E}, tp={tp})")
-    local = _tp_step_local_halves if body == "halves" else _tp_step_local
+    local = {"plain": _tp_step_local, "halves": _tp_step_local_halves,
+             "fused": _tp_step_local_fused}[body]
     nd = mesh.shape["data"]
 
     def step(sp: ShardedParams, token: torch.Tensor, state: WKVState):

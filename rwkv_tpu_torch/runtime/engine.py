@@ -18,10 +18,15 @@ calls; during generation only the sampled token ids reach the host.
 
 With a mesh (parallel/mesh.py) the params are cut over it
 (parallel/sharding.py) and decode and prefill run the tensor-parallel step of
-parallel/tp_step.py, by default on kernel K6 per shard and layer with the
-head on K2 (tp_body: "halves", "plain"; "fused" is kernel K7, not ported).
-The state stays one set of whole tensors on the mesh's first device, cut for
-each call. W8A8 (a8) has no sharded step, as in the JAX engine.
+parallel/tp_step.py (tp_body: "fused", kernel K7, the whole step of a data
+row's shards from one host call; "halves", kernel K6 per shard and layer
+with the head on K2; "plain"; None picks "fused" on a mesh whose data rows
+each lie on one CUDA device, else "halves"). 4-bit weights run under a mesh
+through "fused" only, as in the JAX engine: a q4 artifact or params as they
+are (their row-parallel pack block must divide E / tp and F / tp), or a
+dense checkpoint quantized with q4_pack_block(E, tp). The state stays one
+set of whole tensors on the mesh's first device, cut for each call. W8A8
+(a8) has no sharded step, as in the JAX engine.
 
 The engine runs on "cuda" unless the caller passes device="cpu" (or a mesh
 of CPU devices); it never falls back to the CPU on its own.
@@ -46,6 +51,7 @@ from rwkv_tpu_torch.models.rwkv4 import (
     init_state,
     pad_vocab,
     params_to,
+    q4_pack_block,
     signedize_params,
 )
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
@@ -97,8 +103,8 @@ class RWKV:
         tp_body: Optional[str] = None,
     ):
         """sharding: a parallel.mesh.Mesh or a parallel.sharding.ShardingContext
-        for tensor-parallel serving, or None. tp_body: the sharded step's body
-        (parallel/tp_step.py; None picks it)."""
+        for tensor-parallel serving, or None. tp_body: the sharded step's body,
+        "fused", "halves" or "plain" (parallel/tp_step.py; None picks it)."""
         self._mesh = getattr(sharding, "mesh", sharding)
         if self._mesh is not None:
             first = self._mesh.first_device
@@ -151,9 +157,18 @@ class RWKV:
                 self.load_params(load_q4(path))
                 return
         if path.endswith((".safetensors", ".pth")):
-            from rwkv_tpu_torch.io.convert import load_checkpoint_quantized
+            from rwkv_tpu_torch.io.convert import checkpoint_dims, load_checkpoint_quantized
 
-            self.load_params(load_checkpoint_quantized(path, bits=4 if self.quant == "q4" else 8))
+            q4_tile = None
+            if self.quant == "q4" and self._mesh is not None:
+                # each shard must hold whole pack blocks of the row-parallel
+                # families; the JAX engine picks the block with its TP
+                # kernel's VMEM tile model (pick_tp_fused_tile), which the
+                # port does not have: the widest q4_pack_block candidate that
+                # divides E / tp and F / tp
+                q4_tile = q4_pack_block(checkpoint_dims(path)[1], self._mesh.shape["model"])
+            self.load_params(load_checkpoint_quantized(
+                path, bits=4 if self.quant == "q4" else 8, q4_tile=q4_tile))
             return
         if self.quant == "q4":
             raise ValueError(
@@ -184,7 +199,7 @@ class RWKV:
         With a mesh: padded so that each shard's vocab is a multiple of 128,
         re-centered, cut over the mesh (or taken as they are if already a
         ShardedParams), and decode and prefill switch to the tensor-parallel
-        step and prefill.
+        step and prefill; 4-bit params decode through the "fused" body.
 
         a8: decode W8A8 (kernel K5 on CUDA): every matvec's input quantized
         to int8 per batch row, and per block of a8_block_for(E) channels for
@@ -217,7 +232,8 @@ class RWKV:
         mesh = self._mesh
         if not isinstance(params, ShardedParams):
             if not isinstance(params.head, (QuantLinear, Quant4Linear)):
-                raise TypeError("the sharded engine needs quantized (QuantLinear) params")
+                raise TypeError("the sharded engine needs quantized (QuantLinear or "
+                                "Quant4Linear) params")
             params = params_to(params, self.device)
             multiple = tp_vocab_multiple(mesh.shape["model"])
             if params.head.out_features % (128 * mesh.shape["model"]):
@@ -225,7 +241,8 @@ class RWKV:
             params = shard_params(signedize_params(params), mesh)
         self._step_fn = make_engine_step(mesh, params, body=self._tp_body)
         self._prefill_impl = make_engine_prefill(mesh, params)
-        self.quant = "q8"
+        shard = params.rows[0][0]
+        self.quant = "q4" if isinstance(shard.att.key, Quant4Linear) else "q8"
         self._loaded(params)
 
     def _loaded(self, params) -> None:

@@ -1,13 +1,17 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
-    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8] [--tp N]
+    python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8]
+                                                  [--tp N [--body fused|halves]]
                                                   [--batch 1 8 16] [--steps 30] [--seed 0]
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
-(q4: the default pairing block), and with --a8 the W8A8 step (q8 weights,
-kernel K5, the engine's a8 block), or with --tp N the tensor-parallel step
-(parallel/tp_step.py, the "halves" body: kernel K6 per shard and layer, the
-head on K2) on a mesh that names the card N times, it measures:
+(q4: the default pairing block, or with --tp the widest that lies inside a
+shard, models.rwkv4.q4_pack_block(E, N)), and with --a8 the W8A8 step (q8
+weights, kernel K5, the engine's a8 block), or with --tp N the
+tensor-parallel step (parallel/tp_step.py) on a mesh that names the card N
+times, by default the "fused" body (kernel K7: the whole step of the shards
+from one host call; q8 or q4), or --body halves (q8: kernel K6 per shard and
+layer, the head on K2), it measures:
   * wall ms per step of forward_step_fused (CUDA events around `steps`
     back-to-back steps: what a caller that does not read the logits sees);
   * host ms per step: the time the Python + C host code takes to enqueue a
@@ -18,11 +22,15 @@ head on K2) on a mesh that names the card N times, it measures:
   * device ms per step by launch position: the step's rwkv kernels in the
     order decode_stack.cu launches them (per layer: ln1+mix, k/v/r + WKV,
     output, ln2+mix, key, value+gate; then ln_out and the mm8 or mm4 head),
-    or with --tp tp_halves.cu (per layer and shard: ln1+mix, k/v/r + WKV,
-    output partial; ln2+mix, gate, key, value partial; then the mm8 head of
-    each shard);
-  * with --tp, wall ms per step of the K1 step (forward_step_fused) and of
-    the tensor-parallel step in turns (K1, tp, tp, K1), CUDA events;
+    with --tp and the fused body decode_stack_tp.cu (per layer, each launch
+    covering every shard: ln1+mix with the ffn exchange, k/v/r + WKV, output
+    partial, ln2+mix with the att exchange, gate, key, value partial; then
+    ln_out with the last exchange and the head), or with --body halves
+    tp_halves.cu (per layer and shard: ln1+mix, k/v/r + WKV, output partial;
+    ln2+mix, gate, key, value partial; then the mm8 head of each shard);
+  * with --tp, wall ms per step of the unsharded step (forward_step_fused:
+    K1 + K2, or K4 + K3 in q4) and of the tensor-parallel step in turns
+    (unsharded, tp, tp, unsharded), CUDA events;
   * graph ms per step: the same step captured once in a CUDA graph and
     replayed, which takes the host's launch cost out of the wall time;
   * sampled ms per token: the engine's generate loop without the tokenizer
@@ -47,6 +55,8 @@ from functools import partial
 PHASES = ("ln1+mix", "k/v/r+wkv", "output", "ln2+mix", "key", "value+gate")
 TP_PHASES = ("ln1+mix", "k/v/r+wkv", "output partial", "ln2+mix", "gate", "key",
              "value partial")
+FUSED_PHASES = ("ffn exchange+ln1+mix", "k/v/r+wkv", "output partial",
+                "att exchange+ln2+mix", "gate", "key", "value partial")
 
 
 def _device_us(evt) -> float:
@@ -63,14 +73,18 @@ def main() -> None:
     ap.add_argument("--a8", action="store_true", help="the W8A8 step (q8 weights only)")
     ap.add_argument("--tp", type=int, default=0,
                     help="the tensor-parallel step on a mesh naming the card N times")
+    ap.add_argument("--body", choices=["fused", "halves"], default="fused",
+                    help="the tensor-parallel step's body (with --tp)")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.a8 and args.quant == "q4":
         ap.error("--a8 runs on q8 weights")
-    if args.tp and (args.a8 or args.quant == "q4"):
-        ap.error("--tp runs on q8 weights without --a8")
+    if args.tp and args.a8:
+        ap.error("--tp runs without --a8")
+    if args.tp and args.quant == "q4" and args.body == "halves":
+        ap.error("4-bit weights run the tensor-parallel step through --body fused only")
 
     import numpy as np
     import torch
@@ -81,6 +95,7 @@ def main() -> None:
         a8_block_for,
         init_state,
         params_to,
+        q4_pack_block,
         random_quantized_params_np,
         signedize_params,
     )
@@ -97,7 +112,8 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     cfg = RWKVConfig.rwkv4_430m()
-    host = random_quantized_params_np(cfg, seed=args.seed, q4=args.quant == "q4")
+    host = random_quantized_params_np(cfg, seed=args.seed, q4=args.quant == "q4",
+                                      q4_block=q4_pack_block(cfg.n_embd, max(args.tp, 1)))
     params = params_to(signedize_params(host), dev)
     head = "head (mm4)" if args.quant == "q4" else ("head (mm8_a8)" if args.a8 else "head (mm8)")
     k1_step = forward_step_fused
@@ -108,12 +124,12 @@ def main() -> None:
     if args.tp:
         mesh = make_mesh(model=args.tp, devices=[dev] * args.tp)
         sharded = shard_params(params, mesh)
-        tp_step = make_engine_step(mesh, sharded, body="halves")
+        tp_step = make_engine_step(mesh, sharded, body=args.body)
 
         def forward_step_fused(_, token, state):  # noqa: F811: the step profiled
             return tp_step(sharded, token, state)
 
-        head = "head (mm8)"
+        head = "head (mm8)" if args.body == "halves" else "head"
     rng = np.random.default_rng(args.seed)
 
     for B in args.batch:
@@ -138,7 +154,7 @@ def main() -> None:
         wall_ms = a.elapsed_time(b) / args.steps
 
         turns = {}
-        if args.tp:  # K1 and the tp step, in turns
+        if args.tp:  # the unsharded step and the tp step, in turns
             def timed(fn):
                 fn(params, tok, st)
                 torch.cuda.synchronize()
@@ -150,9 +166,10 @@ def main() -> None:
                 b.synchronize()
                 return a.elapsed_time(b) / args.steps
 
-            for name in ("k1", "tp", "tp", "k1"):
+            ref = "k4" if args.quant == "q4" else "k1"  # the unsharded step
+            for name in (ref, "tp", "tp", ref):
                 turns.setdefault(name, []).append(
-                    timed(k1_step if name == "k1" else forward_step_fused))
+                    timed(k1_step if name == ref else forward_step_fused))
 
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -179,11 +196,16 @@ def main() -> None:
                        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
                        and "rwkv::" in e.name), key=lambda e: e.time_range.start)
         n = args.tp
-        per_step = 7 * cfg.n_layer * n + n if n else 6 * cfg.n_layer + 2
+        fused = n and args.body == "fused"
+        per_step = (7 * cfg.n_layer + 2 if fused else 7 * cfg.n_layer * n + n if n
+                    else 6 * cfg.n_layer + 2)
         by_position = defaultdict(float)
         for i, e in enumerate(ours):
             j = i % per_step
-            if n:  # per layer: n att halves (3 launches), then n ffn halves (4)
+            if fused:  # per layer 7 launches, each over every shard; then 2
+                label = (FUSED_PHASES[j % 7] if j < 7 * cfg.n_layer
+                         else ("last exchange+ln_out" if j == 7 * cfg.n_layer else head))
+            elif n:  # per layer: n att halves (3 launches), then n ffn halves (4)
                 k = j % (7 * n)
                 label = (head if j >= 7 * cfg.n_layer * n
                          else TP_PHASES[k % 3] if k < 3 * n else TP_PHASES[3 + (k - 3 * n) % 4])
@@ -216,7 +238,7 @@ def main() -> None:
 
         engine = {}
         if B == 1:
-            eng = RWKV(device=dev, sharding=mesh)
+            eng = RWKV(device=dev, sharding=mesh, tp_body=args.body if mesh else None)
             eng.load_params(host, a8=args.a8)
             eng.load_tokenizer()
 
@@ -244,7 +266,8 @@ def main() -> None:
                       "engine_host_ms_per_token_by_op": dict(top)}
             del eng
 
-        out = {"quant": args.quant, "a8": args.a8, "tp": args.tp, "batch": B,
+        out = {"quant": args.quant, "a8": args.a8, "tp": args.tp,
+               **({"body": args.body} if args.tp else {}), "batch": B,
                "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
                **({"wall_ms_per_step_in_turns": turns} if turns else {}),
                "graph_ms_per_step": graph_ms,

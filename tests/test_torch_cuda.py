@@ -381,7 +381,7 @@ def test_tp_step_halves_runs_k6_and_k2(dev, tp_setup):
 
     cfg, sharded = tp_setup
     sp = sharded[2]
-    step = make_tp_step(sp.mesh, sp)
+    step = make_tp_step(sp.mesh, sp, body="halves")
     assert step.body == "halves"
     st = init_state(cfg, (3,), device=dev)
     tok = torch.tensor([17, 400, 5], device=dev)
@@ -391,6 +391,89 @@ def test_tp_step_halves_runs_k6_and_k2(dev, tp_setup):
     L = cfg.n_layer
     assert [a - b for a, b in zip(counts(), before)] == [3 * L * 2, 4 * L * 2, 2, 0]
     ref, ref_state = forward_step(sharded[1].rows[0][0], tok, st)
+    assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
+    for a, b in zip(new, ref_state):
+        assert _scaled(a, b) <= 1e-4
+
+
+# Kernel K7 (csrc/decode_stack_tp.cu): the whole step of a data row's shards,
+# q8 and q4, tp 1, 2 and 4 on a virtual mesh (E / tp = 512, 256, 128), B = 1
+# and 8 with the embedding gather in the step and B = 16 with x given,
+# against its plain version over 2 carried steps.
+@pytest.fixture(scope="module")
+def k7_setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rwkv_tpu_torch.models.rwkv4 import q4_pack_block
+
+    dev = torch.device("cuda", 0)
+    cfg = RWKVConfig(n_layer=2, n_embd=512, vocab_size=1000)
+    q8 = random_quantized_params_np(cfg, seed=11, pad_multiple=512)
+    q4 = random_quantized_params_np(cfg, seed=12, pad_multiple=512, q4=True,
+                                    q4_block=q4_pack_block(cfg.n_embd, 4))  # inside a shard
+    return cfg, {"q8": params_to(signedize_params(q8), dev), "q4": params_to(q4, dev)}
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_decode_stack_tp_matches_plain(dev, k7_setup, quant, tp, B):
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.ops.layernorm import layer_norm
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    cfg, params = k7_setup
+    p = params[quant]
+    sp = shard_params(p, make_mesh(model=tp, devices=[dev] * tp))
+    local = [sp.local(0, j) for j in range(tp)]
+    st_k = st_p = shard_state(init_state(cfg, (B,), device=dev), sp.mesh)[0]
+    rng = np.random.default_rng(tp * 100 + B)
+    counter = "launches_q4" if quant == "q4" else "launches"
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        kw = ({"token": tok} if B <= 8 else
+              {"x": layer_norm(p.emb[tok], p.ln0.weight, p.ln0.bias).contiguous()})
+        before = (k7.launches, k7.launches_q4, ds_mod.launches, mm8_mod.launches)
+        lg_k, new_k = k7.decode_stack_tp(sp.rows[0], st_k, local, **kw)
+        after = (k7.launches, k7.launches_q4, ds_mod.launches, mm8_mod.launches)
+        moved = [a - b for a, b in zip(after, before)]
+        want = 7 * cfg.n_layer + 2
+        assert moved == ([0, want] if quant == "q4" else [want, 0]) + [0, 0], (counter, moved)
+        lg_p, new_p = k7.decode_stack_tp_reference(sp.rows[0], st_p, local, **kw)
+        torch.cuda.synchronize()
+        for j in range(tp):
+            assert _scaled(lg_k[j], lg_p[j]) <= 1e-4, ("logits", j, _scaled(lg_k[j], lg_p[j]))
+            for name, a, b in zip(WKVState._fields, new_k[j], new_p[j]):
+                assert torch.isfinite(a).all() and _scaled(a, b) <= 1e-4, (name, j, _scaled(a, b))
+        st_k, st_p = new_k, new_p
+
+
+def test_tp_step_fused_runs_k7_alone(dev, k7_setup):
+    """The auto body on a virtual tp = 2 mesh is "fused": K7 launches, K6, K2
+    and K1 do not, and the step matches the plain model with 1 gather and no
+    psum."""
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
+
+    cfg, params = k7_setup
+    p = params["q8"]
+    sp = shard_params(p, make_mesh(model=2, devices=[dev, dev]))
+    step = make_tp_step(sp.mesh, sp)
+    assert step.body == "fused"
+    st = init_state(cfg, (3,), device=dev)
+    tok = torch.tensor([17, 400, 5], device=dev)
+    counts = lambda: (k7.launches, th.launches_att, th.launches_ffn, mm8_mod.launches,  # noqa: E731
+                      ds_mod.launches)
+    before = counts()
+    sp.mesh.reset_collectives()
+    logits, new = step(sp, tok, st)
+    assert [a - b for a, b in zip(counts(), before)] == [7 * cfg.n_layer + 2, 0, 0, 0, 0]
+    assert sp.mesh.collectives == {"psum": 0, "all_gather": 1}
+    ref, ref_state = forward_step(p, tok, st)
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
     for a, b in zip(new, ref_state):
         assert _scaled(a, b) <= 1e-4

@@ -245,19 +245,20 @@ def _guard(case, setup):
     elif case == "halves_narrow":
         cfg2 = RWKVConfig.tiny_test(n_layer=1, n_embd=128, vocab_size=211)
         t_tp.make_tp_step(mesh, to_port(_jax_params(cfg2, 2)), body="halves")
-    elif case == "q4":
+    elif case == "q4":  # 4-bit params run only through the fused body
         q4 = t_m.params_to(t_m.random_quantized_params_np(
             RWKVConfig(n_layer=1, n_embd=512, vocab_size=211), q4=True), "cpu")
-        t_tp.make_tp_step(mesh, q4)
-    elif case == "fused":
-        t_tp.make_tp_step(mesh, p, body="fused")
+        t_tp.make_tp_step(mesh, q4, body="halves")
+    elif case == "fused":  # E / tp = 32: not a multiple of 128
+        cfg2 = RWKVConfig.tiny_test(n_layer=1, n_embd=128, vocab_size=211)
+        t_tp.make_tp_step(mesh, to_port(_jax_params(cfg2, 2)), body="fused")
     elif case == "a8_mesh":
         RWKV(device="cpu", sharding=mesh).load_params(p, a8=True)
 
 
 @pytest.mark.parametrize("case,exc", [
     ("unpadded_vocab", ValueError), ("dense", TypeError), ("halves_narrow", ValueError),
-    ("q4", NotImplementedError), ("fused", NotImplementedError), ("a8_mesh", ValueError)])
+    ("q4", ValueError), ("fused", ValueError), ("a8_mesh", ValueError)])
 def test_tp_step_guards(setup, case, exc):
     with pytest.raises(exc):
         _guard(case, setup)
