@@ -14,12 +14,14 @@ Phases, in order; any failure raises and exits non-zero:
               weight (the yardstick, never used by the port).
   3. decode   kernel K1 (+ K2 head) against the plain version at RWKV-4 430M
               widths (L=24, E=1024, F=4096, Vp=50688), weights from a numpy
-              seed, B in {1, 8}, 4 consecutive steps: logits and all 5 state
-              tensors; ms per step against the weight-bytes bound.
+              seed, B in {1, 8, 16}, 4 consecutive steps: logits and all 5
+              state tensors, one cooperative launch a step; ms per step, eager
+              and replayed from a CUDA graph, against the weight-bytes bound.
   4. e2e      write a 430M .bin with the port's write_bin, load it with
               RWKV(path) on the default device, answer 3 requests
               (load_context + generate(max_tokens=32)), check that both
-              kernels' launch counters rose, and that the engine's logits
+              kernels' launch counters rose, the stack's by one per decoded
+              step, and that the engine's logits
               match the plain model on the loaded weights.
   5. mm4      kernel K3 against its plain version at the q4 head shape
               [B, 1024] x packed [512, 50688], B in {1, 8}; times of the
@@ -27,12 +29,13 @@ Phases, in order; any failure raises and exits non-zero:
               pre-widened f32 [1024, 50688] weight (the yardstick).
   6. decode4  kernel K4 (+ K3 head) against the plain version at 430M widths
               with packed 4-bit weights from a numpy seed (the default pairing
-              block, 1024), B in {1, 8}, 4 steps, logits and all 5 state
+              block, 1024), B in {1, 8, 16}, 4 steps, logits and all 5 state
               tensors; then at RWKV-4 7B widths (E=4096, F=16384, block 256)
               with L=2, where both row-tiled families pair within sub-K blocks.
   7. e2e4     write a 430M q4 artifact with the port's save_q4, load it with
               RWKV(path), check it runs as q4, answer 3 requests and check
-              the K4 and K3 launch counters rose and the logits match the
+              the K4 (one per decoded step) and K3 launch counters rose and
+              the logits match the
               plain model; then load a dense f32 .safetensors at 430M width
               (L=2) with RWKV(path, quant="q4") and decode a few tokens.
   8. mm8_a8   kernel K5's head (mm8_a8.cu) against its plain version at
@@ -42,9 +45,9 @@ Phases, in order; any failure raises and exits non-zero:
               on the same codes, rows padded to 24 (the yardstick).
   9. decode8  kernel K5's stack (the a8 branch of decode_stack.cu) + a8 head
               against the plain a8 version at 430M widths, a8_block 512, B in
-              {1, 8, 16}, 4 carried steps: logits and state within
-              A8_DECODE_TOL scaled, equal argmax; ms per step beside the q8
-              step (K1 + K2) at the same B, in turns.
+              {1, 8, 16}, 4 carried steps: the state bit-equal, logits within
+              A8_DECODE_TOL scaled, equal argmax, one stack launch a step; ms
+              per step beside the q8 step (K1 + K2) at the same B, in turns.
  10. serve    the phase-4 .bin through RWKV(path), load_params(a8=True), and
               an 8-slot InferencePool on the engine's a8 step: 12 requests
               (prompts of 5-300 tokens, 16-64 new tokens, mixed temp/tau,
@@ -329,7 +332,10 @@ def main() -> int:
             worst = {}
             for step in range(steps):
                 tok = torch.from_numpy(rng.integers(0, cfg_.vocab_size, size=(B,))).to(dev)
+                before = ds_mod.launches + ds_mod.launches_q4
                 y_k, n_k, xh_k, oh_k = ds_mod.decode_stack(params, tok, st_k)
+                require(ds_mod.launches + ds_mod.launches_q4 == before + 1,
+                        f"{tag} B={B}: the stack took more than one launch")
                 lg_k = head_kernel(params, xh_k, oh_k)
                 y_p, n_p, xh_p, oh_p = ds_mod.decode_stack_plain(params, tok, st_p)
                 lg_p = head_plain(params, xh_p, oh_p)
@@ -355,6 +361,8 @@ def main() -> int:
             st = init_state(cfg_, (B,), device=dev)
             ds_ms = cuda_ms(lambda: ds_mod.decode_stack(params, tok, st), 20)
             step_ms = cuda_ms(lambda: ds_mod.forward_step_fused(params, tok, st), 20)
+            ds_graph = graph_ms(lambda: ds_mod.decode_stack(params, tok, st), 20)
+            step_graph = graph_ms(lambda: ds_mod.forward_step_fused(params, tok, st), 20)
             plain_ms = cuda_ms(lambda: ds_mod.decode_stack_plain(params, tok, st), 5, warmup=1)
             # + B embedding rows, state in and out, y and xs_h out
             ds_bytes = wb + vb + (B * E_ + 10 * L_ * B * E_ + 2 * B * E_ + B) * 4
@@ -363,9 +371,12 @@ def main() -> int:
             head_bytes = nbytes([head.wp if isinstance(head, Quant4Linear) else head.w])
             step_bytes = wb + head_bytes
             rows[B].update(ms=ds_ms, step_ms=step_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
-            print(f"  {tag} B={B}: decode stack {ds_ms:.3f} ms/step, with head {step_ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms; stack bound {b_ms:.4f} ms ({b_by}, "
+                           bound_by=b_by, graph_ms=ds_graph, step_graph_ms=step_graph)
+            grid = ds_mod.stack_grid(B, E_, q4=isinstance(head, Quant4Linear))
+            print(f"  {tag} B={B}: decode stack {ds_ms:.4f} ms/step ({ds_graph:.4f} replayed from a "
+                  f"CUDA graph), with head {step_ms:.4f} ms ({step_graph:.4f} replayed), "
+                  f"plain {plain_ms:.3f} ms; one launch of {grid} blocks, {4 * L_} grid "
+                  f"barriers; stack bound {b_ms:.4f} ms ({b_by}, "
                   f"{(wb + vb) / 1e6:.1f} MB of weights and vectors); step bound "
                   f"{step_bytes / 1e6:.1f} MB: {step_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
                   f"3.35 TB/s, {step_bytes / bw * 1e3:.4f} ms at the measured copy rate {card}")
@@ -378,8 +389,8 @@ def main() -> int:
     Vp = params.head.w.shape[1]
     print(f"  params ready in {time.perf_counter() - t0:.1f} s; layer weights "
           f"{weight_bytes(params) / 1e6:.1f} MB, head {E * Vp / 1e6:.1f} MB")
-    ds_rows = check_decode(params, cfg, "q8")
-    per_step = 6 * L + 1
+    ds_rows = check_decode(params, cfg, "q8", batches=(1, 8, 16))
+    per_step = 1  # the decode stack is one cooperative launch a step
     del params
 
     # ------------------------------------------------------------------ 4
@@ -483,6 +494,8 @@ def main() -> int:
           f"(= {per_step} per step x {steps} steps: {k1_launches == per_step * steps}), "
           f"mm8 {k2_launches}; q4 kernels {k4_seen}, {k3_seen}")
     require(k1_launches > 0, "decode_stack kernel never launched on the main path")
+    require(k1_launches == per_step * steps, f"decode_stack: {k1_launches} launches for {steps} "
+            "decoded steps, not one each")
     require(k2_launches > 0, "mm8 kernel never launched on the main path")
     require(k4_seen == 0 and k3_seen == 0, "the q8 path launched a q4 kernel")
     check_engine_logits(eng, cfg.vocab_size)
@@ -522,7 +535,7 @@ def main() -> int:
     print(f"  params ready in {time.perf_counter() - t0:.1f} s; packed layer weights "
           f"{weight_bytes(params) / 1e6:.1f} MB, head {params.head.wp.numel() / 1e6:.1f} MB; "
           f"blocks att.output {params.att.output.block}, ffn.value {params.ffn.value.block}")
-    q4_rows = check_decode(params, cfg, "q4")
+    q4_rows = check_decode(params, cfg, "q4", batches=(1, 8, 16))
     del params
     cfg7 = RWKVConfig(n_layer=2, n_embd=4096)
     t0 = time.perf_counter()
@@ -559,6 +572,8 @@ def main() -> int:
           f"(= {per_step} per step x {steps4} steps: {k4_launches == per_step * steps4}), "
           f"mm4 {k3_launches}; q8 kernels {k1_seen}, {k2_seen}")
     require(k4_launches > 0, "the q4 decode_stack kernel never launched on the q4 path")
+    require(k4_launches == per_step * steps4, f"decode_stack q4: {k4_launches} launches for "
+            f"{steps4} decoded steps, not one each")
     require(k3_launches > 0, "mm4 kernel never launched on the q4 path")
     require(k1_seen == 0 and k2_seen == 0, "the q4 path launched a q8 kernel")
     check_engine_logits(eng, cfg.vocab_size)
@@ -677,10 +692,13 @@ def main() -> int:
                 require(serr <= A8_DECODE_TOL, f"a8 B={B} step {step}: {name} scaled error "
                         f"{serr:.3e} > {A8_DECODE_TOL}")
                 worst[name] = max(worst.get(name, (0.0, 0.0)), (err, serr))
+                require(name == "logits" or torch.equal(x_k, x_p),
+                        f"a8 B={B} step {step}: state {name} differs from the plain a8 step's bits")
             require(torch.equal(pairs["logits"][0].argmax(-1), pairs["logits"][1].argmax(-1)),
                     f"a8 B={B} step {step}: argmax differs from the plain a8 step")
             st_k, st_p = n_k, n_p
-        print(f"  a8 B={B}, 4 steps: max abs err (scaled <= {A8_DECODE_TOL}), argmax equal: "
+        print(f"  a8 B={B}, 4 steps: state bit-equal; max abs err (scaled <= {A8_DECODE_TOL}), "
+              "argmax equal: "
               + ", ".join(f"{n} {e:.2e} ({s:.1e})" for n, (e, s) in worst.items()))
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
         st = init_state(cfg, (B,), device=dev)
@@ -690,15 +708,18 @@ def main() -> int:
         for name in ("q8", "a8", "a8", "q8"):  # in turns
             t[name].append(cuda_ms(a8_step if name == "a8" else q8_step, 20))
         ds_ms = cuda_ms(lambda: ds_mod.decode_stack(params, tok, st, a8=True, a8_block=blk), 20)
+        ds_graph = graph_ms(lambda: ds_mod.decode_stack(params, tok, st, a8=True, a8_block=blk), 20)
         plain_ms = cuda_ms(lambda: ds_mod.decode_stack_plain(params, tok, st, a8=True,
                                                              a8_block=blk), 3, warmup=1)
         ds_bytes = wb + vb + (B * E + 10 * L * B * E + 2 * B * E + B) * 4
         b_ms, b_by = bound(ds_bytes, 2 * B * L * 13 * E * E, PEAK_INT8_OPS)
         a8_stack_rows[B] = dict(err=max(e for k, (e, _) in worst.items() if k != "logits"),
-                                ms=ds_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                                ms=ds_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                graph_ms=ds_graph)
         print(f"  B={B}: a8 step {min(t['a8']):.3f} ms ({', '.join(f'{v:.3f}' for v in t['a8'])}), "
               f"q8 step {min(t['q8']):.3f} ms ({', '.join(f'{v:.3f}' for v in t['q8'])}), in "
-              f"turns; {per_step} + 1 launches per step each; a8 stack alone {ds_ms:.3f} ms, "
+              f"turns; {per_step} + 1 launches per step each; a8 stack alone {ds_ms:.4f} ms "
+              f"({ds_graph:.4f} replayed from a CUDA graph), "
               f"plain a8 stack {plain_ms:.3f} ms; stack bound {b_ms:.4f} ms ({b_by}), step bound "
               f"{(wb + head_bytes) / PEAK_BYTES_PER_S * 1e3:.4f} ms {card}")
     del params
@@ -1179,7 +1200,8 @@ def main() -> int:
          "max_abs_err": ds_rows[1]["err"], "ms": ds_rows[1]["ms"],
          "plain_ms": ds_rows[1]["plain_ms"], "bound_ms": ds_rows[1]["bound_ms"],
          "bound_by": ds_rows[1]["bound_by"], "library_ms": None,
-         "shape": f"q8, B=1 L={L} E={E} F={F}, {per_step} launches per step"},
+         "shape": f"q8, B=1 L={L} E={E} F={F}, {per_step} launch per step ({4 * L} grid "
+                  f"barriers); replayed from a CUDA graph {ds_rows[1]['graph_ms']:.4f} ms"},
         {"name": "mm8", "route": "cuda", "source": "rwkv_tpu_torch/csrc/mm8.cu",
          "replaces": "rwkv_tpu/ops/pallas/mm8.py:65", "launches": k2_launches,
          "max_abs_err": mm8_rows[1]["err"], "ms": mm8_rows[1]["ms"],
@@ -1198,7 +1220,8 @@ def main() -> int:
          "max_abs_err": q4_rows[1]["err"], "ms": q4_rows[1]["ms"],
          "plain_ms": q4_rows[1]["plain_ms"], "bound_ms": q4_rows[1]["bound_ms"],
          "bound_by": q4_rows[1]["bound_by"], "library_ms": None,
-         "shape": f"q4, B=1 L={L} E={E} F={F}, {per_step} launches per step"},
+         "shape": f"q4, B=1 L={L} E={E} F={F}, {per_step} launch per step ({4 * L} grid "
+                  f"barriers); replayed from a CUDA graph {q4_rows[1]['graph_ms']:.4f} ms"},
         {"name": "mm8_a8", "route": "cuda", "source": "rwkv_tpu_torch/csrc/mm8_a8.cu",
          "replaces": "rwkv_tpu/ops/pallas/mm8.py:141", "launches": k5_head_launches,
          "max_abs_err": a8_rows[1]["err"], "ms": a8_rows[1]["ms"],
@@ -1211,7 +1234,9 @@ def main() -> int:
          "max_abs_err": a8_stack_rows[1]["err"], "ms": a8_stack_rows[1]["ms"],
          "plain_ms": a8_stack_rows[1]["plain_ms"], "bound_ms": a8_stack_rows[1]["bound_ms"],
          "bound_by": a8_stack_rows[1]["bound_by"], "library_ms": None,
-         "shape": f"a8, B=1 L={L} E={E} F={F} a8_block {blk}, {per_step} launches per step"},
+         "shape": f"a8, B=1 L={L} E={E} F={F} a8_block {blk}, {per_step} launch per step "
+                  f"({4 * L} grid barriers); replayed from a CUDA graph "
+                  f"{a8_stack_rows[1]['graph_ms']:.4f} ms"},
         {"name": "att_half", "route": "cuda", "source": "rwkv_tpu_torch/csrc/tp_halves.cu",
          "replaces": "rwkv_tpu/ops/pallas/tp_halves.py:189", "launches": k6_att_launches,
          "max_abs_err": k6_err["att"], "ms": k6_rows[1]["att_ms"],

@@ -1,5 +1,5 @@
 // One RWKV-v4 decode step over all L layers: q8 (kernel K1), q4 (kernel K4)
-// or W8A8 (the stack of kernel K5).
+// or W8A8 (the stack of kernel K5), in one persistent, cooperative launch.
 //
 // Replaces rwkv_tpu/ops/pallas/decode_stack.py:_decode_stack_kernel, its q8
 // branch, its q4 branch (_dot4/_fold4) and its a8 branch (_quant_rows,
@@ -11,42 +11,61 @@
 // activations and scale/offset vectors add under 1% (2% in q4).
 //
 // The TPU kernel is one launch whose sequential grid carries the activation
-// vector and the offset sums from step to step in VMEM. CUDA blocks run in no
-// order and share nothing, so here layer l+1 waits for layer l through a fixed
-// sequence of launches on one stream, six per layer:
+// vector and the offset sums from step to step in VMEM. CUDA blocks run in
+// no order and share nothing, and a launch costs more than its bytes at these
+// sizes (a near-empty launch ~2.7 us, a 1 MB matvec 5.8-6.5 us on an H100:
+// PERF.md), so the step is one cooperative launch of as many blocks as fit
+// on the card at once (the occupancy API's blocks per SM times the SMs),
+// every block resident, and layer l+1 waits for layer l at grid barriers
+// (grid.cuh): four phases a layer, one after the last layer,
 //
-//   1. row_kernel ATT : (row.cuh) ln1 + token-shift mix -> k/v/r inputs, new xy
-//                       (layer 0 first gathers the embedding rows and runs ln0)
-//   2. qmv  k,v,r     : three matvecs + the WKV step -> sigmoid(r) * y, new aa/bb/pp
-//   3. qmv  output    : out-projection, added to the residual
-//   4. row_kernel FFN : ln2 + mix -> key/gate inputs, new dd
-//   5. qmv  key       : relu(key)^2
-//   6. qmv  value,gate: value projection * sigmoid(gate), added to the residual
+//   A. ln1 + token-shift mix, folded in: the k/v/r matvecs + the WKV step
+//      -> sigmoid(r) * y, new aa/bb/pp, new xy (layer 0 first gathers the
+//      embedding rows and runs ln0)
+//   B. out-projection, added to the residual
+//   C. ln2 + mix, folded in: relu(key)^2; the receptance mix and new dd
+//   D. value projection * sigmoid(gate), added to the residual
+//   H. ln_out, the head's scaled input and its offset row-sum (row.cuh),
+//      which feed the head matvec, kernel K2 (mm8.cu), K3 or K5's head
 //
-// and after the last layer one row_kernel HEAD (ln_out, scaled head input and
-// its offset row-sum) that feeds the head matvec, kernel K2 (mm8.cu). All the
-// launches of a step are enqueued by one host call, rwkv_decode_stack(), so
-// the host pays one crossing into C per token. Every weight byte is read once
-// (qmv.cuh says how). The rank-1 offset sums run over a matrix's whole input
-// dim: the row kernels compute them whole for the inputs they produce, and
-// the k/v/r and key epilogues leave one partial per column tile for the
-// out-projection and the value projection, summed in a fixed order by their
-// consumer (never atomically added), so every run gives the same bits.
+// and 4 * L barriers between them. A matvec phase deals its (column tile,
+// split) items over the blocks, at most one each where the card holds them
+// all: qmv.cuh's tile runs as a device function (qmv_run). The assignment
+// is static and the weights are read-only, so each block issues the loads of
+// its next item's weights between arriving at the barrier and leaving it:
+// their memory round trip overlaps the wait, and after the barrier only the
+// activations are staged.
 //
-// In q4 the launches are the same; every matvec reads nibble-packed weights
-// [L, K / 2, O] (qmv.cuh's Q4 instantiation). att.output and ffn.value pair
-// rows within their `block` (halves[] below), the others globally.
+// Folding a row phase: a LayerNorm and a mix need the whole row of x, which
+// the phase before wrote. So every block of phases A and C computes, from x,
+// the LayerNorm of its batch rows, and the whole rank-1 offset sums and (a8)
+// row maxima of the mixes, with the same code in the same order, so every
+// block gets the same bits (FoldSrc below); it stages the mixes of its own
+// contraction rows from those LayerNormed rows. The [B, E] outputs (new xy
+// and dd, the receptance mix that phase D reads, x after ln0) are written in
+// shares, each element by one block; the receptance mix's [B] offset sum and
+// maximum by block 0.
 //
-// In a8 (a8_block > 0) the launches are the same again; every matvec
-// quantizes its input to int8 codes while staging it and runs s8 x s8 -> s32
-// dot products (qmv.cuh's A8 instantiation). The inputs of att k/v/r, ffn
-// key/receptance and the head are quantized per batch row over all E
-// channels: their row kernels write each row's max|x * scale|. The inputs of
-// att.output and ffn.value are quantized per block of a8_block channels, as
-// the TPU kernel quantizes each of its `tile`-wide slices: their producers
-// (the WKV and relu^2 epilogues, 128 columns a block) write one max per
-// 128-column tile, and the consumer takes the max of a block's tiles. So no
-// extra launch, and no extra pass over the activations.
+// Every weight byte is read once (qmv.cuh says how). The rank-1 offset sums
+// run over a matrix's whole input dim: the folded phases compute them whole
+// for the inputs they produce, and the k/v/r and key epilogues leave one
+// partial per column tile for the out-projection and the value projection,
+// summed in a fixed order by their consumer (never atomically added), so
+// every run gives the same bits.
+//
+// In q4 every matvec reads nibble-packed weights [L, K / 2, O] (qmv.cuh's Q4
+// instantiation). att.output and ffn.value pair rows within their `block`
+// (halves[] below), the others globally.
+//
+// In a8 (a8_block > 0) every matvec quantizes its input to int8 codes while
+// staging it and runs s8 x s8 -> s32 dot products (qmv.cuh's A8
+// instantiation). The inputs of att k/v/r, ffn key/receptance and the head
+// are quantized per batch row over all E channels, from the row maxima the
+// folded phases compute (and row.cuh for the head). The inputs of att.output
+// and ffn.value are quantized per block of a8_block channels, as the TPU
+// kernel quantizes each of its `tile`-wide slices: their producers (the WKV
+// and relu^2 epilogues, 128 columns a block) write one max per 128-column
+// tile, and the consumer takes the max of a block's tiles.
 //
 // A code is a rounding of the f32 value before it, and at RWKV-4 430M with
 // random weights a code one apart changes the logits by ~2e-2 a few layers on
@@ -57,12 +76,14 @@
 // double, rounded once (a double sum's order moves the f32 result only at a
 // rounding tie), and each elementwise f32 operation rounded on its own in the
 // plain version's order (__fmul_rn and friends: no contraction into FMAs).
-// q8 and q4 share the epilogues; their row kernels keep f32 sums
-// (row_kernel<false>: the double sums add ~1.4 us a launch on an H100 80GB
-// HBM3 at 700 W, PERF.md), within f32 rounding of the plain version.
+// q8 and q4 share the epilogues; their LayerNorms and offset sums keep f32
+// sums, within f32 rounding of the plain version.
 //
 // The new state is written to separate output tensors: the input state is
-// never modified, as in the JAX function.
+// never modified, as in the JAX function. With a stamp buffer, block 0
+// writes %globaltimer at the start, after each barrier and at its end
+// (4 * L + 2 stamps): tools/decode_profile.py reads the time of each phase.
+#include "grid.cuh"
 #include "row.cuh"
 
 namespace rwkv {
@@ -80,14 +101,555 @@ enum Ptr : int {
   P_LN_OUT_W, P_LN_OUT_B, P_HEAD_S, P_HEAD_O,
   P_XY_IN, P_AA_IN, P_BB_IN, P_PP_IN, P_DD_IN,
   P_XY_OUT, P_AA_OUT, P_BB_OUT, P_PP_OUT, P_DD_OUT,
-  P_X, P_XK, P_XV, P_XR, P_RWKV, P_FK, P_FR, P_KK, P_XS_H, P_OFF_H,
-  P_OFFS,       // [5, B] double: rank-1 terms of k, v, r, ffn key, ffn receptance
+  P_X, P_RWKV, P_FR, P_KK, P_XS_H, P_OFF_H,
+  P_OFFS,       // [B] double: rank-1 term of ffn receptance
   P_OFF_PARTS,  // [E/128 + F/128, B] double: per-tile partials for att.output, ffn.value
-  P_AMAX,       // [6, B], a8: row maxima of the inputs of k, v, r, ffn key, ffn r, head
+  P_AMAX,       // [2, B], a8: row maxima of the inputs of ffn receptance and the head
   P_AMAX_PARTS, // [E/128 + F/128, B], a8: per-tile maxima of att.output's, ffn.value's input
   P_PARTIAL, P_COUNTERS,
+  P_STAMPS,     // [4 L + 2] u64 %globaltimer stamps, or null
   P_COUNT
 };
+
+constexpr int kPhases = 4;         // per layer: A, B, C, D
+constexpr int kMinSplitRows = 16;  // weight rows of the narrowest split
+
+struct StackArgs {
+  void* p[P_COUNT];
+  int L, B, E, F, n_emb, q4, a8_block;
+  int halves[7];
+  long long partial_cap;  // floats of split-K partials
+  int counter_cap;        // split-K counters; the barrier's words follow them
+};
+
+// Split of the contraction for one matvec phase over G resident blocks: as
+// many (tile, split) items as there are blocks (one each: a second item a
+// block would add a second chain of latencies, measured slower than one long
+// split), within kMaxSplit, the partial scratch, and at least kMinSplitRows
+// weight rows a split.
+__device__ __host__ inline int stack_split(int tiles, int kmax, int nmat, int B, int O,
+                                           long long cap, int counter_cap, int G) {
+  if (tiles >= G || tiles > counter_cap) return 1;
+  int S = G / tiles;
+  S = S < kMaxSplit ? S : kMaxSplit;
+  const int by_rows = kmax / kMinSplitRows > 1 ? kmax / kMinSplitRows : 1;
+  S = S < by_rows ? S : by_rows;
+  while (S > 1 && (long long)S * nmat * B * O > cap) --S;
+  return S;
+}
+
+// The matvec of phase `kind` (0..3: A..D) of layer l, written into q (shared
+// memory, by one thread; no local arrays: local memory lives in L2 here, the
+// shared memory leaving L1 little room). offs_sm, amax_sm: the folded mixes'
+// rank-1 terms and maxima in shared memory, [3, B].
+template <int FMT>
+__device__ void phase_args(QmvArgs& q, const StackArgs& a, int l, int kind, double* offs_sm,
+                           float* amax_sm) {
+  const int B = a.B, E = a.E, F = a.F;
+  const bool q4 = FMT == kQ4, a8 = FMT == kA8;
+  auto f = [&](int i) { return static_cast<float*>(a.p[i]); };
+  auto i8 = [&](int i) { return static_cast<const int8_t*>(a.p[i]); };
+  const size_t EE = (size_t)E * E / (q4 ? 2 : 1), EF = (size_t)E * F / (q4 ? 2 : 1);
+  const size_t lE = (size_t)l * E, lF = (size_t)l * F, lBE = (size_t)l * B * E;
+  const int tiles_e = (E + kTileO - 1) / kTileO, tiles_f = (F + kTileO - 1) / kTileO;
+  double* off_out = static_cast<double*>(a.p[P_OFF_PARTS]);  // [tiles_e, B]
+  double* off_val = off_out + (size_t)tiles_e * B;             // [tiles_f, B]
+  float* amax_out = f(P_AMAX_PARTS);
+  float* amax_val = amax_out + (size_t)tiles_e * B;
+
+  q = QmvArgs{};
+  q.B = B;
+  q.partial = f(P_PARTIAL);
+  q.counters = static_cast<int*>(a.p[P_COUNTERS]);
+  auto mat = [&](Mat& t, const float* x, const float* s, const double* off, int n_off,
+                 const int8_t* w, int K, int half, const float* amax, int n_amax, int qblock) {
+    t.x = x;
+    t.scale = s;
+    t.off = off;
+    t.n_off = n_off;
+    t.w = w;
+    t.K = K;
+    t.half = q4 ? half : 0;
+    if (a8) {
+      t.amax = amax;
+      t.n_amax = n_amax;
+      t.qblock = qblock;
+    }
+  };
+  if (kind == 0) {  // A: k, v, r of the folded ln1 mixes, then the WKV step
+    q.nmat = 3;
+    mat(q.m[0], nullptr, f(P_ATT_K_S) + lE, offs_sm, 1, i8(P_ATT_K_W) + l * EE, E, a.halves[0],
+        amax_sm, 1, E);
+    mat(q.m[1], nullptr, f(P_ATT_V_S) + lE, offs_sm + B, 1, i8(P_ATT_V_W) + l * EE, E,
+        a.halves[1], amax_sm + B, 1, E);
+    mat(q.m[2], nullptr, f(P_ATT_R_S) + lE, offs_sm + 2 * B, 1, i8(P_ATT_R_W) + l * EE, E,
+        a.halves[2], amax_sm + 2 * B, 1, E);
+    q.O = E;
+    q.epi = EPI_WKV;
+    q.out = f(P_RWKV);
+    q.aa_in = f(P_AA_IN) + lBE;
+    q.bb_in = f(P_BB_IN) + lBE;
+    q.pp_in = f(P_PP_IN) + lBE;
+    q.aa_out = f(P_AA_OUT) + lBE;
+    q.bb_out = f(P_BB_OUT) + lBE;
+    q.pp_out = f(P_PP_OUT) + lBE;
+    q.decay = f(P_DECAY) + lE;
+    q.bonus = f(P_BONUS) + lE;
+    q.next_offset = f(P_ATT_O_O) + lE;
+    q.next_off = off_out;
+    if (a8) {
+      q.next_scale = f(P_ATT_O_S) + lE;
+      q.next_amax = amax_out;
+    }
+  } else if (kind == 1) {  // B: the out-projection, added to x
+    q.nmat = 1;
+    mat(q.m[0], f(P_RWKV), f(P_ATT_O_S) + lE, off_out, tiles_e, i8(P_ATT_O_W) + l * EE, E,
+        a.halves[3], amax_out, tiles_e, a8 ? a.a8_block : 0);
+    q.O = E;
+    q.epi = EPI_ADD;
+    q.out = f(P_X);
+  } else if (kind == 2) {  // C: key of the folded ln2 mix, relu^2
+    q.nmat = 1;
+    mat(q.m[0], nullptr, f(P_FFN_K_S) + lE, offs_sm, 1, i8(P_FFN_K_W) + l * EF, E, a.halves[4],
+        amax_sm, 1, E);
+    q.O = F;
+    q.epi = EPI_RELU2;
+    q.out = f(P_KK);
+    q.next_offset = f(P_FFN_V_O) + lF;
+    q.next_off = off_val;
+    if (a8) {
+      q.next_scale = f(P_FFN_V_S) + lF;
+      q.next_amax = amax_val;
+    }
+  } else {  // D: value * sigmoid(receptance), added to x
+    q.nmat = 2;
+    mat(q.m[0], f(P_KK), f(P_FFN_V_S) + lF, off_val, tiles_f, i8(P_FFN_V_W) + l * EF, F,
+        a.halves[5], amax_val, tiles_f, a8 ? a.a8_block : 0);
+    mat(q.m[1], f(P_FR), f(P_FFN_R_S) + lE, static_cast<double*>(a.p[P_OFFS]), 1,
+        i8(P_FFN_R_W) + l * EE, E, a.halves[6], f(P_AMAX), 1, E);
+    q.O = E;
+    q.epi = EPI_GATED_ADD;
+    q.out = f(P_X);
+  }
+}
+
+// The split of phase q; in a8, raised where needed until a8_exact_long
+// holds (the plain version's bits), within kMaxSplit and the partial scratch.
+template <int FMT>
+__device__ __forceinline__ int phase_split(const StackArgs& a, const QmvArgs& q) {
+  int kmax = 0;
+  for (int m = 0; m < q.nmat; ++m) kmax = max(kmax, mat_rows<FMT>(q.m[m]));
+  int S = stack_split((q.O + kTileO - 1) / kTileO, kmax, q.nmat, a.B, q.O, a.partial_cap,
+                      a.counter_cap, gridDim.x);
+  if constexpr (FMT == kA8) {
+    while (!qmv_short<FMT>(q, S) && !a8_exact_long<FMT>(q, S) && S < kMaxSplit &&
+           (long long)(S + 1) * q.nmat * a.B * q.O <= a.partial_cap)
+      ++S;
+  }
+  return S;
+}
+
+// The source of phases A and C: matrices [0, nfold) read token-shift mixes
+// of the LayerNormed rows xx, which prologue() computes for every batch
+// group from x (A of layer 0: from the embedding rows, after ln0), with the
+// whole-row rank-1 terms (offs) and a8 maxima (amax) of all nmix mixes, in
+// shared memory. A block's first item also writes its share [lo, hi) of the
+// rows' [B, E] outputs (x after ln0, prev_out, and in C the receptance mix
+// fr_out) and, on block 0, the receptance mix's offset term and maximum.
+template <int BT, bool EXACT>
+struct FoldSrc {
+  using acc_t = std::conditional_t<EXACT, double, float>;
+  int E, B, nfold, nmix, lo, hi;
+  const int* tokens;  // layer 0: gather + ln0 first
+  const float* emb;
+  const float* ln0_w;
+  const float* ln0_b;
+  float* resid;       // [B, E] x, the residual stream
+  const float* ln_w;
+  const float* ln_b;
+  const float* prev;  // [B, E] xy or dd before the step
+  float* prev_out;
+  const float* mix[3];
+  const float* offset[3];
+  const float* qscale[3];
+  float* fr_out;      // C: [B, E] the receptance mix, or null
+  double* fr_off;     // C, block 0: [B] its rank-1 term, or null
+  float* fr_amax;     // C, block 0, a8: [B] its maximum
+  int n_emb;
+  float* xx;          // shared: [BT, E]
+  double* offs;       // shared: [3, B]
+  float* amax;        // shared: [3, B]
+  acc_t* ascratch;    // shared: 3 * BT * 33
+  float* fscratch;    // shared: 3 * BT * 33
+
+  __device__ __forceinline__ bool local(int m) const { return m < nfold; }
+
+  __device__ __forceinline__ float x(const Mat& mt, int m, int b, int bi, int k) const {
+    if (m < nfold) return token_mix<EXACT>(mix[m][k], xx[bi * E + k], prev[(size_t)b * E + k]);
+    return __ldcg(mt.x + (size_t)b * mt.K + k);
+  }
+
+  __device__ __forceinline__ void prologue(int b0, int nb) const {
+    const int tid = threadIdx.x, E4 = E / 4;  // E % 16 == 0: rows of float4
+    // the source rows, float4 at a time, kRowLoads loads in flight a thread
+    constexpr int kRowLoads = 4;
+    for (int base = tid; base < nb * E4; base += kRowLoads * kThreads) {
+      float4 t[kRowLoads];
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int i = base + u * kThreads, bi = i / E4, k4 = i - bi * E4;
+        t[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < nb * E4) {
+          if (tokens) {
+            int tk = tokens[b0 + bi];
+            tk = tk < 0 ? 0 : (tk >= n_emb ? n_emb - 1 : tk);  // clamp like a gather
+            t[u] = reinterpret_cast<const float4*>(emb + (size_t)tk * E)[k4];
+          } else {
+            t[u] = __ldcg(reinterpret_cast<const float4*>(resid + (size_t)(b0 + bi) * E) + k4);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int i = base + u * kThreads;
+        if (i < nb * E4) reinterpret_cast<float4*>(xx)[i] = t[u];
+      }
+    }
+    __syncthreads();
+    const int w = hi - lo;
+    if (tokens) {
+      rows_layer_norm<EXACT, BT>(xx, nb, E, E, ln0_w, ln0_b, ascratch);
+      for (int i = tid; i < nb * w; i += kThreads) {
+        const int bi = i / w, k = lo + i - bi * w;
+        resid[(size_t)(b0 + bi) * E + k] = xx[bi * E + k];
+      }
+    }
+    rows_layer_norm<EXACT, BT>(xx, nb, E, E, ln_w, ln_b, ascratch);
+    for (int i = tid; i < nb * w; i += kThreads) {
+      const int bi = i / w, k = lo + i - bi * w;
+      const size_t g = (size_t)(b0 + bi) * E + k;
+      prev_out[g] = xx[bi * E + k];
+      if (fr_out) fr_out[g] = token_mix<EXACT>(mix[1][k], xx[bi * E + k], prev[g]);
+    }
+
+    acc_t sums[3 * BT];  // EXACT: exact products, summed in double
+    float maxes[3 * BT];
+#pragma unroll
+    for (int j = 0; j < 3 * BT; ++j) {
+      sums[j] = 0;
+      maxes[j] = 0.f;
+    }
+    for (int i4 = tid; i4 < E4; i4 += kThreads) {
+      // four elements a thread, every load first (predicated, no early
+      // exit), so they share one memory round trip
+      float4 xv[BT], pv[BT], mj[3], oj[3], qj[3];
+#pragma unroll
+      for (int bi = 0; bi < BT; ++bi) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        xv[bi] = bi < nb ? reinterpret_cast<const float4*>(xx + bi * E)[i4] : z;
+        pv[bi] = bi < nb ? reinterpret_cast<const float4*>(prev + (size_t)(b0 + bi) * E)[i4] : z;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        mj[j] = j < nmix ? reinterpret_cast<const float4*>(mix[j])[i4] : z;
+        oj[j] = j < nmix ? reinterpret_cast<const float4*>(offset[j])[i4] : z;
+        qj[j] = EXACT && j < nmix ? reinterpret_cast<const float4*>(qscale[j])[i4] : z;
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int bi = 0; bi < BT; ++bi) {
+          if (j >= nmix || bi >= nb) continue;
+          const float xs[4] = {xv[bi].x, xv[bi].y, xv[bi].z, xv[bi].w};
+          const float ps[4] = {pv[bi].x, pv[bi].y, pv[bi].z, pv[bi].w};
+          const float ms[4] = {mj[j].x, mj[j].y, mj[j].z, mj[j].w};
+          const float os[4] = {oj[j].x, oj[j].y, oj[j].z, oj[j].w};
+          const float qs[4] = {qj[j].x, qj[j].y, qj[j].z, qj[j].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float m = token_mix<EXACT>(ms[e], xs[e], ps[e]);
+            sums[j * BT + bi] += (acc_t)m * (acc_t)os[e];
+            if constexpr (EXACT) maxes[j * BT + bi] = fmaxf(maxes[j * BT + bi], fabsf(m * qs[e]));
+          }
+        }
+    }
+    block_sums<3 * BT>(sums, ascratch);
+    if constexpr (EXACT) block_maxes<3 * BT>(maxes, fscratch);
+    if (tid == 0) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int bi = 0; bi < BT; ++bi) {
+          if (j >= nmix || bi >= nb) continue;
+          offs[j * B + b0 + bi] = (double)sums[j * BT + bi];
+          amax[j * B + b0 + bi] = maxes[j * BT + bi];
+          if (j == 1 && fr_off) {
+            fr_off[b0 + bi] = (double)sums[j * BT + bi];
+            if constexpr (EXACT) fr_amax[b0 + bi] = maxes[j * BT + bi];
+          }
+        }
+    }
+    __syncthreads();
+  }
+};
+
+// The fold source of phase A (att) or C (ffn) of layer l, written into src
+// (shared memory, by one thread).
+template <int BT, bool EXACT>
+__device__ void fold_src(FoldSrc<BT, EXACT>& src, const StackArgs& a, int l, bool att) {
+  auto f = [&](int i) { return static_cast<float*>(a.p[i]); };
+  const size_t lE = (size_t)l * a.E, lBE = (size_t)l * a.B * a.E;
+  src.E = a.E;
+  src.B = a.B;
+  src.nfold = att ? 3 : 1;
+  src.nmix = att ? 3 : 2;
+  src.tokens = att && l == 0 ? static_cast<const int*>(a.p[P_TOKENS]) : nullptr;
+  src.emb = f(P_EMB);
+  src.n_emb = a.n_emb;
+  src.ln0_w = f(P_LN0_W);
+  src.ln0_b = f(P_LN0_B);
+  src.resid = f(P_X);
+  src.ln_w = f(att ? P_LN1_W : P_LN2_W) + lE;
+  src.ln_b = f(att ? P_LN1_B : P_LN2_B) + lE;
+  src.prev = f(att ? P_XY_IN : P_DD_IN) + lBE;
+  src.prev_out = f(att ? P_XY_OUT : P_DD_OUT) + lBE;
+  src.mix[0] = f(att ? P_ATT_MIX_K : P_FFN_MIX_K) + lE;
+  src.mix[1] = f(att ? P_ATT_MIX_V : P_FFN_MIX_R) + lE;
+  src.mix[2] = f(att ? P_ATT_MIX_R : P_FFN_MIX_R) + lE;
+  src.offset[0] = f(att ? P_ATT_K_O : P_FFN_K_O) + lE;
+  src.offset[1] = f(att ? P_ATT_V_O : P_FFN_R_O) + lE;
+  src.offset[2] = f(att ? P_ATT_R_O : P_FFN_R_O) + lE;
+  src.qscale[0] = f(att ? P_ATT_K_S : P_FFN_K_S) + lE;
+  src.qscale[1] = f(att ? P_ATT_V_S : P_FFN_R_S) + lE;
+  src.qscale[2] = f(att ? P_ATT_R_S : P_FFN_R_S) + lE;
+  src.fr_out = att ? nullptr : f(P_FR);
+  src.fr_off = att ? nullptr : static_cast<double*>(a.p[P_OFFS]);
+  src.fr_amax = f(P_AMAX);
+}
+
+// L2 prefetch of `floats` floats at p, the 128-byte lines dealt over every
+// thread of the grid (most threads take none).
+__device__ __forceinline__ void prefetch_l2(const float* p, size_t floats) {
+  if (!p) return;
+  const size_t lines = (floats * sizeof(float) + 127) / 128, step = (size_t)gridDim.x * kThreads;
+  for (size_t j = blockIdx.x + (size_t)gridDim.x * threadIdx.x; j < lines; j += step)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + j * 32));
+}
+
+// The small inputs of phase q (and its fold source): scales, norms, mixes,
+// offsets, the state and the epilogue's vectors, into L2 while the grid
+// waits at the barrier before it; else each is a DRAM round trip in the
+// phase's chain, the weights streaming past having evicted it since the
+// last step.
+template <int BT, bool EXACT>
+__device__ __forceinline__ void prefetch_phase(const QmvArgs& q, const FoldSrc<BT, EXACT>& src,
+                                               bool fold, int E) {
+  const size_t BE = (size_t)q.B * E;
+  for (int m = 0; m < q.nmat; ++m) prefetch_l2(q.m[m].scale, q.m[m].K);
+  prefetch_l2(q.aa_in, BE);
+  prefetch_l2(q.bb_in, BE);
+  prefetch_l2(q.pp_in, BE);
+  prefetch_l2(q.decay, E);
+  prefetch_l2(q.bonus, E);
+  prefetch_l2(q.next_offset, q.O);
+  prefetch_l2(q.next_scale, q.O);
+  if (fold) {
+    prefetch_l2(src.ln_w, E);
+    prefetch_l2(src.ln_b, E);
+    prefetch_l2(src.prev, BE);
+    for (int j = 0; j < src.nmix; ++j) {
+      prefetch_l2(src.mix[j], E);
+      prefetch_l2(src.offset[j], E);
+    }
+  }
+}
+
+// Bytes of the matvec tile's shared memory, rounded up to 16.
+template <int BT, int FMT>
+constexpr size_t kStackQmvBytes = (sizeof(QmvSmem<BT, FMT>) + 15) / 16 * 16;
+
+constexpr size_t kWeightSlots = (size_t)kMaxMats * kUnroll * kThreads;  // 16-byte slots an item
+
+// Dynamic shared memory of decode_stack_kernel<BT, FMT>: the matvec tile,
+// the weights of the block's next item (cp.async: all of a short split, the
+// first 128-row group of a long one), BT LayerNormed rows (the head phase's
+// row too), then the folded mixes' [3, B] offset terms and maxima.
+template <int BT, int FMT>
+inline size_t stack_smem(int E, int B) {
+  return kStackQmvBytes<BT, FMT> + kWeightSlots * sizeof(int4) + (size_t)BT * E * sizeof(float) +
+         3 * (size_t)B * (sizeof(double) + sizeof(float));
+}
+
+// One block a SM: the whole matvec path is inlined (qmv.cuh's INL) and holds
+// up to 255 registers without a spill; two blocks a SM (128 registers) spilled
+// to local memory, which with this much shared memory lives in L2.
+template <int BT, int FMT>
+__global__ void __launch_bounds__(kThreads, 1) decode_stack_kernel(const __grid_constant__ StackArgs a) {
+  constexpr bool EXACT = FMT == kA8;
+  using acc_t = std::conditional_t<EXACT, double, float>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ acc_t ascratch[3 * BT * 33];
+  __shared__ float fscratch[3 * BT * 33];
+  __shared__ QmvArgs q;                 // the current phase's matvec, built by thread 0
+  __shared__ FoldSrc<BT, EXACT> src;    // its fold source (phases A and C)
+  QmvSmem<BT, FMT>& sm = *reinterpret_cast<QmvSmem<BT, FMT>*>(smem);
+  int4* wsm = reinterpret_cast<int4*>(smem + kStackQmvBytes<BT, FMT>);
+  float* xx = reinterpret_cast<float*>(wsm + kWeightSlots);
+  double* offs = reinterpret_cast<double*>(xx + (size_t)BT * a.E);  // E % 16 == 0: aligned
+  float* amax = reinterpret_cast<float*>(offs + 3 * (size_t)a.B);
+
+  const int L = a.L, B = a.B, E = a.E, G = gridDim.x, tid = threadIdx.x;
+  auto f = [&](int i) { return static_cast<float*>(a.p[i]); };
+  GridBarrier bar;
+  bar.init(static_cast<unsigned*>(a.p[P_COUNTERS]) + a.counter_cap, G);
+  unsigned long long* stamps = static_cast<unsigned long long*>(a.p[P_STAMPS]);
+  int n_stamp = 0;
+  auto stamp = [&]() {
+    if (stamps && blockIdx.x == 0 && tid == 0) stamps[n_stamp] = globaltimer();
+    ++n_stamp;
+  };
+  stamp();
+
+  // threads 0 and 32 (two warps, at once) describe phase ph; then every
+  // thread may read q and src
+  auto describe = [&](int ph) {
+    if (tid == 0) phase_args<FMT>(q, a, ph / kPhases, ph % kPhases, offs, amax);
+    if (tid == 32) {
+      if (ph % kPhases == 0 || ph % kPhases == 2) {
+        fold_src<BT, EXACT>(src, a, ph / kPhases, ph % kPhases == 0);
+        src.xx = xx;
+        src.offs = offs;
+        src.amax = amax;
+        src.ascratch = ascratch;
+        src.fscratch = fscratch;
+      }
+    }
+    __syncthreads();
+  };
+  auto split = [&]() { return phase_split<FMT>(a, q); };
+
+  describe(0);
+  bool loaded = false;  // wsm holds this block's first item of the phase
+  for (int ph = 0; ph < kPhases * L; ++ph) {
+    const int kind = ph % kPhases;
+    const int S = split();
+    const int items = (q.O + kTileO - 1) / kTileO * S;
+    if (kind == 0 || kind == 2) {
+      const int writers = items < G ? items : G;
+      const int chunk = (E + writers - 1) / writers;
+      for (int it = blockIdx.x, r = 0; it < items; it += G, ++r) {
+        // the first item writes this block's share of the rows' outputs
+        if (tid == 0) {
+          src.lo = r == 0 ? min(E, (int)blockIdx.x * chunk) : 0;
+          src.hi = r == 0 ? min(E, src.lo + chunk) : 0;
+          if (r) src.fr_out = nullptr;
+          if (r || blockIdx.x) src.fr_off = nullptr;
+        }
+        __syncthreads();
+        qmv_run<BT, FMT, FoldSrc<BT, EXACT>, true>(q, it / S, it % S, S, sm, wsm,
+                                                   loaded && r == 0, src);
+      }
+    } else {
+      for (int it = blockIdx.x, r = 0; it < items; it += G, ++r)
+        qmv_run<BT, FMT, GlobalSrc, true>(q, it / S, it % S, S, sm, wsm, loaded && r == 0,
+                                          GlobalSrc());
+    }
+    loaded = false;
+    bar.arrive();
+    if (ph + 1 < kPhases * L) {  // the next phase's inputs, fetched during the wait
+      describe(ph + 1);
+      prefetch_phase(q, src, (ph + 1) % kPhases == 0 || (ph + 1) % kPhases == 2, E);
+      const int Sn = split();
+      if ((int)blockIdx.x < (q.O + kTileO - 1) / kTileO * Sn) {
+        qmv_load_async<FMT>(q, blockIdx.x / Sn, blockIdx.x % Sn, Sn, wsm);
+        loaded = true;
+      }
+    }
+    bar.wait();
+    stamp();
+  }
+
+  RowArgs rh = {};
+  rh.mode = ROW_HEAD;
+  rh.B = B;
+  rh.E = E;
+  rh.n_emb = a.n_emb;
+  rh.x = f(P_X);
+  rh.ln_w = f(P_LN_OUT_W);
+  rh.ln_b = f(P_LN_OUT_B);
+  rh.head_scale = f(P_HEAD_S);
+  rh.offset[0] = f(P_HEAD_O);
+  rh.off_h = f(P_OFF_H);
+  rh.xs_h = f(P_XS_H);
+  rh.amax[0] = EXACT ? f(P_AMAX) + B : nullptr;
+  bar.finish();
+  for (int b = blockIdx.x; b < B; b += G) row_run<EXACT>(rh, b, xx, fscratch, ascratch);
+  stamp();
+}
+
+// Blocks of one decode_stack_kernel<BT, FMT> launch on the current device
+// (occupancy per SM times the SMs), after allowing its shared memory.
+template <int BT, int FMT>
+cudaError_t stack_grid(int E, int B, int* grid, size_t* smem) {
+  auto kern = decode_stack_kernel<BT, FMT>;
+  *smem = stack_smem<BT, FMT>(E, B);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)*smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, *smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *grid = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <int BT, int FMT>
+cudaError_t launch_stack(const StackArgs& a, cudaStream_t st, int* grid) {
+  size_t smem = 0;
+  cudaError_t e = stack_grid<BT, FMT>(a.E, a.B, grid, &smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(*grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {const_cast<StackArgs*>(&a)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decode_stack_kernel<BT, FMT>), args);
+  const cudaError_t last = cudaGetLastError();  // read either way: nothing left behind
+  return e != cudaSuccess ? e : last;
+}
+
+// Batch rows a group: 1, 2 or 4.
+inline int stack_bt(int B) { return B <= 1 ? 1 : (B <= 2 ? 2 : 4); }
+
+template <int FMT>
+cudaError_t launch_stack_fmt(const StackArgs& a, cudaStream_t st, int* grid) {
+  const int bt = stack_bt(a.B);
+  if (bt == 1) return launch_stack<1, FMT>(a, st, grid);
+  if (bt == 2) return launch_stack<2, FMT>(a, st, grid);
+  return launch_stack<4, FMT>(a, st, grid);
+}
+
+// N grid barriers and nothing else, at a given grid (tools/qmv_probe.py).
+__global__ void __launch_bounds__(kThreads) barrier_probe_kernel(unsigned* word, int n) {
+  GridBarrier bar;
+  bar.init(word, gridDim.x);
+  for (int i = 0; i < n; ++i) bar.sync();
+  bar.finish();
+}
 
 }  // namespace rwkv
 
@@ -99,205 +661,78 @@ extern "C" const char* rwkv_error_string(int err) {
 
 extern "C" int rwkv_decode_stack_pointer_count() { return P_COUNT; }
 
-// Enqueues one decode step on `stream`; returns the first CUDA error (0 if
-// none) and the number of kernels launched in *n_launched. q4: the weight
-// pointers are nibble-packed [L, K / 2, O], and halves[7] gives half the
-// pairing block of att key, value, receptance, output, ffn key, value,
+// Blocks of the step's launch at batch B and width E, in *grid: q4 and a8
+// select the instantiation. Returns the first CUDA error (0 if none).
+extern "C" int rwkv_decode_stack_grid(int B, int E, int q4, int a8, int* grid) {
+  size_t smem = 0;
+  const int fmt = a8 ? kA8 : (q4 ? kQ4 : kQ8);
+  const int bt = stack_bt(B);
+  cudaError_t e = cudaErrorInvalidValue;
+#define RWKV_GRID(BT_, F_) if (bt == BT_ && fmt == F_) e = stack_grid<BT_, F_>(E, B, grid, &smem)
+  RWKV_GRID(1, kQ8); RWKV_GRID(2, kQ8); RWKV_GRID(4, kQ8);
+  RWKV_GRID(1, kQ4); RWKV_GRID(2, kQ4); RWKV_GRID(4, kQ4);
+  RWKV_GRID(1, kA8); RWKV_GRID(2, kA8); RWKV_GRID(4, kA8);
+#undef RWKV_GRID
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// One cooperative launch of `grid` blocks that runs n grid barriers on the
+// kBarrierWords words at `word`; returns the launch's CUDA error.
+extern "C" int rwkv_barrier_probe(int grid, int n, void* word, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  unsigned* w = static_cast<unsigned*>(word);
+  void* args[] = {&w, &n};
+  cudaError_t e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(barrier_probe_kernel),
+                                      args);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Enqueues one decode step on `stream` as one cooperative launch; returns the
+// first CUDA error (0 if none), the number of kernels launched in
+// *n_launched (1, or 0 on an error) and the launch's blocks in *grid. q4: the
+// weight pointers are nibble-packed [L, K / 2, O], and halves[7] gives half
+// the pairing block of att key, value, receptance, output, ffn key, value,
 // receptance, in rows (K / 2 for global pairing). a8_block > 0: W8A8, with
 // att.output's and ffn.value's inputs quantized per block of a8_block
 // channels (a multiple of 128 that divides E and F); q8 weights only.
+// counters holds counter_cap ints, zero before the first call: the split-K
+// counters, then the grid barrier's kBarrierWords.
 extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E, int F,
                                  int n_emb, int q4, const int* halves, int a8_block,
-                                 long long partial_cap, int counter_cap, int target_blocks,
-                                 void* stream, int* n_launched) {
+                                 long long partial_cap, int counter_cap, void* stream,
+                                 int* n_launched, int* grid) {
   *n_launched = 0;
-  if (n_ptrs != P_COUNT) return (int)cudaErrorInvalidValue;
+  *grid = 0;
+  if (n_ptrs != P_COUNT || counter_cap <= kBarrierWords || E % 16 || F % 16)
+    return (int)cudaErrorInvalidValue;
   const bool a8 = a8_block > 0;
   if (a8 && (q4 || a8_block % kTileO || E % a8_block || F % a8_block))
     return (int)cudaErrorInvalidValue;
+  StackArgs a = {};
+  for (int i = 0; i < P_COUNT; ++i) a.p[i] = p[i];
+  a.L = L;
+  a.B = B;
+  a.E = E;
+  a.F = F;
+  a.n_emb = n_emb;
+  a.q4 = q4;
+  a.a8_block = a8_block;
+  for (int i = 0; i < 7; ++i) a.halves[i] = q4 ? halves[i] : 0;
+  a.partial_cap = partial_cap;
+  a.counter_cap = counter_cap - kBarrierWords;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = [&](int i) { return static_cast<float*>(p[i]); };
-  auto i8 = [&](int i) { return static_cast<const int8_t*>(p[i]); };
-  // per-layer weight strides in bytes: q4 packs two codes a byte
-  const size_t EE = (size_t)E * E / (q4 ? 2 : 1), EF = (size_t)E * F / (q4 ? 2 : 1);
-  const size_t BE = (size_t)B * E;
-  static const int kGlobal[7] = {0, 0, 0, 0, 0, 0, 0};
-  const int* hv = q4 ? halves : kGlobal;
-  // a8: the row kernels (row.cuh) repeat the plain version's arithmetic exactly
-  auto rows = [&](const RowArgs& r) {
-    return a8 ? launch_rows<true>(r, st) : launch_rows<false>(r, st);
-  };
-  const int tiles_e = (E + kTileO - 1) / kTileO;
-  auto d = [&](int i) { return static_cast<double*>(p[i]); };
-  double* offs = d(P_OFFS);
-  double* off_out = d(P_OFF_PARTS);                   // [tiles_e, B]
-  double* off_val = off_out + (size_t)tiles_e * B;    // [F / 128, B]
-  float* partial = f(P_PARTIAL);
-  int* counters = static_cast<int*>(p[P_COUNTERS]);
-  float* amax = a8 ? f(P_AMAX) : nullptr;                      // [6, B]
-  float* amax_out = a8 ? f(P_AMAX_PARTS) : nullptr;            // [tiles_e, B]
-  float* amax_val = a8 ? amax_out + (size_t)tiles_e * B : nullptr;  // [F / 128, B]
-
-  auto done = [&](cudaError_t e) -> int {  // after each launch
-    ++*n_launched;
-    return (int)e;
-  };
-  auto mat = [](const float* x, const float* s, const double* off, int n_off, const int8_t* w,
-                int K, int half) {
-    Mat m = {};
-    m.x = x;
-    m.scale = s;
-    m.off = off;
-    m.n_off = n_off;
-    m.w = w;
-    m.K = K;
-    m.half = half;
-    return m;
-  };
-  // a8: where matrix m's input maxima are (n parts over its K) and its block
-  auto quant = [&](Mat& m, float* parts, int n, int qblock) {
-    if (!a8) return;
-    m.amax = parts;
-    m.n_amax = n;
-    m.qblock = qblock;
-  };
-  auto launch = [&](const QmvArgs& q) {
-    if (a8) return launch_qmv<kA8>(q, partial_cap, counter_cap, target_blocks, st);
-    return q4 ? launch_qmv<kQ4>(q, partial_cap, counter_cap, target_blocks, st)
-              : launch_qmv<kQ8>(q, partial_cap, counter_cap, target_blocks, st);
-  };
-  auto qmv = [&](int nmat, int O, int epi, float* out) {
-    QmvArgs q = {};
-    q.nmat = nmat;
-    q.B = B;
-    q.O = O;
-    q.epi = epi;
-    q.out = out;
-    q.partial = partial;
-    q.counters = counters;
-    return q;
-  };
-
-  for (int l = 0; l < L; ++l) {
-    const size_t lE = (size_t)l * E, lF = (size_t)l * F, lBE = (size_t)l * BE;
-    int err;
-
-    RowArgs ra = {};
-    ra.mode = ROW_ATT;
-    ra.B = B;
-    ra.E = E;
-    ra.n_emb = n_emb;
-    ra.x = f(P_X);
-    ra.tokens = l == 0 ? static_cast<const int*>(p[P_TOKENS]) : nullptr;
-    ra.emb = f(P_EMB);
-    ra.ln0_w = f(P_LN0_W);
-    ra.ln0_b = f(P_LN0_B);
-    ra.ln_w = f(P_LN1_W) + lE;
-    ra.ln_b = f(P_LN1_B) + lE;
-    ra.prev = f(P_XY_IN) + lBE;
-    ra.prev_out = f(P_XY_OUT) + lBE;
-    const int mixes[3] = {P_ATT_MIX_K, P_ATT_MIX_V, P_ATT_MIX_R};
-    const int outs[3] = {P_XK, P_XV, P_XR};
-    const int offsets[3] = {P_ATT_K_O, P_ATT_V_O, P_ATT_R_O};
-    const int scales[3] = {P_ATT_K_S, P_ATT_V_S, P_ATT_R_S};
-    for (int j = 0; j < 3; ++j) {
-      ra.mix[j] = f(mixes[j]) + lE;
-      ra.mixed[j] = f(outs[j]);
-      ra.offset[j] = f(offsets[j]) + lE;
-      ra.off[j] = offs + (size_t)j * B;
-      ra.qscale[j] = f(scales[j]) + lE;
-      ra.amax[j] = a8 ? amax + (size_t)j * B : nullptr;
-    }
-    ra.nmix = 3;
-    if ((err = done(rows(ra)))) return err;
-
-    QmvArgs q = qmv(3, E, EPI_WKV, f(P_RWKV));
-    q.m[0] = mat(f(P_XK), f(P_ATT_K_S) + lE, offs, 1, i8(P_ATT_K_W) + l * EE, E, hv[0]);
-    q.m[1] = mat(f(P_XV), f(P_ATT_V_S) + lE, offs + B, 1, i8(P_ATT_V_W) + l * EE, E, hv[1]);
-    q.m[2] = mat(f(P_XR), f(P_ATT_R_S) + lE, offs + 2 * B, 1, i8(P_ATT_R_W) + l * EE, E,
-                 hv[2]);
-    q.aa_in = f(P_AA_IN) + lBE;
-    q.bb_in = f(P_BB_IN) + lBE;
-    q.pp_in = f(P_PP_IN) + lBE;
-    q.aa_out = f(P_AA_OUT) + lBE;
-    q.bb_out = f(P_BB_OUT) + lBE;
-    q.pp_out = f(P_PP_OUT) + lBE;
-    q.decay = f(P_DECAY) + lE;
-    q.bonus = f(P_BONUS) + lE;
-    q.next_offset = f(P_ATT_O_O) + lE;
-    q.next_off = off_out;
-    for (int j = 0; j < 3; ++j) quant(q.m[j], amax + (a8 ? (size_t)j * B : 0), 1, E);
-    if (a8) {
-      q.next_scale = f(P_ATT_O_S) + lE;
-      q.next_amax = amax_out;
-    }
-    if ((err = done(launch(q)))) return err;
-
-    QmvArgs o = qmv(1, E, EPI_ADD, f(P_X));
-    o.m[0] = mat(f(P_RWKV), f(P_ATT_O_S) + lE, off_out, tiles_e, i8(P_ATT_O_W) + l * EE, E,
-                 hv[3]);
-    quant(o.m[0], amax_out, tiles_e, a8_block);
-    if ((err = done(launch(o)))) return err;
-
-    RowArgs rf = {};
-    rf.mode = ROW_FFN;
-    rf.B = B;
-    rf.E = E;
-    rf.n_emb = n_emb;
-    rf.x = f(P_X);
-    rf.ln_w = f(P_LN2_W) + lE;
-    rf.ln_b = f(P_LN2_B) + lE;
-    rf.prev = f(P_DD_IN) + lBE;
-    rf.prev_out = f(P_DD_OUT) + lBE;
-    rf.mix[0] = f(P_FFN_MIX_K) + lE;
-    rf.mix[1] = f(P_FFN_MIX_R) + lE;
-    rf.mixed[0] = f(P_FK);
-    rf.mixed[1] = f(P_FR);
-    rf.offset[0] = f(P_FFN_K_O) + lE;
-    rf.offset[1] = f(P_FFN_R_O) + lE;
-    rf.off[0] = offs + 3 * B;
-    rf.off[1] = offs + 4 * B;
-    rf.qscale[0] = f(P_FFN_K_S) + lE;
-    rf.qscale[1] = f(P_FFN_R_S) + lE;
-    rf.amax[0] = a8 ? amax + 3 * B : nullptr;
-    rf.amax[1] = a8 ? amax + 4 * B : nullptr;
-    rf.nmix = 2;
-    if ((err = done(rows(rf)))) return err;
-
-    QmvArgs k = qmv(1, F, EPI_RELU2, f(P_KK));
-    k.m[0] = mat(f(P_FK), f(P_FFN_K_S) + lE, offs + 3 * B, 1, i8(P_FFN_K_W) + l * EF, E,
-                 hv[4]);
-    k.next_offset = f(P_FFN_V_O) + lF;
-    k.next_off = off_val;
-    quant(k.m[0], amax + (a8 ? 3 * B : 0), 1, E);
-    if (a8) {
-      k.next_scale = f(P_FFN_V_S) + lF;
-      k.next_amax = amax_val;
-    }
-    if ((err = done(launch(k)))) return err;
-
-    QmvArgs v = qmv(2, E, EPI_GATED_ADD, f(P_X));
-    v.m[0] = mat(f(P_KK), f(P_FFN_V_S) + lF, off_val, (F + kTileO - 1) / kTileO,
-                 i8(P_FFN_V_W) + l * EF, F, hv[5]);
-    v.m[1] = mat(f(P_FR), f(P_FFN_R_S) + lE, offs + 4 * B, 1, i8(P_FFN_R_W) + l * EE, E,
-                 hv[6]);
-    quant(v.m[0], amax_val, (F + kTileO - 1) / kTileO, a8_block);
-    quant(v.m[1], amax + (a8 ? 4 * B : 0), 1, E);
-    if ((err = done(launch(v)))) return err;
-  }
-
-  RowArgs rh = {};
-  rh.mode = ROW_HEAD;
-  rh.B = B;
-  rh.E = E;
-  rh.n_emb = n_emb;
-  rh.x = f(P_X);
-  rh.ln_w = f(P_LN_OUT_W);
-  rh.ln_b = f(P_LN_OUT_B);
-  rh.head_scale = f(P_HEAD_S);
-  rh.offset[0] = f(P_HEAD_O);
-  rh.off_h = f(P_OFF_H);
-  rh.xs_h = f(P_XS_H);
-  rh.amax[0] = a8 ? amax + 5 * B : nullptr;
-  return done(rows(rh));
+  const cudaError_t e = a8 ? launch_stack_fmt<kA8>(a, st, grid)
+                           : (q4 ? launch_stack_fmt<kQ4>(a, st, grid)
+                                 : launch_stack_fmt<kQ8>(a, st, grid));
+  if (e == cudaSuccess) *n_launched = 1;
+  return (int)e;
 }

@@ -53,7 +53,7 @@
 // keeping partial sums for up to 4 batch rows in registers (more rows loop).
 //
 // A tile of 128 columns leaves too few blocks for the card when O is E (8
-// tiles at E = 1024), so the contraction is also split across gridDim.y
+// tiles at E = 1024), so the contraction is also split across S
 // blocks, at most 128 rows each where that fits: then every thread issues
 // all of its weight loads, for every matrix, before it stages the
 // activations, so one memory round trip covers the whole block. Each block
@@ -61,12 +61,45 @@
 // arrive (an atomic counter, used only to elect it) sums the S partials, all
 // loads in flight, in the fixed order s = 0..S-1, so the result does not
 // depend on which block finished first.
+//
+// qmv_run is a device function: the caller gives it the tile, the split, S
+// and the shared memory, and may load the block's weights ahead of the call
+// (qmv_load_async): qmv_kernel passes blockIdx, and the persistent decode
+// stack (decode_stack.cu) runs it once per phase, with the weights of the
+// next phase copied to shared memory while it waits at the grid barrier
+// that separates them. A source policy (GlobalSrc here) says where the
+// activations come from: the persistent stack computes the token-shift mixes
+// of the matvec inputs while staging them (decode_stack.cu's FoldSrc). Data
+// another block wrote earlier in the same launch is read with __ldcg (L2,
+// never a stale L1 line).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rwkv {
+
+// Memory-order primitives at gpu scope: the split-K election below and the
+// grid barrier (grid.cuh).
+__device__ __forceinline__ unsigned atom_add_acq_rel_gpu(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void red_release_gpu(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -137,11 +170,11 @@ struct QmvArgs {
   const float* decay;           // EPI_WKV: [O]
   const float* bonus;
   const float* next_offset;     // [O] or null: offset vector of the matrix that reads `out`
-  double* next_off;             // [gridDim.x, B]: per-tile sum_c out[b, c] * next_offset[c]
+  double* next_off;             // [tiles, B]: per-tile sum_c out[b, c] * next_offset[c]
   const float* next_scale;      // [O] or null: scale vector of the a8 matrix that reads `out`
-  float* next_amax;             // [gridDim.x, B]: per-tile max_c |out[b, c] * next_scale[c]|
-  float* partial;               // [S, nmat, B, O] when gridDim.y > 1
-  int* counters;                // [gridDim.x], zero between launches
+  float* next_amax;             // [tiles, B]: per-tile max_c |out[b, c] * next_scale[c]|
+  float* partial;               // [S, nmat, B, O] when S > 1
+  int* counters;                // [tiles], zero between launches (and phases)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -247,6 +280,18 @@ __device__ __forceinline__ void widen16_q4(const int4& v, float (&lo)[16], float
   }
 }
 
+// Where a matvec's inputs come from: device memory, written by an earlier
+// launch or phase (read through L2). prologue(b0, nb) runs before the rows
+// [b0, b0 + nb) are staged; local(m): matrix m's rank-1 term and a8 maxima
+// are in shared memory.
+struct GlobalSrc {
+  __device__ __forceinline__ void prologue(int, int) const {}
+  __device__ __forceinline__ bool local(int) const { return false; }
+  __device__ __forceinline__ float x(const Mat& mt, int, int b, int, int k) const {
+    return __ldcg(mt.x + (size_t)b * mt.K + k);
+  }
+};
+
 // Staged activations a thread block holds: kMaxMats matrices of one 128-row
 // group (twice that in Q4: each packed row stages two rows), or one chunk.
 // (A8 stages one byte per row in the same space.)
@@ -272,12 +317,13 @@ struct QmvSmem {
   int last;
 };
 
-// A8: the activation scale of the block holding input row k of batch row b.
-__device__ __forceinline__ float a8_scale(const Mat& m, int B, int b, int k) {
+// A8: the activation scale of the block holding input row k of batch row b
+// (local: the maxima are in shared memory).
+__device__ __forceinline__ float a8_scale(const Mat& m, int B, int b, int k, bool local) {
   const int parts = m.n_amax * m.qblock / m.K;  // partial maxima per block
   const float* p = m.amax + (size_t)(k / m.qblock) * parts * B + b;
   float mx = 0.f;
-  for (int i = 0; i < parts; ++i) mx = fmaxf(mx, p[(size_t)i * B]);
+  for (int i = 0; i < parts; ++i) mx = fmaxf(mx, local ? p[(size_t)i * B] : __ldcg(p + (size_t)i * B));
   return fmaxf(mx / 127.f, 1e-30f);
 }
 
@@ -376,8 +422,9 @@ __device__ __forceinline__ void accumulate(float (&acc)[BT][kColsPerThread], con
 // (lane = slice * 8 + column thread), then the 8 warps through shared
 // memory. Writes dst[bi * stride + c] for the tile's columns c < O - col0.
 template <int BT, int FMT>
-__device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int col0,
-                            QmvSmem<BT, FMT>& sm, float* dst, int stride) {
+__device__ __forceinline__ void reduce_tile_body(float (&acc)[BT][kColsPerThread], int nb, int O,
+                                                 int col0, QmvSmem<BT, FMT>& sm, float* dst,
+                                                 int stride) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, ct = tid % kColThreads;
 #pragma unroll
   for (int bi = 0; bi < BT; ++bi)
@@ -406,6 +453,25 @@ __device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int
   __syncthreads();
 }
 
+// The functions below come twice: as calls (qmv_kernel and
+// qmv_shards_kernel, one launch a matvec, as before the persistent stack),
+// and inlined whole (INL) into the persistent decode stack, where a call's
+// register saves go to local memory and each reload is a cache round trip
+// on a chain of latencies.
+template <int BT, int FMT>
+__device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int col0,
+                            QmvSmem<BT, FMT>& sm, float* dst, int stride) {
+  reduce_tile_body<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
+}
+
+template <bool INL, int BT, int FMT>
+__device__ __forceinline__ void reduce_tile_sel(float (&acc)[BT][kColsPerThread], int nb, int O,
+                                                int col0, QmvSmem<BT, FMT>& sm, float* dst,
+                                                int stride) {
+  if constexpr (INL) reduce_tile_body<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
+  else reduce_tile<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
+}
+
 // Weight rows [k0, k1) of split s of S. In A8 with blocks smaller than K,
 // every 128-row group of a split lies inside one activation block.
 template <int FMT>
@@ -425,19 +491,16 @@ __device__ __forceinline__ void mat_split(const Mat& m, int s, int S, int& k0, i
   k1 = min(K, k0 + rows);
 }
 
-// Rows [b0, b0 + nb) of every matrix over this block's share of the
-// contraction, where that share is at most kGroupRows weight rows: all
-// weight loads first, then the activations, one barrier, the FMAs. Matrix
-// m's sums go to dst[m * mstride + bi * stride + c].
-template <int BT, int FMT>
-__device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s, int S,
-                              QmvSmem<BT, FMT>& sm, float* dst, size_t mstride, int stride) {
-  constexpr int R = FMT == kQ4 ? 2 : 1;   // staged rows per weight row
-  constexpr int G = R * kGroupRows;       // staged values per matrix and batch row
+// The block's weights on the short path (a share of at most kGroupRows
+// weight rows of every matrix): every load issued at once, 16 bytes a
+// thread and row. Weights are read-only, so a caller may issue them before
+// the barrier that makes the activations ready.
+template <int FMT>
+__device__ __forceinline__ void qmv_load(const QmvArgs& a, int tile, int s, int S,
+                                         int4 (&wv)[kMaxMats][kUnroll]) {
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
-  const int col = col0 + ct * kColsPerThread;
+  const int col = tile * kTileO + ct * kColsPerThread;
   const bool col_ok = col < a.O;  // O % 16 == 0: a column group is all in or all out
-  int4 wv[kMaxMats][kUnroll];
 #pragma unroll
   for (int m = 0; m < kMaxMats; ++m) {
 #pragma unroll
@@ -453,47 +516,118 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
       }
     }
   }
+}
+
+// As qmv_load, into shared memory with cp.async (no registers held): wsm
+// holds kMaxMats * kUnroll * kThreads 16-byte slots, each thread's its own.
+// A row outside the split, or a column outside O, is zero-filled. On the
+// long path this is the first 128-row group of each matrix's split.
+template <int FMT>
+__device__ __forceinline__ void qmv_load_async(const QmvArgs& a, int tile, int s, int S,
+                                               int4* wsm) {
+  const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
+  const int col = tile * kTileO + ct * kColsPerThread;
+  const bool col_ok = col < a.O;
+  for (int m = 0; m < a.nmat; ++m) {
+    int k0, k1;
+    mat_split<FMT>(a.m[m], s, S, k0, k1);
+    const int8_t* wb = a.m[m].w + (size_t)k0 * a.O + (col_ok ? col : 0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = ks + u * kKSlices;
+      const bool ok = col_ok && k0 + r < k1;
+      const unsigned dst =
+          static_cast<unsigned>(__cvta_generic_to_shared(wsm + (m * kUnroll + u) * kThreads + tid));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                   "l"(ok ? wb + (size_t)r * a.O : a.m[m].w), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Rows [b0, b0 + nb) of every matrix over this block's share of the
+// contraction, where that share is at most kGroupRows weight rows: all
+// weight loads first (qmv_load), or, with wsm, the weights already copied to
+// this thread's slots of wsm (qmv_load_async); then the activations, one
+// barrier, the FMAs. Matrix m's sums go to dst[m * mstride + bi * stride + c].
+template <bool INL, int BT, int FMT, class Src>
+__device__ __forceinline__ void partial_short_body(const QmvArgs& a, const int4* wsm, int tile,
+                                                   int b0, int nb, int s, int S,
+                                                   QmvSmem<BT, FMT>& sm, float* dst,
+                                                   size_t mstride, int stride, const Src& src) {
+  constexpr int R = FMT == kQ4 ? 2 : 1;   // staged rows per weight row
+  constexpr int G = R * kGroupRows;       // staged values per matrix and batch row
+  const int tid = threadIdx.x, ks = tid / kColThreads;
+  const int col0 = tile * kTileO;
+  int4 wv[kMaxMats][kUnroll];
+  if (!wsm) qmv_load<FMT>(a, tile, s, S, wv);
   if constexpr (FMT == kA8) {
     // the split lies inside one activation block: one scale per (m, bi)
     if (tid < a.nmat * BT) {
       const int m = tid / BT, bi = tid - m * BT;
       int k0, k1;
       mat_split<FMT>(a.m[m], s, S, k0, k1);
-      sm.qs[tid] = bi < nb && k0 < k1 ? a8_scale(a.m[m], a.B, b0 + bi, k0) : 1.f;
+      sm.qs[tid] = bi < nb && k0 < k1 ? a8_scale(a.m[m], a.B, b0 + bi, k0, src.local(m)) : 1.f;
     }
     __syncthreads();
   }
-  for (int m = 0; m < a.nmat; ++m) {
-    const Mat& mt = a.m[m];
-    int k0, k1;
-    mat_split<FMT>(mt, s, S, k0, k1);
-    const int rows = k1 - k0;
-    for (int i = tid; i < BT * G; i += kThreads) {
+  // Every matrix's activations: all loads first, into registers, then the
+  // stores to shared memory, so the loads share one memory round trip.
+  constexpr int kIt = (BT * G + kThreads - 1) / kThreads;
+  float v[kMaxMats][kIt];
+  int kk[kMaxMats][kIt];
+#pragma unroll
+  for (int m = 0; m < kMaxMats; ++m) {
+    int k0 = 0, k1 = 0;
+    if (m < a.nmat) mat_split<FMT>(a.m[m], s, S, k0, k1);
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int i = tid + it * kThreads;
       const int bi = i / G, rr = i - bi * G;
       const int hi = rr / kGroupRows, r = rr - hi * kGroupRows;
-      float v = 0.f;
-      int k = 0;
-      if (bi < nb && r < rows) {
-        k = src_row<FMT>(mt, k0 + r, hi);
-        v = mt.x[(size_t)(b0 + bi) * mt.K + k];
-        if (mt.scale) v *= mt.scale[k];
-      }
-      if constexpr (FMT == kA8) {
-        int q = 0;
-        if (bi < nb && r < rows) {
-          q = a8_code(v, sm.qs[m * BT + bi]);
-          if (mt.codes && blockIdx.x == 0) mt.codes[(size_t)(b0 + bi) * mt.K + k] = (int8_t)q;
-        }
-        reinterpret_cast<int8_t*>(sm.xs)[(m * BT + bi) * G + a8_slot(r)] = (int8_t)q;
-      } else {
-        sm.xs[(m * BT + bi) * G + rr] = v;
+      v[m][it] = 0.f;
+      kk[m][it] = -1;
+      if (m < a.nmat && i < BT * G && bi < nb && r < k1 - k0) {
+        const Mat& mt = a.m[m];
+        const int k = src_row<FMT>(mt, k0 + r, hi);
+        float x = src.x(mt, m, b0 + bi, bi, k);
+        if (mt.scale) x *= mt.scale[k];
+        v[m][it] = x;
+        kk[m][it] = k;
       }
     }
   }
+#pragma unroll
+  for (int m = 0; m < kMaxMats; ++m) {
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int i = tid + it * kThreads;
+      if (m >= a.nmat || i >= BT * G) continue;
+      const int bi = i / G, rr = i - bi * G, r = rr % kGroupRows;
+      if constexpr (FMT == kA8) {
+        int q = 0;
+        if (kk[m][it] >= 0) {
+          q = a8_code(v[m][it], sm.qs[m * BT + bi]);
+          const Mat& mt = a.m[m];
+          if (mt.codes && tile == 0) mt.codes[(size_t)(b0 + bi) * mt.K + kk[m][it]] = (int8_t)q;
+        }
+        reinterpret_cast<int8_t*>(sm.xs)[(m * BT + bi) * G + a8_slot(r)] = (int8_t)q;
+      } else {
+        sm.xs[(m * BT + bi) * G + rr] = v[m][it];
+      }
+    }
+  }
+  // wsm: this thread's own slots, so the wait needs no barrier of its own
+  if (wsm) asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < kMaxMats; ++m) {
     if (m >= a.nmat) break;
+    if (wsm) {  // one matrix's weights in registers at a time
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) wv[m][u] = wsm[(m * kUnroll + u) * kThreads + tid];
+    }
     float acc[BT][kColsPerThread];
 #pragma unroll
     for (int bi = 0; bi < BT; ++bi)
@@ -517,21 +651,30 @@ __device__ void partial_short(const QmvArgs& a, int col0, int b0, int nb, int s,
       for (int u = 0; u < kUnroll; ++u)
         accumulate<BT, FMT>(acc, wv[m][u], &sm.xs[m * BT * G + ks + u * kKSlices], G, kGroupRows);
     }
-    reduce_tile<BT, FMT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
+    reduce_tile_sel<INL, BT, FMT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
   }
+}
+
+template <int BT, int FMT, class Src>
+__device__ void partial_short(const QmvArgs& a, const int4* wsm, int tile, int b0, int nb,
+                              int s, int S, QmvSmem<BT, FMT>& sm, float* dst, size_t mstride,
+                              int stride, const Src& src) {
+  partial_short_body<false, BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride, src);
 }
 
 // One matrix over weight rows [k0, k1) of any length: activations staged in
 // chunks of kChunkK floats per batch row (CR weight rows), and the loads of
 // the next 128-row group issued before the FMAs of the current one.
-template <int BT, int FMT>
-__device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int nb, int k0,
-                             int k1, QmvSmem<BT, FMT>& sm, float* dst, int stride) {
+template <bool INL, int BT, int FMT, class Src>
+__device__ __forceinline__ void partial_long_body(const Mat& mt, int m, int B, int O, int tile,
+                                                  int b0, int nb, int k0, int k1,
+                                                  QmvSmem<BT, FMT>& sm, float* dst, int stride,
+                                                  const Src& src, const int4* wsm, bool raw) {
   constexpr int R = FMT == kQ4 ? 2 : 1;
   constexpr int CR = kChunkK / R;
   constexpr int NG = kChunkK / kGroupRows;  // A8: groups per chunk
   const int tid = threadIdx.x, ct = tid % kColThreads, ks = tid / kColThreads;
-  const int col = col0 + ct * kColsPerThread;
+  const int col0 = tile * kTileO, col = col0 + ct * kColsPerThread;
   const bool col_ok = col < O;
   float acc[BT][kColsPerThread];
 #pragma unroll
@@ -543,11 +686,17 @@ __device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int 
     const int kn = min(CR, k1 - kc);
     const int8_t* wb = mt.w + (size_t)kc * O + col;
     int4 wv[kUnroll];
+    if (wsm && kc == k0) {  // the first group, copied ahead (qmv_load_async)
+      asm volatile("cp.async.wait_all;" ::: "memory");
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = ks + u * kKSlices;
-      wv[u] = col_ok && r < kn ? __ldcs(reinterpret_cast<const int4*>(wb + (size_t)r * O))
-                               : make_int4(0, 0, 0, 0);
+      for (int u = 0; u < kUnroll; ++u) wv[u] = wsm[(m * kUnroll + u) * kThreads + tid];
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = ks + u * kKSlices;
+        wv[u] = col_ok && r < kn ? __ldcs(reinterpret_cast<const int4*>(wb + (size_t)r * O))
+                                 : make_int4(0, 0, 0, 0);
+      }
     }
     __syncthreads();  // the previous chunk's readers are done
     if constexpr (FMT == kA8) {
@@ -555,17 +704,17 @@ __device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int 
       if (tid < BT * NG) {
         const int bi = tid / NG, g = tid - bi * NG;
         sm.qs[tid] = bi < nb && g * kGroupRows < kn
-                         ? a8_scale(mt, B, b0 + bi, kc + g * kGroupRows) : 1.f;
+                         ? a8_scale(mt, B, b0 + bi, kc + g * kGroupRows, src.local(m)) : 1.f;
       }
       __syncthreads();
       for (int i = tid; i < BT * kn; i += kThreads) {
         const int bi = i / kn, k = i - bi * kn;
         int q = 0;
         if (bi < nb) {
-          float v = mt.x[(size_t)(b0 + bi) * mt.K + kc + k];
+          float v = src.x(mt, m, b0 + bi, bi, kc + k);
           if (mt.scale) v *= mt.scale[kc + k];
           q = a8_code(v, sm.qs[bi * NG + k / kGroupRows]);
-          if (mt.codes && blockIdx.x == 0) mt.codes[(size_t)(b0 + bi) * mt.K + kc + k] = (int8_t)q;
+          if (mt.codes && tile == 0) mt.codes[(size_t)(b0 + bi) * mt.K + kc + k] = (int8_t)q;
         }
         reinterpret_cast<int8_t*>(sm.xs)[bi * kChunkK + (k & ~(kGroupRows - 1)) + a8_slot(k)] =
             (int8_t)q;
@@ -577,7 +726,7 @@ __device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int 
         float v = 0.f;
         if (bi < nb) {
           const int row = src_row<FMT>(mt, kc + k, hi);
-          v = mt.x[(size_t)(b0 + bi) * mt.K + row];
+          v = src.x(mt, m, b0 + bi, bi, row);
           if (mt.scale) v *= mt.scale[row];
         }
         sm.xs[bi * kChunkK + hi * CR + k] = v;
@@ -593,9 +742,11 @@ __device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int 
                                  : make_int4(0, 0, 0, 0);
       }
       if constexpr (FMT == kA8) {
-        // rows past kn have zero weights, whatever codes their bytes hold
+        // rows past kn have zero weights, whatever codes their bytes hold;
+        // raw: the exact integer sums, each 4-row sum times 1 (a8_exact_long)
+        const float one = 1.f;
         accumulate_a8_scaled<BT>(acc, wv, reinterpret_cast<const int*>(sm.xs) + (g >> 2) + ks,
-                                 kChunkK / 4, &sm.qs[g / kGroupRows], NG);
+                                 kChunkK / 4, raw ? &one : &sm.qs[g / kGroupRows], raw ? 0 : NG);
       } else {
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -607,7 +758,15 @@ __device__ void partial_long(const Mat& mt, int B, int O, int col0, int b0, int 
       for (int u = 0; u < kUnroll; ++u) wv[u] = nx[u];
     }
   }
-  reduce_tile<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
+  reduce_tile_sel<INL, BT, FMT>(acc, nb, O, col0, sm, dst, stride);
+}
+
+template <int BT, int FMT, class Src>
+__device__ void partial_long(const Mat& mt, int m, int B, int O, int tile, int b0, int nb,
+                             int k0, int k1, QmvSmem<BT, FMT>& sm, float* dst, int stride,
+                             const Src& src) {
+  partial_long_body<false, BT, FMT>(mt, m, B, O, tile, b0, nb, k0, k1, sm, dst, stride, src,
+                                    nullptr, false);
 }
 
 // A8, short path: r = sum_j float(int_j) * s_j over the blocks in order, the
@@ -618,30 +777,70 @@ __device__ __forceinline__ void a8_block_term(float& r, bool& first, int isum, f
   first = false;
 }
 
-// One block of a matvec launch: column tile blockIdx.x, split blockIdx.y of
-// gridDim.y (the body of qmv_kernel and qmv_shards_kernel).
-template <int BT, int FMT>
-__device__ __forceinline__ void qmv_run(const QmvArgs& a) {
-  __shared__ QmvSmem<BT, FMT> sm;
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x, col0 = tile * kTileO;
-  const int S = gridDim.y, s = blockIdx.y;
-  const int nbg = (a.B + BT - 1) / BT;
+// Whether a's splits of S take the short path (at most kGroupRows weight
+// rows of every matrix a block: its weights fit in registers, qmv_load).
+template <int FMT>
+__device__ __host__ __forceinline__ bool qmv_short(const QmvArgs& a, int S) {
   int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m) kmax = max(kmax, mat_rows<FMT>(a.m[m]));
-  const bool short_path = (kmax + S - 1) / S <= kGroupRows;
+  for (int m = 0; m < a.nmat; ++m) kmax = mat_rows<FMT>(a.m[m]) > kmax ? mat_rows<FMT>(a.m[m]) : kmax;
+  return (kmax + S - 1) / S <= kGroupRows;
+}
+
+// A8, long path: whether every split of every matrix lies inside one
+// activation block and its integer sum (at most rows * 127^2) is exact in
+// float, so a split's partial can be its exact integer sum, scaled per block
+// in order by the reduction, as on the short path: the plain version's bits.
+template <int FMT>
+__device__ __forceinline__ bool a8_exact_long(const QmvArgs& a, int S) {
+  for (int m = 0; m < a.nmat; ++m) {
+    int k0, k1;
+    mat_split<FMT>(a.m[m], 0, S, k0, k1);  // the first split is the longest
+    const int rows = k1 - k0;
+    if (rows * 127 * 127 > (1 << 24) || (a.m[m].qblock < a.m[m].K && a.m[m].qblock % rows))
+      return false;
+  }
+  return true;
+}
+
+// One block of a matvec: column tile `tile`, split s of S, shared memory sm.
+// On the short path the block's weights go to registers for each batch
+// group, or with wsm to shared memory by cp.async once, where `loaded` says
+// they already are (qmv_load_async before the call). The body of
+// qmv_kernel, qmv_shards_kernel and each matvec phase of the persistent
+// decode stack (INL: everything inlined).
+template <int BT, int FMT, class Src = GlobalSrc, bool INL = false>
+__device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S,
+                                        QmvSmem<BT, FMT>& sm, int4* wsm = nullptr,
+                                        bool loaded = false, const Src& src = Src()) {
+  const int tid = threadIdx.x;
+  const int col0 = tile * kTileO;
+  const int nbg = (a.B + BT - 1) / BT;
+  const bool short_path = qmv_short<FMT>(a, S);
+  // A8: the partials are unscaled integers, on the short path, and inlined
+  // (the persistent stack) on a long one that a8_exact_long allows
+  const bool a8_raw = FMT == kA8 && (short_path || (INL && a8_exact_long<FMT>(a, S)));
   const size_t sstride = (size_t)a.nmat * a.B * a.O;  // one split's partials
+  if (wsm && !loaded) qmv_load_async<FMT>(a, tile, s, S, wsm);
 
   // This block's partial sums for batch rows [b0, b0 + nb) into dst.
   auto partials = [&](int b0, int nb, float* dst, size_t mstride, int stride) {
+    src.prologue(b0, nb);
     if (short_path) {
-      partial_short<BT, FMT>(a, col0, b0, nb, s, S, sm, dst, mstride, stride);
+      if constexpr (INL)
+        partial_short_body<true, BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride,
+                                          src);
+      else
+        partial_short<BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride, src);
     } else {
       for (int m = 0; m < a.nmat; ++m) {
         int k0, k1;
         mat_split<FMT>(a.m[m], s, S, k0, k1);
-        partial_long<BT, FMT>(a.m[m], a.B, a.O, col0, b0, nb, k0, k1, sm, dst + m * mstride,
-                              stride);
+        if constexpr (INL)
+          partial_long_body<true, BT, FMT>(a.m[m], m, a.B, a.O, tile, b0, nb, k0, k1, sm,
+                                           dst + m * mstride, stride, src, wsm, a8_raw);
+        else
+          partial_long<BT, FMT>(a.m[m], m, a.B, a.O, tile, b0, nb, k0, k1, sm, dst + m * mstride,
+                                stride, src);
       }
     }
   };
@@ -652,35 +851,52 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
       partials(b0, nb, a.partial + s * sstride + (size_t)b0 * a.O + col0, (size_t)a.B * a.O,
                a.O);
     }
-    __threadfence();
+    // The block's partials were ordered before the barrier; thread 0's
+    // acq_rel add releases them with its arrival, and acquires every earlier
+    // block's for the last one (no fence in every thread).
     __syncthreads();
-    if (tid == 0) sm.last = atomicAdd(&a.counters[tile], 1) == S - 1;
+    if (tid == 0)
+      sm.last = atom_add_acq_rel_gpu(reinterpret_cast<unsigned*>(&a.counters[tile]), 1u) ==
+                (unsigned)(S - 1);
     __syncthreads();
     if (!sm.last) return;
-    if (tid == 0) a.counters[tile] = 0;  // ready for the next launch
-    __threadfence();
+    if (tid == 0) a.counters[tile] = 0;  // ready for the next launch or phase
   }
 
   constexpr bool kA8Fmt = FMT == kA8;
-  const bool a8_raw = kA8Fmt && short_path;  // partials are unscaled integers
+  // The epilogue's inputs other than the sums (the residual x, the WKV
+  // state), loaded first, so their memory round trip overlaps the sums'.
+  constexpr int kEp = (BT * kTileO + kThreads - 1) / kThreads;  // columns a thread
+  const bool wkv = a.epi == EPI_WKV, resid = a.epi == EPI_ADD || a.epi == EPI_GATED_ADD;
   for (int g = 0; g < nbg; ++g) {
     const int b0 = g * BT, nb = min(BT, a.B - b0);
+    float e_x[kEp], e_aa[kEp], e_bb[kEp], e_pp[kEp];
+#pragma unroll
+    for (int it = 0; it < kEp; ++it) {
+      const int i = tid + it * kThreads, bi = i / kTileO, gc = col0 + i - bi * kTileO;
+      const bool ok = i < nb * kTileO && gc < a.O;
+      const size_t idx = (size_t)(b0 + bi) * a.O + gc;
+      e_x[it] = ok && resid ? __ldcg(a.out + idx) : 0.f;
+      e_aa[it] = ok && wkv ? a.aa_in[idx] : 0.f;
+      e_bb[it] = ok && wkv ? a.bb_in[idx] : 0.f;
+      e_pp[it] = ok && wkv ? a.pp_in[idx] : 0.f;
+    }
+    if (S == 1) partials(b0, nb, &sm.res[0][0][0], (size_t)BT * kTileO, kTileO);
     if constexpr (kA8Fmt) {
-      if (a8_raw) {
+      if (a8_raw) {  // after the prologue, which may write the maxima
         for (int i = tid; i < a.nmat * BT * S; i += kThreads) {
           const int m = i / (BT * S), rem = i - m * BT * S, bi = rem / S, ss = rem - bi * S;
           int k0, k1;
           mat_split<FMT>(a.m[m], ss, S, k0, k1);
           const bool live = k0 < k1;
           sm.bscale[(m * BT + bi) * kMaxSplit + ss] =
-              live && bi < nb ? a8_scale(a.m[m], a.B, b0 + bi, k0) : 0.f;
+              live && bi < nb ? a8_scale(a.m[m], a.B, b0 + bi, k0, src.local(m)) : 0.f;
           if (bi == 0) sm.sblock[m * kMaxSplit + ss] = live ? k0 / a.m[m].qblock : -1;
         }
-        // read below, after the partials' barriers
+        __syncthreads();
       }
     }
     if (S == 1) {
-      partials(b0, nb, &sm.res[0][0][0], (size_t)BT * kTileO, kTileO);
       if constexpr (kA8Fmt) {
         if (a8_raw) {
           for (int i = tid; i < a.nmat * nb * kTileO; i += kThreads) {
@@ -691,9 +907,6 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
         }
       }
     } else {
-      if constexpr (kA8Fmt) {
-        if (a8_raw) __syncthreads();  // bscale and sblock are written
-      }
       for (int i = tid; i < a.nmat * nb * kTileO; i += kThreads) {
         const int m = i / (nb * kTileO), rem = i - m * nb * kTileO;
         const int bi = rem / kTileO, c = rem - bi * kTileO;
@@ -738,14 +951,21 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
       const Mat& mt = a.m[m];
       double v = 0.0;
       if (bi < nb && mt.off) {
+        const bool local = src.local(m);
 #pragma unroll 8
-        for (int p = 0; p < mt.n_off; ++p) v += __ldcg(mt.off + (size_t)p * a.B + b0 + bi);
+        for (int p = 0; p < mt.n_off; ++p) {
+          const double* o = mt.off + (size_t)p * a.B + b0 + bi;
+          v += local ? *o : __ldcg(o);
+        }
       }
       sm.offs[m][bi] = (float)v;  // the rank-1 term summed in double, rounded once
     }
     __syncthreads();
 
-    for (int i = tid; i < nb * kTileO; i += kThreads) {
+#pragma unroll
+    for (int it = 0; it < kEp; ++it) {
+      const int i = tid + it * kThreads;
+      if (i >= nb * kTileO) continue;
       const int bi = i / kTileO, c = i - bi * kTileO, gc = col0 + c;
       sm.contrib[bi][c] = 0.0;
       sm.amaxc[bi][c] = 0.f;
@@ -761,7 +981,7 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
           if (a.col_add) o = __fadd_rn(o, a.col_add[gc]);
           break;
         case EPI_ADD:
-          o = __fadd_rn(a.out[idx], v0);
+          o = __fadd_rn(e_x[it], v0);
           break;
         case EPI_RELU2: {
           const float r = fmaxf(v0, 0.f);
@@ -772,7 +992,7 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
           o = sigmoidf_(v0);
           break;
         case EPI_GATED_ADD:
-          o = __fadd_rn(a.out[idx],
+          o = __fadd_rn(e_x[it],
                         __fmul_rn(sigmoidf_(__fadd_rn(sm.res[1][bi][c], sm.offs[1][bi])), v0));
           break;
         case EPI_WKV: {
@@ -780,7 +1000,7 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
           const float k = v0;
           const float v = __fadd_rn(sm.res[1][bi][c], sm.offs[1][bi]);
           const float r = __fadd_rn(sm.res[2][bi][c], sm.offs[2][bi]);
-          const float aa = a.aa_in[idx], bb = a.bb_in[idx], pp = a.pp_in[idx];
+          const float aa = e_aa[it], bb = e_bb[it], pp = e_pp[it];
           const float ww = __fadd_rn(a.bonus[gc], k);
           const float q = fmaxf(pp, ww);
           const float e1 = expf(__fsub_rn(pp, q)), e2 = expf(__fsub_rn(ww, q));
@@ -823,7 +1043,8 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a) {
 
 template <int BT, int FMT>
 __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
-  qmv_run<BT, FMT>(a);
+  __shared__ QmvSmem<BT, FMT> sm;
+  qmv_run<BT, FMT>(a, blockIdx.x, blockIdx.y, gridDim.y, sm);
 }
 
 // The shards of one tensor-parallel data row in one launch (kernel K7):
@@ -837,7 +1058,8 @@ struct QmvShards {
 
 template <int BT, int FMT>
 __global__ void __launch_bounds__(kThreads) qmv_shards_kernel(const __grid_constant__ QmvShards a) {
-  qmv_run<BT, FMT>(a.s[blockIdx.z]);
+  __shared__ QmvSmem<BT, FMT> sm;
+  qmv_run<BT, FMT>(a.s[blockIdx.z], blockIdx.x, blockIdx.y, gridDim.y, sm);
 }
 
 // Split of the contraction dim: enough blocks to fill the card, and at least

@@ -62,54 +62,92 @@ __device__ __forceinline__ T row_sum(T v, T* scratch) {
   return t[0];
 }
 
-// LayerNorm of the row in v[0:E] (shared memory), in place; eps 1e-8.
+// LayerNorm of the nb rows v[bi * ld : bi * ld + E] (shared memory), in
+// place, all at once (one block reduction per statistic); eps 1e-8.
 // EXACT (the a8 step): the arithmetic of ops/layernorm.py, mean and variance
 // summed in double (exact products; the order of a double sum moves the f32
 // result only at a rounding tie), each f32 operation rounded on its own.
-// Else f32 sums and rsqrtf, within f32 rounding of it.
-template <bool EXACT>
-__device__ void row_layer_norm(float* v, int E, const float* w, const float* b,
-                               std::conditional_t<EXACT, double, float>* scratch) {
-  if constexpr (EXACT) {
-    double s = 0.0;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) s += (double)v[i];
-    const float mean = (float)(row_sum(s, scratch) / (double)E);
-    double q = 0.0;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const double c = (double)__fsub_rn(v[i], mean);
-      q += c * c;
-    }
-    const float var = (float)(row_sum(q, scratch) / (double)E);
-    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-8f)));
-    for (int i = threadIdx.x; i < E; i += blockDim.x)
-      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rs), w[i]), b[i]);
-  } else {
-    float s = 0.f;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) s += v[i];
-    const float mean = row_sum(s, scratch) / (float)E;
-    float q = 0.f;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const float c = v[i] - mean;
-      q = fmaf(c, c, q);
-    }
-    const float rs = rsqrtf(row_sum(q, scratch) / (float)E + 1e-8f);
-    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = (v[i] - mean) * rs * w[i] + b[i];
+// Else f32 sums and rsqrtf, within f32 rounding of it. scratch holds
+// BT * 33 values.
+template <bool EXACT, int BT>
+__device__ __forceinline__ void rows_layer_norm(float* v, int nb, int ld, int E, const float* w, const float* b,
+                                std::conditional_t<EXACT, double, float>* scratch) {
+  using acc_t = std::conditional_t<EXACT, double, float>;
+  acc_t s[BT], q[BT];
+  float mean[BT], rs[BT];
+#pragma unroll
+  for (int bi = 0; bi < BT; ++bi) s[bi] = q[bi] = 0;
+  for (int i = threadIdx.x; i < E; i += blockDim.x)
+#pragma unroll
+    for (int bi = 0; bi < BT; ++bi)
+      if (bi < nb) s[bi] += (acc_t)v[bi * ld + i];
+  block_sums<BT>(s, scratch);
+#pragma unroll
+  for (int bi = 0; bi < BT; ++bi) {
+    if constexpr (EXACT) mean[bi] = (float)(s[bi] / (double)E);
+    else mean[bi] = s[bi] / (float)E;
   }
+  for (int i = threadIdx.x; i < E; i += blockDim.x)
+#pragma unroll
+    for (int bi = 0; bi < BT; ++bi) {
+      if (bi >= nb) continue;
+      if constexpr (EXACT) {
+        const double c = (double)__fsub_rn(v[bi * ld + i], mean[bi]);
+        q[bi] += c * c;
+      } else {
+        const float c = v[bi * ld + i] - mean[bi];
+        q[bi] = fmaf(c, c, q[bi]);
+      }
+    }
+  block_sums<BT>(q, scratch);
+#pragma unroll
+  for (int bi = 0; bi < BT; ++bi) {
+    if constexpr (EXACT) {
+      const float var = (float)(q[bi] / (double)E);
+      rs[bi] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-8f)));
+    } else {
+      rs[bi] = rsqrtf(q[bi] / (float)E + 1e-8f);
+    }
+  }
+  for (int i = threadIdx.x; i < E; i += blockDim.x)
+#pragma unroll
+    for (int bi = 0; bi < BT; ++bi) {
+      if (bi >= nb) continue;
+      float& x = v[bi * ld + i];
+      if constexpr (EXACT) x = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean[bi]), rs[bi]), w[i]), b[i]);
+      else x = (x - mean[bi]) * rs[bi] * w[i] + b[i];
+    }
   __syncthreads();
+}
+
+// LayerNorm of the row in v[0:E] (shared memory), in place.
+template <bool EXACT>
+__device__ __forceinline__ void row_layer_norm(float* v, int E, const float* w, const float* b,
+                                               std::conditional_t<EXACT, double, float>* scratch) {
+  rows_layer_norm<EXACT, 1>(v, 1, E, E, w, b, scratch);
+}
+
+// The token-shift mix mix * xx + (1 - mix) * prev; EXACT: each operation
+// rounded on its own, as the plain version.
+template <bool EXACT>
+__device__ __forceinline__ float token_mix(float mix, float xx, float prev) {
+  if constexpr (EXACT) return __fadd_rn(__fmul_rn(mix, xx), __fmul_rn(__fsub_rn(1.f, mix), prev));
+  else return mix * xx + (1.f - mix) * prev;
 }
 
 constexpr int kRowThreads = 1024;
 
-// One block per batch row, one thread per element up to 1024: LayerNorm, the
+// Batch row b of a row operation, by the whole block: LayerNorm, the
 // token-shift mixes, and the whole rank-1 offset sums of the matrices that
 // read the mixed rows (EXACT: in double, rounded once by the consumer).
+// v: E floats of shared memory; scratch, ascratch: 3 * 33 values each. x is
+// read through L2: in the persistent decode stack an earlier phase of the
+// same launch wrote it.
 template <bool EXACT>
-__global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
+__device__ void row_run(const RowArgs& a, int b, float* v, float* scratch,
+                        std::conditional_t<EXACT, double, float>* ascratch) {
   using acc_t = std::conditional_t<EXACT, double, float>;
-  extern __shared__ float v[];  // [E]
-  __shared__ float scratch[3 * 33];
-  __shared__ acc_t ascratch[3 * 33];
-  const int b = blockIdx.x, E = a.E;
+  const int E = a.E;
   float* xrow = a.x + (size_t)b * E;
   if (a.tokens) {
     int t = a.tokens[b];
@@ -134,7 +172,7 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
   } else {
     const float* src = a.x_in ? a.x_in + (size_t)b * E : xrow;
     for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      float xv = src[i];
+      float xv = __ldcg(src + i);
       if (a.add) {
         const size_t BE = (size_t)a.B * E;
         const float* ad = a.add + (size_t)b * E + i;
@@ -171,14 +209,8 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
       for (int j = 0; j < 3; ++j) {
         if (j < a.nmix) {
           const float mj = a.mix[j][i];
-          float m;
-          if constexpr (EXACT) {
-            // mix * xx + (1 - mix) * prev, each operation rounded on its own
-            m = __fadd_rn(__fmul_rn(mj, xx), __fmul_rn(__fsub_rn(1.f, mj), p));
-            maxes[j] = fmaxf(maxes[j], fabsf(m * a.qscale[j][i]));
-          } else {
-            m = mj * xx + (1.f - mj) * p;
-          }
+          const float m = token_mix<EXACT>(mj, xx, p);
+          if constexpr (EXACT) maxes[j] = fmaxf(maxes[j], fabsf(m * a.qscale[j][i]));
           a.mixed[j][(size_t)b * E + i] = m;
           sums[j] += (acc_t)m * (acc_t)a.offset[j][i];
         }
@@ -199,6 +231,15 @@ __global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
       }
     }
   }
+}
+
+// One block per batch row, one thread per element up to 1024.
+template <bool EXACT>
+__global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
+  extern __shared__ float v[];  // [E]
+  __shared__ float scratch[3 * 33];
+  __shared__ std::conditional_t<EXACT, double, float> ascratch[3 * 33];
+  row_run<EXACT>(a, blockIdx.x, v, scratch, ascratch);
 }
 
 // Launches row_kernel<EXACT> over the a.B rows of width a.E on `st`; returns

@@ -14,8 +14,12 @@ behaviour as the JAX `forward_step_fused`.
 Bound on the card: the layers' weight bytes, L * 13 * E^2 in q8 (327 MB at
 430M) and half that in q4 (164 MB), over device memory bandwidth; the head
 adds E * Vp (52 MB; 26 MB in q4). The kernel reads each weight byte once per
-step; csrc/decode_stack.cu describes the launch sequence (6 per layer, plus
-one for ln_out).
+step, in one cooperative launch per step whatever the format: four phases a
+layer and one for ln_out, separated by grid barriers (csrc/decode_stack.cu
+says how). A launch the card refuses raises; there is no other route.
+`stamps=` takes an int64 CUDA tensor of at least 4 * L + 2 entries, into
+which the kernel writes %globaltimer at its start, after each barrier and
+at its end (tools/decode_profile.py reads the time of each phase).
 
 a8=True runs every matvec as W8A8, as the JAX kernel's a8 branch does: the
 input of each matvec is quantized to int8 codes with a dynamic symmetric
@@ -64,7 +68,7 @@ from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState
 
 # kernel launches, for showing that a path ran on the kernel: q8 (K1), q4
-# (K4), a8 (K5's stack)
+# (K4), a8 (K5's stack); one per step
 launches = 0
 launches_q4 = 0
 launches_a8 = 0
@@ -87,8 +91,8 @@ _POINTERS = (
     "ln_out.weight", "ln_out.bias", "head.scale", "head.offset",
     "xy", "aa", "bb", "pp", "dd",
     "xy_out", "aa_out", "bb_out", "pp_out", "dd_out",
-    "x", "xk", "xv", "xr", "rwkv", "fk", "fr", "kk", "xs_h", "off_h",
-    "offs", "off_parts", "amax", "amax_parts", "partial", "counters",
+    "x", "rwkv", "fr", "kk", "xs_h", "off_h",
+    "offs", "off_parts", "amax", "amax_parts", "partial", "counters", "stamps",
 )
 _PARAM_NAMES = _POINTERS[1:40]
 # The matrix families in the order of rwkv_decode_stack()'s halves[], and
@@ -104,9 +108,13 @@ def _kernel():
         lib = _build.load("decode_stack")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rwkv_decode_stack.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I,
-                                          ctypes.POINTER(I), I, ctypes.c_longlong, I, I, P,
-                                          ctypes.POINTER(I)]
+                                          ctypes.POINTER(I), I, ctypes.c_longlong, I, P,
+                                          ctypes.POINTER(I), ctypes.POINTER(I)]
         lib.rwkv_decode_stack.restype = I
+        lib.rwkv_decode_stack_grid.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+        lib.rwkv_decode_stack_grid.restype = I
+        lib.rwkv_barrier_probe.argtypes = [I, I, P, P]
+        lib.rwkv_barrier_probe.restype = I
         lib.rwkv_decode_stack_pointer_count.argtypes = []
         lib.rwkv_decode_stack_pointer_count.restype = I
         if lib.rwkv_decode_stack_pointer_count() != len(_POINTERS):
@@ -200,11 +208,10 @@ class _Prepared:
             z = lambda *shape: torch.empty(shape, dtype=torch.float32, device=self.device)  # noqa: E731
             E, F = self.E, self.F
             tiles = -(-E // 128) + -(-F // 128)  # column tiles of 128 (csrc/qmv.cuh)
-            s = {"xk": z(B, E), "xv": z(B, E), "xr": z(B, E), "rwkv": z(B, E),
-                 "fk": z(B, E), "fr": z(B, E), "kk": z(B, F),
+            s = {"rwkv": z(B, E), "fr": z(B, E), "kk": z(B, F),
                  # the rank-1 offset terms are summed in double
-                 "offs": z(5, B).double(), "off_parts": z(tiles, B).double(),
-                 "amax": z(6, B), "amax_parts": z(tiles, B)}
+                 "offs": z(B).double(), "off_parts": z(tiles, B).double(),
+                 "amax": z(2, B), "amax_parts": z(tiles, B)}
             self.scratch[B] = s
         return s
 
@@ -266,13 +273,37 @@ def decode_stack_plain(params: RWKVParams, token: torch.Tensor, state: WKVState,
 
 
 def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState, *,
-                 a8: bool = False, a8_block: int | None = None):
+                 a8: bool = False, a8_block: int | None = None,
+                 stamps: torch.Tensor | None = None):
     """One decode step for B streams. token: [B] ints; state leaves [L, B, E].
-    Returns (y [B, E], new state, xs_h [B, E], off_h [B]) as decode_stack_plain."""
-    return _decode(params, token, state, a8, a8_block)[:4]
+    Returns (y [B, E], new state, xs_h [B, E], off_h [B]) as decode_stack_plain.
+    stamps: see the module docstring (CUDA only)."""
+    return _decode(params, token, state, a8, a8_block, stamps)[:4]
 
 
-def _decode(params, token, state, a8, a8_block):
+def stack_grid(B: int, E: int, *, q4: bool = False, a8: bool = False) -> int:
+    """Blocks of the step's cooperative launch on the current CUDA device at
+    batch B and width E: the occupancy API's blocks per SM times the SMs."""
+    lib = _kernel()
+    g = ctypes.c_int(0)
+    _build.check(lib, lib.rwkv_decode_stack_grid(B, E, int(q4), int(a8), ctypes.byref(g)),
+                 "decode_stack grid")
+    return g.value
+
+
+def barrier_probe(grid: int, n: int, word: torch.Tensor) -> None:
+    """One cooperative launch of `grid` blocks that runs n grid barriers and
+    nothing else, on the 64 int32 words of `word` (zero before the first
+    call): the probe of tools/qmv_probe.py."""
+    if word.dtype != torch.int32 or word.numel() < 64 or word.device.type != "cuda":
+        raise ValueError("barrier_probe: word must be 64 int32 on a CUDA device")
+    lib = _kernel()
+    _build.check(lib, lib.rwkv_barrier_probe(grid, n, word.data_ptr(),
+                                             torch.cuda.current_stream(word.device).cuda_stream),
+                 "barrier_probe")
+
+
+def _decode(params, token, state, a8, a8_block, stamps=None):
     """decode_stack, and the row maxima of xs_h [B] that the a8 head reads
     (None on the CPU and without a8)."""
     if params.emb.device.type == "cpu" and token.device.type == "cpu":
@@ -299,21 +330,26 @@ def _decode(params, token, state, a8, a8_block):
     xs_h = torch.empty((B, E), dtype=torch.float32, device=dev)
     off_h = torch.empty((B,), dtype=torch.float32, device=dev)
     buf = prep.buffers(B)
-    partial, counters, target = _build.split_scratch(dev, "decode_stack")
+    if stamps is not None:
+        _check(stamps, "stamps", torch.int64, dev, (stamps.numel(),))
+        if stamps.numel() < 4 * L + 2:
+            raise ValueError(f"decode_stack: stamps needs {4 * L + 2} entries")
+    partial, counters, _ = _build.split_scratch(dev, "decode_stack")
     table = ([tok.data_ptr()] + prep.param_ptrs
              + [t.data_ptr() for t in state] + [t.data_ptr() for t in new_state]
-             + [y.data_ptr()] + [buf[n].data_ptr() for n in ("xk", "xv", "xr", "rwkv", "fk",
-                                                               "fr", "kk")]
+             + [y.data_ptr()] + [buf[n].data_ptr() for n in ("rwkv", "fr", "kk")]
              + [xs_h.data_ptr(), off_h.data_ptr()]
              + [buf[n].data_ptr() for n in ("offs", "off_parts", "amax", "amax_parts")]
-             + [partial.data_ptr(), counters.data_ptr()])
+             + [partial.data_ptr(), counters.data_ptr(),
+                0 if stamps is None else stamps.data_ptr()])
     lib = _kernel()
     arr = (ctypes.c_void_p * len(table))(*table)
     halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
-    n = ctypes.c_int(0)
+    n, grid = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
-                                block, partial.numel(), counters.numel(), target,
-                                torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n))
+                                block, partial.numel(), counters.numel(),
+                                torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n),
+                                ctypes.byref(grid))
     if block:
         launches_a8 += n.value
     elif prep.q4:
@@ -321,7 +357,7 @@ def _decode(params, token, state, a8, a8_block):
     else:
         launches += n.value
     _build.check(lib, err, "decode_stack")
-    return y, new_state, xs_h, off_h, buf["amax"][5] if block else None
+    return y, new_state, xs_h, off_h, buf["amax"][1] if block else None
 
 
 def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState, *,

@@ -66,6 +66,7 @@ from rwkv_tpu_torch.parallel.sharding import (
 )
 from rwkv_tpu_torch.parallel.tp_step import make_engine_prefill, make_engine_step
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
+from rwkv_tpu_torch.utils.metrics import metrics
 from rwkv_tpu_torch.utils.text import StopScanner
 
 
@@ -459,6 +460,7 @@ class RWKV:
 
         decoder = StreamDecoder(self.tokenizer)
         pieces: list[str] = []
+        n_ids = 1  # token ids decoded (the first one just sampled)
         scanner = StopScanner(stop)
 
         def feed(piece: str) -> None:
@@ -479,6 +481,7 @@ class RWKV:
                 toks.append(token)
             ids = torch.stack(toks).tolist()  # the one host read of the chunk
             remaining -= len(ids)
+            n_ids += len(ids)
             for tid in ids:
                 feed(decoder.feed([int(tid)]))
 
@@ -488,4 +491,6 @@ class RWKV:
             text = "".join(pieces) + decoder.flush()
         self.set_state(state, stream)
         self._pending[stream] = int(token)  # emitted, not yet absorbed
+        metrics.inc("engine.generate_calls")
+        metrics.inc("engine.tokens_generated", n_ids)
         return text

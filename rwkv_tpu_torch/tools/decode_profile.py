@@ -19,10 +19,13 @@ layer, the head on K2), it measures:
     the launches, not the kernels, are the limit;
   * device ms per step by kernel (torch.profiler, CUDA activity), and the
     device's busy share of the wall time;
-  * device ms per step by launch position: the step's rwkv kernels in the
-    order decode_stack.cu launches them (per layer: ln1+mix, k/v/r + WKV,
-    output, ln2+mix, key, value+gate; then ln_out and the mm8 or mm4 head),
-    with --tp and the fused body decode_stack_tp.cu (per layer, each launch
+  * without --tp, device ms per step by phase of the decode stack's one
+    launch (csrc/decode_stack.cu), from its %globaltimer stamps (block 0's
+    clock after each grid barrier), summed over the layers: ln1+mix with
+    k/v/r + WKV, output, ln2+mix with key, value+gate, and ln_out; beside
+    it the head kernel's time from the profiler;
+  * with --tp, device ms per step by launch position: the step's rwkv
+    kernels in launch order, with the fused body decode_stack_tp.cu (per layer, each launch
     covering every shard: ln1+mix with the ffn exchange, k/v/r + WKV, output
     partial, ln2+mix with the att exchange, gate, key, value partial; then
     ln_out with the last exchange and the head), or with --body halves
@@ -52,7 +55,7 @@ from collections import defaultdict
 from functools import partial
 
 
-PHASES = ("ln1+mix", "k/v/r+wkv", "output", "ln2+mix", "key", "value+gate")
+PHASES = ("ln1+mix+k/v/r+wkv", "output", "ln2+mix+key", "value+gate")  # per layer
 TP_PHASES = ("ln1+mix", "k/v/r+wkv", "output partial", "ln2+mix", "gate", "key",
              "value partial")
 FUSED_PHASES = ("ffn exchange+ln1+mix", "k/v/r+wkv", "output partial",
@@ -99,6 +102,7 @@ def main() -> None:
         random_quantized_params_np,
         signedize_params,
     )
+    from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
     from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
     from rwkv_tpu_torch.ops.sampling import typical
     from rwkv_tpu_torch.parallel.mesh import make_mesh
@@ -197,22 +201,35 @@ def main() -> None:
                        and "rwkv::" in e.name), key=lambda e: e.time_range.start)
         n = args.tp
         fused = n and args.body == "fused"
-        per_step = (7 * cfg.n_layer + 2 if fused else 7 * cfg.n_layer * n + n if n
-                    else 6 * cfg.n_layer + 2)
         by_position = defaultdict(float)
-        for i, e in enumerate(ours):
-            j = i % per_step
-            if fused:  # per layer 7 launches, each over every shard; then 2
-                label = (FUSED_PHASES[j % 7] if j < 7 * cfg.n_layer
-                         else ("last exchange+ln_out" if j == 7 * cfg.n_layer else head))
-            elif n:  # per layer: n att halves (3 launches), then n ffn halves (4)
-                k = j % (7 * n)
-                label = (head if j >= 7 * cfg.n_layer * n
-                         else TP_PHASES[k % 3] if k < 3 * n else TP_PHASES[3 + (k - 3 * n) % 4])
-            else:
-                label = (PHASES[j % 6] if j < 6 * cfg.n_layer
-                         else ("ln_out" if j == 6 * cfg.n_layer else head))
-            by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
+        if n:
+            per_step = 7 * cfg.n_layer + 2 if fused else 7 * cfg.n_layer * n + n
+            for i, e in enumerate(ours):
+                j = i % per_step
+                if fused:  # per layer 7 launches, each over every shard; then 2
+                    label = (FUSED_PHASES[j % 7] if j < 7 * cfg.n_layer
+                             else ("last exchange+ln_out" if j == 7 * cfg.n_layer else head))
+                else:  # per layer: n att halves (3 launches), then n ffn halves (4)
+                    k = j % (7 * n)
+                    label = (head if j >= 7 * cfg.n_layer * n
+                             else TP_PHASES[k % 3] if k < 3 * n
+                             else TP_PHASES[3 + (k - 3 * n) % 4])
+                by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
+        else:  # one launch a step: its phases from the kernel's own stamps
+            L = cfg.n_layer
+            stamps = torch.zeros((args.steps, 4 * L + 2), dtype=torch.int64, device=dev)
+            s = st
+            for i in range(args.steps):
+                s = ds_mod.decode_stack(params, tok, s, a8=args.a8,
+                                        a8_block=a8_block_for(cfg.n_embd) if args.a8 else None,
+                                        stamps=stamps[i])[1]
+            torch.cuda.synchronize()
+            ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e6
+            for k in range(4 * L):
+                by_position[PHASES[k % 4]] += float(ms[k])
+            by_position["ln_out"] = float(ms[4 * L])
+            by_position["stack (first stamp to last)"] = float(ms.sum())
+            by_position[head] = sum(v for k, v in by_kernel.items() if "qmv_kernel" in k)
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
 
@@ -277,7 +294,8 @@ def main() -> None:
                "device_busy_share": device_ms / wall_ms if wall_ms else None,
                "device_ms_per_step_by_kernel": dict(sorted(by_kernel.items(),
                                                            key=lambda kv: -kv[1])),
-               "device_ms_per_step_by_launch": dict(by_position),
+               ("device_ms_per_step_by_launch" if args.tp else "device_ms_per_step_by_phase"):
+                   dict(by_position),
                "rwkv_kernels_seen": len(ours),
                **engine,
                "card": card}

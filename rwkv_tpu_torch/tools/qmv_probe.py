@@ -1,14 +1,23 @@
 """Time the int8 matvec of csrc/qmv.cuh alone, through the mm8 entry point,
-at the layer shapes of a decode step, for several contraction splits.
+at the layer shapes of a decode step, for several contraction splits; and,
+with --barrier, the grid barrier of the persistent decode stack.
 
-    python -m rwkv_tpu_torch.tools.qmv_probe [--batch 1] [--iters 200]
+    python -m rwkv_tpu_torch.tools.qmv_probe [--batch 1] [--iters 200] [--barrier]
 
 For each shape [B, K] x [K, O] and each target block count (which sets the
 split S of the contraction across blocks, csrc/qmv.cuh:qmv_split), prints
-the kernel's device us per launch and the GB/s of weight bytes. The launches
-are captured once in a CUDA graph and replayed, so the host's cost per launch
-(several us through Python and ctypes) does not hide the device time. Needs a
-CUDA device.
+the kernel's device us per launch and the GB/s of weight bytes.
+
+--barrier instead launches a cooperative kernel at the grid the decode stack
+uses at this batch and 430M width (csrc/decode_stack.cu: the occupancy API's
+blocks per SM times the SMs) that runs N grid barriers (csrc/grid.cuh) and
+nothing else, for N in 0, 1, 97 and 1000, and prints us per launch and
+us per barrier ((t(N) - t(0)) / N), beside a near-empty matvec launch
+([B, 32] x [32, 16]).
+
+The launches are captured once in a CUDA graph and replayed, so the host's
+cost per launch (several us through Python and ctypes) does not hide the
+device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,11 +31,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--barrier", action="store_true",
+                    help="time the decode stack's grid barrier instead")
     args = ap.parse_args()
 
     import torch
 
     from rwkv_tpu_torch.ops.cuda import _build
+    from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
     from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
 
     if not torch.cuda.is_available():
@@ -38,34 +50,59 @@ def main() -> None:
     partial, counters, _ = _build.split_scratch(dev, "qmv_probe")
     g = torch.Generator(device=dev).manual_seed(0)
     B = args.batch
-    for K, O in ((32, 16), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 50688)):
+
+    def graph_us(launch) -> float:
+        """Device us per call of launch(), args.iters calls in one graph."""
+        for _ in range(3):
+            launch()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(args.iters):
+                launch()
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) * 1e3 / args.iters
+
+    def mm8_launch(xs, w, out, K, O, target):
+        def launch():
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.rwkv_mm8(xs.data_ptr(), w.data_ptr(), out.data_ptr(), None, None, B, K, O,
+                               partial.data_ptr(), partial.numel(), counters.data_ptr(),
+                               counters.numel(), target, stream)
+            _build.check(lib, err, "qmv_probe")
+        return launch
+
+    def operands(K, O):
         xs = torch.randn((B, K), generator=g, device=dev)
         w = torch.randint(-128, 128, (K, O), generator=g, device=dev, dtype=torch.int8)
-        out = torch.empty((B, O), device=dev)
+        return xs, w, torch.empty((B, O), device=dev)
+
+    if args.barrier:
+        word = torch.zeros(64, dtype=torch.int32, device=dev)
+        xs, w, out = operands(32, 16)
+        row = {"B": B, "empty_matvec_us": round(graph_us(mm8_launch(xs, w, out, 32, 16, 1)), 3),
+               "card": card}
+        for fmt, kw in (("q8", {}), ("q4", {"q4": True}), ("a8", {"a8": True})):
+            grid = ds_mod.stack_grid(B, 1024, **kw)
+            us = {n: graph_us(lambda n=n: ds_mod.barrier_probe(grid, n, word))
+                  for n in (0, 1, 97, 1000)}
+            row[fmt] = {"grid": grid, **{f"launch_us_n{n}": round(t, 3) for n, t in us.items()},
+                        "us_per_barrier": round((us[1000] - us[0]) / 1000, 4),
+                        "us_per_barrier_n97": round((us[97] - us[0]) / 97, 4)}
+        print(json.dumps(row))
+        return
+
+    for K, O in ((32, 16), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 50688)):
+        xs, w, out = operands(K, O)
         row = {"B": B, "K": K, "O": O, "card": card}
         for target in (1, 66, 132, 264, 528, 1056):
-            def launch():
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.rwkv_mm8(xs.data_ptr(), w.data_ptr(), out.data_ptr(), None, None, B, K,
-                                   O, partial.data_ptr(), partial.numel(), counters.data_ptr(),
-                                   counters.numel(), target, stream)
-                _build.check(lib, err, "qmv_probe")
-
-            for _ in range(3):
-                launch()
-            torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(args.iters):
-                    launch()
-            graph.replay()
-            torch.cuda.synchronize()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            graph.replay()
-            b.record()
-            b.synchronize()
-            us = a.elapsed_time(b) * 1e3 / args.iters
+            us = graph_us(mm8_launch(xs, w, out, K, O, target))
             ref = xs.double() @ w.double()
             ok = float((out.double() - ref).abs().max() / ref.abs().max()) < 1e-5
             row[f"target{target}"] = {"us": round(us, 3), "GBps": round(K * O / us / 1e3, 1),

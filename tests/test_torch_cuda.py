@@ -89,7 +89,7 @@ def test_decode_stack_matches_plain(dev, small, B):
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
         before = ds_mod.launches
         out_k = ds_mod.decode_stack(p, tok, st_k)
-        assert ds_mod.launches == before + 6 * cfg.n_layer + 1
+        assert ds_mod.launches == before + 1  # one launch a step
         out_p = ds_mod.decode_stack_plain(p, tok, st_p)
         for a, b in zip(out_k[:1] + tuple(out_k[1]) + out_k[2:],
                         out_p[:1] + tuple(out_p[1]) + out_p[2:]):
@@ -171,8 +171,7 @@ def test_decode_stack_q4_matches_plain(dev, small_q4, B):
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
         before = (ds_mod.launches, ds_mod.launches_q4)
         out_k = ds_mod.decode_stack(p, tok, st_k)
-        assert (ds_mod.launches, ds_mod.launches_q4) == (before[0],
-                                                         before[1] + 6 * cfg.n_layer + 1)
+        assert (ds_mod.launches, ds_mod.launches_q4) == (before[0], before[1] + 1)
         out_p = ds_mod.decode_stack_plain(p, tok, st_p)
         for a, b in zip(out_k[:1] + tuple(out_k[1]) + out_k[2:],
                         out_p[:1] + tuple(out_p[1]) + out_p[2:]):
@@ -191,7 +190,7 @@ def test_forward_step_fused_q4_runs_k4_and_k3(dev, small_q4):
     before = (ds_mod.launches_q4, mm4_mod.launches, ds_mod.launches, mm8_mod.launches)
     logits, new = ds_mod.forward_step_fused(p, tok, st)
     after = (ds_mod.launches_q4, mm4_mod.launches, ds_mod.launches, mm8_mod.launches)
-    assert [a - b for a, b in zip(after, before)] == [6 * cfg.n_layer + 1, 1, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
     ref, ref_state = forward_step(p, tok, st)
     assert logits.shape == (2, p.head.wp.shape[1])
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
@@ -251,8 +250,7 @@ def test_decode_stack_a8_matches_plain(dev, E, block):
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
         before = (ds_mod.launches, ds_mod.launches_a8)
         out_k = ds_mod.decode_stack(p, tok, st_k, a8=True, a8_block=block)
-        assert (ds_mod.launches, ds_mod.launches_a8) == (before[0],
-                                                         before[1] + 6 * cfg.n_layer + 1)
+        assert (ds_mod.launches, ds_mod.launches_a8) == (before[0], before[1] + 1)
         out_p = ds_mod.decode_stack_plain(p, tok, st_p, a8=True, a8_block=block)
         out_o = ds_mod.decode_stack_plain(p, tok, st_p, a8=True, a8_block=other)
         for a, b, c in zip(out_k[:1] + tuple(out_k[1]) + out_k[2:],
@@ -273,7 +271,7 @@ def test_forward_step_fused_a8_runs_k5(dev):
                       mm8_mod.launches_a8)
     before = counts()
     logits, new = ds_mod.forward_step_fused(p, tok, st, a8=True, a8_block=128)
-    assert [a - b for a, b in zip(counts(), before)] == [0, 6 * cfg.n_layer + 1, 0, 1]
+    assert [a - b for a, b in zip(counts(), before)] == [0, 1, 0, 1]
     _, ref_state, xs_h, off_h = ds_mod.decode_stack_plain(p, tok, st, a8=True, a8_block=128)
     ref = mm8_mod.mm8_a8_plain(xs_h, p.head.w, row_add=off_h, col_add=p.logit_bias)
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-5
@@ -283,7 +281,7 @@ def test_forward_step_fused_a8_runs_k5(dev):
     # head_a8: the q8 stack (K1) with the a8 head
     before = counts()
     logits_h, _ = ds_mod.forward_step_fused(p, tok, st, head_a8=True)
-    assert [a - b for a, b in zip(counts(), before)] == [6 * cfg.n_layer + 1, 0, 0, 1]
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 0, 1]
     _, _, xs_h, off_h = ds_mod.decode_stack_plain(p, tok, st)
     ref_h = mm8_mod.mm8_a8_plain(xs_h, p.head.w, row_add=off_h, col_add=p.logit_bias)
     assert _scaled(logits_h[:, :cfg.vocab_size], ref_h[:, :cfg.vocab_size]) <= 1e-5
@@ -477,3 +475,157 @@ def test_tp_step_fused_runs_k7_alone(dev, k7_setup):
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
     for a, b in zip(new, ref_state):
         assert _scaled(a, b) <= 1e-4
+
+
+# The decode stack as one persistent, cooperative launch a step (q8 K1, q4
+# K4, a8 K5's stack): one launch, the same bits on two calls and from a
+# CUDA graph's replay, batch rows that do not fill a group of 4, and the a8
+# state bit-equal to the plain a8 version (the kernel repeats its arithmetic
+# up to every quantization; csrc/decode_stack.cu).
+@pytest.fixture(scope="module")
+def stack_params():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = RWKVConfig(n_layer=2, n_embd=256, vocab_size=1000)
+    q8 = params_to(signedize_params(random_quantized_params_np(cfg, seed=21, pad_multiple=128)),
+                   dev)
+    q4 = params_to(random_quantized_params_np(cfg, seed=22, pad_multiple=128, q4=True,
+                                              q4_block=64), dev)
+    return cfg, {"q8": q8, "q4": q4, "a8": q8}
+
+
+_COUNTER = {"q8": "launches", "q4": "launches_q4", "a8": "launches_a8"}
+
+
+def _stack(p, tok, st, fmt, **kw):
+    return ds_mod.decode_stack(p, tok, st, a8=fmt == "a8", a8_block=128 if fmt == "a8" else None,
+                               **kw)
+
+
+def _flat(out):
+    return (out[0],) + tuple(out[1]) + tuple(out[2:])
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4", "a8"])
+@pytest.mark.parametrize("B", [1, 3, 9, 16])
+def test_decode_stack_one_launch_same_bits(dev, stack_params, fmt, B):
+    cfg, params = stack_params
+    p = params[fmt]
+    rng = np.random.default_rng(B * 3 + len(fmt))
+    st_k = st_p = init_state(cfg, (B,), device=dev)
+    for _ in range(4):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        keep = [s.clone() for s in st_k]
+        before = {k: getattr(ds_mod, k) for k in _COUNTER.values()}
+        out_k = _stack(p, tok, st_k, fmt)
+        moved = {k: getattr(ds_mod, k) - v for k, v in before.items()}
+        assert moved == {k: int(k == _COUNTER[fmt]) for k in before}, moved
+        again = _stack(p, tok, st_k, fmt)
+        for a, b in zip(_flat(out_k), _flat(again)):
+            assert torch.equal(a, b)
+        for a, b in zip(st_k, keep):  # the input state is never written
+            assert torch.equal(a, b)
+        out_p = ds_mod.decode_stack_plain(p, tok, st_p, a8=fmt == "a8",
+                                          a8_block=128 if fmt == "a8" else None)
+        if fmt == "a8":
+            for a, b in zip(out_k[1], out_p[1]):
+                assert torch.equal(a, b)
+        for a, b in zip(_flat(out_k), _flat(out_p)):
+            assert _scaled(a, b) <= 1e-4
+        st_k, st_p = out_k[1], out_p[1]
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4", "a8"])
+def test_decode_stack_graph_replay_equals_eager(dev, stack_params, fmt):
+    cfg, params = stack_params
+    p = params[fmt]
+    B = 5
+    rng = np.random.default_rng(len(fmt))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+    st = init_state(cfg, (B,), device=dev)
+    for _ in range(2):  # a state that is not all zeros
+        st = _stack(p, tok, st, fmt)[1]
+    eager = _stack(p, tok, st, fmt)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _stack(p, tok, st, fmt)
+    for _ in range(3):  # replays reuse the barrier's words with no reset
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(_flat(captured), _flat(eager)):
+            assert torch.equal(a, b)
+    assert torch.equal(_stack(p, tok, st, fmt)[0], eager[0])
+
+
+@pytest.mark.parametrize("B", [1, 5])
+def test_decode_stack_a8_long_splits_bit_equal(dev, B):
+    """At 430M widths (E = 1024, F = 4096) the ffn matvecs' splits are longer
+    than one 128-row group (qmv.cuh's long path); the a8 state stays
+    bit-equal to the plain version's (csrc/qmv.cuh: a8_exact_long)."""
+    cfg, p = _a8_params(1024, seed=31 + B)
+    rng = np.random.default_rng(31 + B)
+    st_k = st_p = init_state(cfg, (B,), device=dev)
+    for _ in range(3):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        out_k = ds_mod.decode_stack(p, tok, st_k, a8=True, a8_block=512)
+        out_p = ds_mod.decode_stack_plain(p, tok, st_p, a8=True, a8_block=512)
+        for a, b in zip(out_k[1], out_p[1]):
+            assert torch.equal(a, b)
+        st_k, st_p = out_k[1], out_p[1]
+
+
+def test_decode_stack_q4_row_tiled_7b_widths(dev):
+    """q4 at RWKV-4 7B widths (E = 4096, F = 16384), L = 2, with the row-tiled
+    families paired within blocks of 256: the contraction splits run the
+    long path, and a split may start inside a pairing block."""
+    cfg = RWKVConfig(n_layer=2, n_embd=4096, vocab_size=1000)
+    p = params_to(random_quantized_params_np(cfg, seed=23, pad_multiple=128, q4=True,
+                                             q4_block=256), dev)
+    assert p.att.output.block == 256 and p.ffn.value.block == 256
+    rng = np.random.default_rng(23)
+    B = 3
+    st_k = st_p = init_state(cfg, (B,), device=dev)
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        before = ds_mod.launches_q4
+        out_k = ds_mod.decode_stack(p, tok, st_k)
+        assert ds_mod.launches_q4 == before + 1
+        out_p = ds_mod.decode_stack_plain(p, tok, st_p)
+        for a, b in zip(_flat(out_k), _flat(out_p)):
+            assert _scaled(a, b) <= 1e-4
+        st_k, st_p = out_k[1], out_p[1]
+
+
+def test_decode_stack_stamps_and_grid(dev, stack_params):
+    """The %globaltimer stamps: 4 L + 2 of them, in order; the grid is the
+    occupancy API's blocks per SM times the SMs."""
+    cfg, params = stack_params
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = ds_mod.stack_grid(1, cfg.n_embd)
+    assert grid >= sms and grid % sms == 0
+    stamps = torch.zeros(4 * cfg.n_layer + 2, dtype=torch.int64, device=dev)
+    tok = torch.tensor([7], device=dev)
+    st = init_state(cfg, (1,), device=dev)
+    plain = ds_mod.decode_stack(params["q8"], tok, st)
+    stamped = ds_mod.decode_stack(params["q8"], tok, st, stamps=stamps)
+    for a, b in zip(_flat(plain), _flat(stamped)):
+        assert torch.equal(a, b)
+    t = stamps.cpu()
+    assert bool((t > 0).all()) and bool((t[1:] >= t[:-1]).all())
+    with pytest.raises(ValueError, match="stamps"):
+        ds_mod.decode_stack(params["q8"], tok, st, stamps=stamps[:3])
+
+
+def test_decode_stack_refused_launch_raises(dev, stack_params):
+    """A launch the card refuses (here: more shared memory than a block may
+    have, for the [3, B] offset terms of a huge batch) raises; no other
+    route runs the step."""
+    cfg, params = stack_params
+    B = 8192
+    st = init_state(cfg, (B,), device=dev)
+    before = ds_mod.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ds_mod.decode_stack(params["q8"], torch.zeros(B, dtype=torch.long, device=dev), st)
+    assert ds_mod.launches == before
