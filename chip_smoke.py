@@ -75,19 +75,21 @@ Phases, in order; any failure raises and exits non-zero:
               InferencePool over it serving 6 requests. Times on a virtual
               mesh are correctness runs, not speed-ups.
  13. tp_fused kernel K7 (csrc/decode_stack_tp.cu: the whole step of a data
-              row's shards) against its plain version at 430M widths, q8 and
-              q4 (block 256, inside a shard up to tp = 4), tp in {1, 2, 4} on
-              a virtual mesh, B in {1, 8} with the embedding gather in the
-              step and B = 16 with x given, 2 carried steps: every shard's
-              logits and state within DECODE_TOL scaled; at tp = 1 against
-              the unsharded step (K1 + K2, K4 + K3) on the same params, and
-              the tp >= 2 logits gathered against tp = 1; then 14B widths
-              (E=5120, F=20480, L=2) at tp = 8 (and 1), q8 and q4 (block
-              128); ms per step at tp = 1 beside the unsharded step, in
-              turns, eager and replayed from a CUDA graph.
+              row's shards as one cooperative launch) against its plain
+              version at 430M widths, q8 and q4 (block 256, inside a shard up
+              to tp = 4), tp in {1, 2, 4} on a virtual mesh, B in {1, 8} with
+              the embedding gather in the step and B = 16 with x given, 2
+              carried steps: one launch a step, every shard's logits and
+              state within DECODE_TOL scaled; at tp = 1 against the unsharded
+              step (K1 + K2, K4 + K3) on the same params, and the tp >= 2
+              logits gathered against tp = 1; then 14B widths (E=5120,
+              F=20480, L=2) at tp = 8 (and 1), q8 and q4 (block 128); ms per
+              step at tp = 1 beside the unsharded step, in turns, eager and
+              replayed from a CUDA graph.
  14. tp_fused serve  the phase-4 .bin through RWKV(path, sharding=
               make_mesh(model=1), tp_body="fused"): 3 requests on K7 alone
-              (K6, K2 and K1 still), the logits against the plain model and
+              (K6, K2 and K1 still), one K7 launch per decoded step, the
+              logits against the plain model and
               the same greedy ids as the K1 engine; a virtual model=2 fused
               engine: the same 8 greedy ids, 1 gather and 0 psums a step; a
               4-slot pool over it serving 6 requests; then a q4 engine on a
@@ -1011,7 +1013,10 @@ def main() -> int:
                 st_u = init_state(cfg_, (B,), device=dev)
                 for step, tok in enumerate(toks):
                     kw = k7_kwargs(params, tok, B)
+                    before = k7.launches + k7.launches_q4
                     lg_k, n_k = k7.decode_stack_tp(sp.rows[0], st_k, local, **kw)
+                    require(k7.launches + k7.launches_q4 == before + 1,
+                            f"K7 {tag} tp={tp} B={B}: not one launch for the step")
                     lg_p, n_p = k7.decode_stack_tp_reference(sp.rows[0], st_p, local, **kw)
                     pairs = [(f"logits[{j}]", lg_k[j], lg_p[j]) for j in range(tp)]
                     pairs += [(f"{n}[{j}]", a, b) for j in range(tp)
@@ -1049,9 +1054,10 @@ def main() -> int:
         return k7_worst, sharded
 
     def time_k7(params, sharded, cfg_, tag):
-        """ms per step of K7 at each tp (B = 1 and 8), the unsharded step in
-        turns at tp = 1, a CUDA graph's replay, the plain version and the
-        bound. Returns the tp = 1, B = 1 row."""
+        """ms per step of K7 at each tp (B = 1 and 8); at tp = 1 the
+        unsharded step in turns with it, eager and replayed from a CUDA
+        graph, the plain version and the bound. Returns the tp = 1, B = 1
+        row."""
         L_, E_ = cfg_.n_layer, cfg_.n_embd
         head = params.head
         head_bytes = nbytes([head.wp if isinstance(head, Quant4Linear) else head.w])
@@ -1070,9 +1076,12 @@ def main() -> int:
                 st_u = init_state(cfg_, (B,), device=dev)
                 unsharded = lambda: ds_mod.forward_step_fused(params, tok, st_u)  # noqa: E731,B023,E501
                 t = {"unsharded": [], "K7": []}
+                g = {"unsharded": [], "K7": []}
                 for name in ("unsharded", "K7", "K7", "unsharded"):  # in turns
                     t[name].append(cuda_ms(fused if name == "K7" else unsharded, 20))
-                g_ms = graph_ms(fused, 20)
+                for name in ("unsharded", "K7", "K7", "unsharded"):
+                    g[name].append(graph_ms(fused if name == "K7" else unsharded, 20))
+                g_ms = min(g["K7"])
                 plain_ms = cuda_ms(lambda: k7.decode_stack_tp_reference(  # noqa: B023
                     sp.rows[0], st, local, token=tok), 3, warmup=1)
                 # + B embedding rows, state in and out, the logits out
@@ -1080,11 +1089,14 @@ def main() -> int:
                 b_ms, b_by = bound(nb, 2 * B * (L_ * 13 * E_ * E_ + E_ * head.out_features))
                 rows[B] = dict(ms=min(t["K7"]), plain_ms=plain_ms, graph_ms=g_ms, bound_ms=b_ms,
                                bound_by=b_by)
-                print(f"  {tag} tp=1 B={B}: K7 {', '.join(f'{v:.3f}' for v in t['K7'])} ms/step, "
-                      f"unsharded step {', '.join(f'{v:.3f}' for v in t['unsharded'])} ms/step "
-                      f"(in turns: unsharded, K7, K7, unsharded); K7 replayed from a CUDA graph "
-                      f"{g_ms:.3f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, "
-                      f"{nb / 1e6:.1f} MB); {7 * L_ + 2} launches per step {card}")
+                grid = k7.stack_grid_tp(B, E_, q4=isinstance(head, Quant4Linear))
+                fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)  # noqa: E731
+                print(f"  {tag} tp=1 B={B}: K7 {fmt(t['K7'])} ms/step, unsharded step "
+                      f"{fmt(t['unsharded'])} (in turns: unsharded, K7, K7, unsharded); replayed "
+                      f"from a CUDA graph in turns: K7 {fmt(g['K7'])}, unsharded "
+                      f"{fmt(g['unsharded'])}; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+                      f"({b_by}, {nb / 1e6:.1f} MB); one launch of {grid} blocks per step, "
+                      f"{4 * L_} grid barriers {card}")
         return rows[1]
 
     print(f"phase 13 decode_stack_tp (K7) vs plain, 430M: L={L} E={E} F={F}, tp 1, 2, 4 on a "
@@ -1123,9 +1135,11 @@ def main() -> int:
     steps14, counts14 = serve(eng, label="fused tp=1")
     c14 = dict(zip(COUNTER_NAMES, counts14))
     k7_launches = c14["K7"]
-    print(f"  launches during the requests: {c14} (K7: {7 * L + 2} per step x {steps14} steps: "
-          f"{c14['K7'] == (7 * L + 2) * steps14})")
+    print(f"  launches during the requests: {c14} (K7: one per step x {steps14} steps: "
+          f"{c14['K7'] == steps14})")
     require(k7_launches > 0, "K7 never launched on the fused path")
+    require(k7_launches == steps14, f"K7: {k7_launches} launches for {steps14} decoded steps, "
+            "not one each")
     require(all(c14[k] == 0 for k in COUNTER_NAMES if k != "K7"),
             f"the fused path launched another kernel: {c14}")
     check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
@@ -1255,15 +1269,16 @@ def main() -> int:
          "replaces": "rwkv_tpu/ops/pallas/decode_stack_tp.py:519", "launches": k7_launches,
          "max_abs_err": k7_err, "ms": k7_row["ms"], "plain_ms": k7_row["plain_ms"],
          "bound_ms": k7_row["bound_ms"], "bound_by": k7_row["bound_by"], "library_ms": None,
-         "shape": f"q8, tp=1, B=1, L={L} E={E} F={F}, head included, {7 * L + 2} launches per "
-                  f"step; replayed from a CUDA graph {k7_row['graph_ms']:.4f} ms"},
+         "shape": f"q8, tp=1, B=1, L={L} E={E} F={F}, head included, 1 launch per step "
+                  f"({4 * L} grid barriers); replayed from a CUDA graph "
+                  f"{k7_row['graph_ms']:.4f} ms"},
         {"name": "decode_stack_tp_q4", "route": "cuda",
          "source": "rwkv_tpu_torch/csrc/decode_stack_tp.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack_tp.py:519", "launches": k7q4_launches,
          "max_abs_err": k7q4_err, "ms": k7q4_row["ms"], "plain_ms": k7q4_row["plain_ms"],
          "bound_ms": k7q4_row["bound_ms"], "bound_by": k7q4_row["bound_by"], "library_ms": None,
          "shape": f"q4 (block {blk4}), tp=1, B=1, L={L} E={E} F={F}, head included, "
-                  f"{7 * L + 2} launches per step; replayed from a CUDA graph "
+                  f"1 launch per step ({4 * L} grid barriers); replayed from a CUDA graph "
                   f"{k7q4_row['graph_ms']:.4f} ms"},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -28,23 +28,16 @@
 //   H. ln_out, the head's scaled input and its offset row-sum (row.cuh),
 //      which feed the head matvec, kernel K2 (mm8.cu), K3 or K5's head
 //
-// and 4 * L barriers between them. A matvec phase deals its (column tile,
-// split) items over the blocks, at most one each where the card holds them
-// all: qmv.cuh's tile runs as a device function (qmv_run). The assignment
-// is static and the weights are read-only, so each block issues the loads of
-// its next item's weights between arriving at the barrier and leaving it:
-// their memory round trip overlaps the wait, and after the barrier only the
-// activations are staged.
-//
-// Folding a row phase: a LayerNorm and a mix need the whole row of x, which
-// the phase before wrote. So every block of phases A and C computes, from x,
-// the LayerNorm of its batch rows, and the whole rank-1 offset sums and (a8)
-// row maxima of the mixes, with the same code in the same order, so every
-// block gets the same bits (FoldSrc below); it stages the mixes of its own
-// contraction rows from those LayerNormed rows. The [B, E] outputs (new xy
-// and dd, the receptance mix that phase D reads, x after ln0) are written in
-// shares, each element by one block; the receptance mix's [B] offset sum and
-// maximum by block 0.
+// and 4 * L barriers between them. stack.cuh holds the machinery this
+// kernel shares with the tensor-parallel stack (decode_stack_tp.cu, K7):
+// the phase loop (stack_phases: each phase deals its (column tile, split)
+// items over the blocks, qmv.cuh's tile as a device function, the next
+// item's weights copied during the barrier's wait), the split rule, the
+// folded row phases (FoldSrc: every block of phases A and C computes the
+// LayerNorm and whole-row offset sums from x, with the same code, and writes
+// its share of the [B, E] outputs: new xy and dd, the receptance mix that
+// phase D reads, x after ln0; block 0 the receptance mix's [B] offset sum and
+// maximum), the L2 prefetch and the cooperative launch.
 //
 // Every weight byte is read once (qmv.cuh says how). The rank-1 offset sums
 // run over a matrix's whole input dim: the folded phases compute them whole
@@ -83,8 +76,7 @@
 // never modified, as in the JAX function. With a stamp buffer, block 0
 // writes %globaltimer at the start, after each barrier and at its end
 // (4 * L + 2 stamps): tools/decode_profile.py reads the time of each phase.
-#include "grid.cuh"
-#include "row.cuh"
+#include "stack.cuh"
 
 namespace rwkv {
 
@@ -92,7 +84,7 @@ namespace rwkv {
 // (_POINTERS there lists the same names in the same order).
 enum Ptr : int {
   P_TOKENS, P_EMB, P_LN0_W, P_LN0_B, P_LN1_W, P_LN1_B, P_LN2_W, P_LN2_B,
-  P_ATT_MIX_K, P_ATT_MIX_V, P_ATT_MIX_R, P_DECAY, P_BONUS,
+  P_ATT_MIX_K, P_ATT_MIX_V, P_ATT_MIX_R, P_ATT_DECAY, P_ATT_BONUS,
   P_ATT_K_W, P_ATT_K_S, P_ATT_K_O, P_ATT_V_W, P_ATT_V_S, P_ATT_V_O,
   P_ATT_R_W, P_ATT_R_S, P_ATT_R_O, P_ATT_O_W, P_ATT_O_S, P_ATT_O_O,
   P_FFN_MIX_K, P_FFN_MIX_R,
@@ -111,8 +103,7 @@ enum Ptr : int {
   P_COUNT
 };
 
-constexpr int kPhases = 4;         // per layer: A, B, C, D
-constexpr int kMinSplitRows = 16;  // weight rows of the narrowest split
+constexpr int kPhases = 4;  // per layer: A, B, C, D
 
 struct StackArgs {
   void* p[P_COUNT];
@@ -121,22 +112,6 @@ struct StackArgs {
   long long partial_cap;  // floats of split-K partials
   int counter_cap;        // split-K counters; the barrier's words follow them
 };
-
-// Split of the contraction for one matvec phase over G resident blocks: as
-// many (tile, split) items as there are blocks (one each: a second item a
-// block would add a second chain of latencies, measured slower than one long
-// split), within kMaxSplit, the partial scratch, and at least kMinSplitRows
-// weight rows a split.
-__device__ __host__ inline int stack_split(int tiles, int kmax, int nmat, int B, int O,
-                                           long long cap, int counter_cap, int G) {
-  if (tiles >= G || tiles > counter_cap) return 1;
-  int S = G / tiles;
-  S = S < kMaxSplit ? S : kMaxSplit;
-  const int by_rows = kmax / kMinSplitRows > 1 ? kmax / kMinSplitRows : 1;
-  S = S < by_rows ? S : by_rows;
-  while (S > 1 && (long long)S * nmat * B * O > cap) --S;
-  return S;
-}
 
 // The matvec of phase `kind` (0..3: A..D) of layer l, written into q (shared
 // memory, by one thread; no local arrays: local memory lives in L2 here, the
@@ -193,8 +168,8 @@ __device__ void phase_args(QmvArgs& q, const StackArgs& a, int l, int kind, doub
     q.aa_out = f(P_AA_OUT) + lBE;
     q.bb_out = f(P_BB_OUT) + lBE;
     q.pp_out = f(P_PP_OUT) + lBE;
-    q.decay = f(P_DECAY) + lE;
-    q.bonus = f(P_BONUS) + lE;
+    q.decay = f(P_ATT_DECAY) + lE;
+    q.bonus = f(P_ATT_BONUS) + lE;
     q.next_offset = f(P_ATT_O_O) + lE;
     q.next_off = off_out;
     if (a8) {
@@ -237,10 +212,8 @@ __device__ void phase_args(QmvArgs& q, const StackArgs& a, int l, int kind, doub
 // holds (the plain version's bits), within kMaxSplit and the partial scratch.
 template <int FMT>
 __device__ __forceinline__ int phase_split(const StackArgs& a, const QmvArgs& q) {
-  int kmax = 0;
-  for (int m = 0; m < q.nmat; ++m) kmax = max(kmax, mat_rows<FMT>(q.m[m]));
-  int S = stack_split((q.O + kTileO - 1) / kTileO, kmax, q.nmat, a.B, q.O, a.partial_cap,
-                      a.counter_cap, gridDim.x);
+  int S = stack_split((q.O + kTileO - 1) / kTileO, qmv_kmax<FMT>(q), q.nmat, a.B, q.O,
+                      a.partial_cap, a.counter_cap, gridDim.x);
   if constexpr (FMT == kA8) {
     while (!qmv_short<FMT>(q, S) && !a8_exact_long<FMT>(q, S) && S < kMaxSplit &&
            (long long)(S + 1) * q.nmat * a.B * q.O <= a.partial_cap)
@@ -248,151 +221,6 @@ __device__ __forceinline__ int phase_split(const StackArgs& a, const QmvArgs& q)
   }
   return S;
 }
-
-// The source of phases A and C: matrices [0, nfold) read token-shift mixes
-// of the LayerNormed rows xx, which prologue() computes for every batch
-// group from x (A of layer 0: from the embedding rows, after ln0), with the
-// whole-row rank-1 terms (offs) and a8 maxima (amax) of all nmix mixes, in
-// shared memory. A block's first item also writes its share [lo, hi) of the
-// rows' [B, E] outputs (x after ln0, prev_out, and in C the receptance mix
-// fr_out) and, on block 0, the receptance mix's offset term and maximum.
-template <int BT, bool EXACT>
-struct FoldSrc {
-  using acc_t = std::conditional_t<EXACT, double, float>;
-  int E, B, nfold, nmix, lo, hi;
-  const int* tokens;  // layer 0: gather + ln0 first
-  const float* emb;
-  const float* ln0_w;
-  const float* ln0_b;
-  float* resid;       // [B, E] x, the residual stream
-  const float* ln_w;
-  const float* ln_b;
-  const float* prev;  // [B, E] xy or dd before the step
-  float* prev_out;
-  const float* mix[3];
-  const float* offset[3];
-  const float* qscale[3];
-  float* fr_out;      // C: [B, E] the receptance mix, or null
-  double* fr_off;     // C, block 0: [B] its rank-1 term, or null
-  float* fr_amax;     // C, block 0, a8: [B] its maximum
-  int n_emb;
-  float* xx;          // shared: [BT, E]
-  double* offs;       // shared: [3, B]
-  float* amax;        // shared: [3, B]
-  acc_t* ascratch;    // shared: 3 * BT * 33
-  float* fscratch;    // shared: 3 * BT * 33
-
-  __device__ __forceinline__ bool local(int m) const { return m < nfold; }
-
-  __device__ __forceinline__ float x(const Mat& mt, int m, int b, int bi, int k) const {
-    if (m < nfold) return token_mix<EXACT>(mix[m][k], xx[bi * E + k], prev[(size_t)b * E + k]);
-    return __ldcg(mt.x + (size_t)b * mt.K + k);
-  }
-
-  __device__ __forceinline__ void prologue(int b0, int nb) const {
-    const int tid = threadIdx.x, E4 = E / 4;  // E % 16 == 0: rows of float4
-    // the source rows, float4 at a time, kRowLoads loads in flight a thread
-    constexpr int kRowLoads = 4;
-    for (int base = tid; base < nb * E4; base += kRowLoads * kThreads) {
-      float4 t[kRowLoads];
-#pragma unroll
-      for (int u = 0; u < kRowLoads; ++u) {
-        const int i = base + u * kThreads, bi = i / E4, k4 = i - bi * E4;
-        t[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < nb * E4) {
-          if (tokens) {
-            int tk = tokens[b0 + bi];
-            tk = tk < 0 ? 0 : (tk >= n_emb ? n_emb - 1 : tk);  // clamp like a gather
-            t[u] = reinterpret_cast<const float4*>(emb + (size_t)tk * E)[k4];
-          } else {
-            t[u] = __ldcg(reinterpret_cast<const float4*>(resid + (size_t)(b0 + bi) * E) + k4);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kRowLoads; ++u) {
-        const int i = base + u * kThreads;
-        if (i < nb * E4) reinterpret_cast<float4*>(xx)[i] = t[u];
-      }
-    }
-    __syncthreads();
-    const int w = hi - lo;
-    if (tokens) {
-      rows_layer_norm<EXACT, BT>(xx, nb, E, E, ln0_w, ln0_b, ascratch);
-      for (int i = tid; i < nb * w; i += kThreads) {
-        const int bi = i / w, k = lo + i - bi * w;
-        resid[(size_t)(b0 + bi) * E + k] = xx[bi * E + k];
-      }
-    }
-    rows_layer_norm<EXACT, BT>(xx, nb, E, E, ln_w, ln_b, ascratch);
-    for (int i = tid; i < nb * w; i += kThreads) {
-      const int bi = i / w, k = lo + i - bi * w;
-      const size_t g = (size_t)(b0 + bi) * E + k;
-      prev_out[g] = xx[bi * E + k];
-      if (fr_out) fr_out[g] = token_mix<EXACT>(mix[1][k], xx[bi * E + k], prev[g]);
-    }
-
-    acc_t sums[3 * BT];  // EXACT: exact products, summed in double
-    float maxes[3 * BT];
-#pragma unroll
-    for (int j = 0; j < 3 * BT; ++j) {
-      sums[j] = 0;
-      maxes[j] = 0.f;
-    }
-    for (int i4 = tid; i4 < E4; i4 += kThreads) {
-      // four elements a thread, every load first (predicated, no early
-      // exit), so they share one memory round trip
-      float4 xv[BT], pv[BT], mj[3], oj[3], qj[3];
-#pragma unroll
-      for (int bi = 0; bi < BT; ++bi) {
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        xv[bi] = bi < nb ? reinterpret_cast<const float4*>(xx + bi * E)[i4] : z;
-        pv[bi] = bi < nb ? reinterpret_cast<const float4*>(prev + (size_t)(b0 + bi) * E)[i4] : z;
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        mj[j] = j < nmix ? reinterpret_cast<const float4*>(mix[j])[i4] : z;
-        oj[j] = j < nmix ? reinterpret_cast<const float4*>(offset[j])[i4] : z;
-        qj[j] = EXACT && j < nmix ? reinterpret_cast<const float4*>(qscale[j])[i4] : z;
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int bi = 0; bi < BT; ++bi) {
-          if (j >= nmix || bi >= nb) continue;
-          const float xs[4] = {xv[bi].x, xv[bi].y, xv[bi].z, xv[bi].w};
-          const float ps[4] = {pv[bi].x, pv[bi].y, pv[bi].z, pv[bi].w};
-          const float ms[4] = {mj[j].x, mj[j].y, mj[j].z, mj[j].w};
-          const float os[4] = {oj[j].x, oj[j].y, oj[j].z, oj[j].w};
-          const float qs[4] = {qj[j].x, qj[j].y, qj[j].z, qj[j].w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float m = token_mix<EXACT>(ms[e], xs[e], ps[e]);
-            sums[j * BT + bi] += (acc_t)m * (acc_t)os[e];
-            if constexpr (EXACT) maxes[j * BT + bi] = fmaxf(maxes[j * BT + bi], fabsf(m * qs[e]));
-          }
-        }
-    }
-    block_sums<3 * BT>(sums, ascratch);
-    if constexpr (EXACT) block_maxes<3 * BT>(maxes, fscratch);
-    if (tid == 0) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int bi = 0; bi < BT; ++bi) {
-          if (j >= nmix || bi >= nb) continue;
-          offs[j * B + b0 + bi] = (double)sums[j * BT + bi];
-          amax[j * B + b0 + bi] = maxes[j * BT + bi];
-          if (j == 1 && fr_off) {
-            fr_off[b0 + bi] = (double)sums[j * BT + bi];
-            if constexpr (EXACT) fr_amax[b0 + bi] = maxes[j * BT + bi];
-          }
-        }
-    }
-    __syncthreads();
-  }
-};
 
 // The fold source of phase A (att) or C (ffn) of layer l, written into src
 // (shared memory, by one thread).
@@ -428,58 +256,68 @@ __device__ void fold_src(FoldSrc<BT, EXACT>& src, const StackArgs& a, int l, boo
   src.fr_amax = f(P_AMAX);
 }
 
-// L2 prefetch of `floats` floats at p, the 128-byte lines dealt over every
-// thread of the grid (most threads take none).
-__device__ __forceinline__ void prefetch_l2(const float* p, size_t floats) {
-  if (!p) return;
-  const size_t lines = (floats * sizeof(float) + 127) / 128, step = (size_t)gridDim.x * kThreads;
-  for (size_t j = blockIdx.x + (size_t)gridDim.x * threadIdx.x; j < lines; j += step)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + j * 32));
-}
+// The plan of decode_stack_kernel's phase loop (stack.cuh's stack_phases):
+// threads 0 and 32 (two warps, at once) describe phase ph into the shared q
+// and src; then every thread reads them.
+template <int BT, int FMT>
+struct StackPlan {
+  static constexpr bool EXACT = FMT == kA8;
+  using Fold = FoldSrc<BT, EXACT>;
+  using acc_t = typename Fold::acc_t;
+  const StackArgs& a;
+  QmvArgs& q;  // shared: the current phase's matvec
+  Fold& s;     // shared: its fold source (phases A and C)
+  float* xx;
+  double* offs;
+  float* amax;
+  acc_t* ascratch;
+  float* fscratch;
+  Stamps stamps;
+  int kind, S, n_items;
 
-// The small inputs of phase q (and its fold source): scales, norms, mixes,
-// offsets, the state and the epilogue's vectors, into L2 while the grid
-// waits at the barrier before it; else each is a DRAM round trip in the
-// phase's chain, the weights streaming past having evicted it since the
-// last step.
-template <int BT, bool EXACT>
-__device__ __forceinline__ void prefetch_phase(const QmvArgs& q, const FoldSrc<BT, EXACT>& src,
-                                               bool fold, int E) {
-  const size_t BE = (size_t)q.B * E;
-  for (int m = 0; m < q.nmat; ++m) prefetch_l2(q.m[m].scale, q.m[m].K);
-  prefetch_l2(q.aa_in, BE);
-  prefetch_l2(q.bb_in, BE);
-  prefetch_l2(q.pp_in, BE);
-  prefetch_l2(q.decay, E);
-  prefetch_l2(q.bonus, E);
-  prefetch_l2(q.next_offset, q.O);
-  prefetch_l2(q.next_scale, q.O);
-  if (fold) {
-    prefetch_l2(src.ln_w, E);
-    prefetch_l2(src.ln_b, E);
-    prefetch_l2(src.prev, BE);
-    for (int j = 0; j < src.nmix; ++j) {
-      prefetch_l2(src.mix[j], E);
-      prefetch_l2(src.offset[j], E);
+  __device__ __forceinline__ void describe(int ph) {
+    const int tid = threadIdx.x;
+    kind = ph % kPhases;
+    if (tid == 0) phase_args<FMT>(q, a, ph / kPhases, kind, offs, amax);
+    if (tid == 32 && fold()) {
+      fold_src<BT, EXACT>(s, a, ph / kPhases, kind == 0);
+      s.xx = xx;
+      s.offs = offs;
+      s.amax = amax;
+      s.ascratch = ascratch;
+      s.fscratch = fscratch;
     }
+    __syncthreads();
+    S = phase_split<FMT>(a, q);
+    n_items = (q.O + kTileO - 1) / kTileO * S;
   }
-}
-
-// Bytes of the matvec tile's shared memory, rounded up to 16.
-template <int BT, int FMT>
-constexpr size_t kStackQmvBytes = (sizeof(QmvSmem<BT, FMT>) + 15) / 16 * 16;
-
-constexpr size_t kWeightSlots = (size_t)kMaxMats * kUnroll * kThreads;  // 16-byte slots an item
-
-// Dynamic shared memory of decode_stack_kernel<BT, FMT>: the matvec tile,
-// the weights of the block's next item (cp.async: all of a short split, the
-// first 128-row group of a long one), BT LayerNormed rows (the head phase's
-// row too), then the folded mixes' [3, B] offset terms and maxima.
-template <int BT, int FMT>
-inline size_t stack_smem(int E, int B) {
-  return kStackQmvBytes<BT, FMT> + kWeightSlots * sizeof(int4) + (size_t)BT * E * sizeof(float) +
-         3 * (size_t)B * (sizeof(double) + sizeof(float));
-}
+  __device__ __forceinline__ int items() const { return n_items; }
+  __device__ __forceinline__ bool fold() const { return kind == 0 || kind == 2; }
+  __device__ __forceinline__ const QmvArgs& item(int it, int& tile, int& sp, int& Sp) const {
+    tile = it / S;
+    sp = it % S;
+    Sp = S;
+    return q;
+  }
+  // the first item writes this block's share of the rows' outputs
+  __device__ __forceinline__ void fold_item(int, int r) {
+    const int G = gridDim.x, writers = n_items < G ? n_items : G;
+    const int chunk = (a.E + writers - 1) / writers;
+    if (threadIdx.x == 0) {
+      s.lo = r == 0 ? min(a.E, (int)blockIdx.x * chunk) : 0;
+      s.hi = r == 0 ? min(a.E, s.lo + chunk) : 0;
+      if (r) s.fr_out = nullptr;
+      if (r || blockIdx.x) s.fr_off = nullptr;
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ const Fold& src() const { return s; }
+  __device__ __forceinline__ void prefetch() const {
+    prefetch_qmv(q);
+    if (fold()) prefetch_fold(s);
+  }
+  __device__ __forceinline__ void stamp() { stamps(); }
+};
 
 // One block a SM: the whole matvec path is inlined (qmv.cuh's INL) and holds
 // up to 255 registers without a spill; two blocks a SM (128 registers) spilled
@@ -491,84 +329,19 @@ __global__ void __launch_bounds__(kThreads, 1) decode_stack_kernel(const __grid_
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ acc_t ascratch[3 * BT * 33];
   __shared__ float fscratch[3 * BT * 33];
-  __shared__ QmvArgs q;                 // the current phase's matvec, built by thread 0
-  __shared__ FoldSrc<BT, EXACT> src;    // its fold source (phases A and C)
-  QmvSmem<BT, FMT>& sm = *reinterpret_cast<QmvSmem<BT, FMT>*>(smem);
-  int4* wsm = reinterpret_cast<int4*>(smem + kStackQmvBytes<BT, FMT>);
-  float* xx = reinterpret_cast<float*>(wsm + kWeightSlots);
-  double* offs = reinterpret_cast<double*>(xx + (size_t)BT * a.E);  // E % 16 == 0: aligned
-  float* amax = reinterpret_cast<float*>(offs + 3 * (size_t)a.B);
+  __shared__ QmvArgs q;
+  __shared__ FoldSrc<BT, EXACT> src;
+  StackSmem<BT, FMT> m;
+  m.carve(smem, a.E, a.B);
 
-  const int L = a.L, B = a.B, E = a.E, G = gridDim.x, tid = threadIdx.x;
+  const int B = a.B, E = a.E, G = gridDim.x;
   auto f = [&](int i) { return static_cast<float*>(a.p[i]); };
   GridBarrier bar;
   bar.init(static_cast<unsigned*>(a.p[P_COUNTERS]) + a.counter_cap, G);
-  unsigned long long* stamps = static_cast<unsigned long long*>(a.p[P_STAMPS]);
-  int n_stamp = 0;
-  auto stamp = [&]() {
-    if (stamps && blockIdx.x == 0 && tid == 0) stamps[n_stamp] = globaltimer();
-    ++n_stamp;
-  };
-  stamp();
-
-  // threads 0 and 32 (two warps, at once) describe phase ph; then every
-  // thread may read q and src
-  auto describe = [&](int ph) {
-    if (tid == 0) phase_args<FMT>(q, a, ph / kPhases, ph % kPhases, offs, amax);
-    if (tid == 32) {
-      if (ph % kPhases == 0 || ph % kPhases == 2) {
-        fold_src<BT, EXACT>(src, a, ph / kPhases, ph % kPhases == 0);
-        src.xx = xx;
-        src.offs = offs;
-        src.amax = amax;
-        src.ascratch = ascratch;
-        src.fscratch = fscratch;
-      }
-    }
-    __syncthreads();
-  };
-  auto split = [&]() { return phase_split<FMT>(a, q); };
-
-  describe(0);
-  bool loaded = false;  // wsm holds this block's first item of the phase
-  for (int ph = 0; ph < kPhases * L; ++ph) {
-    const int kind = ph % kPhases;
-    const int S = split();
-    const int items = (q.O + kTileO - 1) / kTileO * S;
-    if (kind == 0 || kind == 2) {
-      const int writers = items < G ? items : G;
-      const int chunk = (E + writers - 1) / writers;
-      for (int it = blockIdx.x, r = 0; it < items; it += G, ++r) {
-        // the first item writes this block's share of the rows' outputs
-        if (tid == 0) {
-          src.lo = r == 0 ? min(E, (int)blockIdx.x * chunk) : 0;
-          src.hi = r == 0 ? min(E, src.lo + chunk) : 0;
-          if (r) src.fr_out = nullptr;
-          if (r || blockIdx.x) src.fr_off = nullptr;
-        }
-        __syncthreads();
-        qmv_run<BT, FMT, FoldSrc<BT, EXACT>, true>(q, it / S, it % S, S, sm, wsm,
-                                                   loaded && r == 0, src);
-      }
-    } else {
-      for (int it = blockIdx.x, r = 0; it < items; it += G, ++r)
-        qmv_run<BT, FMT, GlobalSrc, true>(q, it / S, it % S, S, sm, wsm, loaded && r == 0,
-                                          GlobalSrc());
-    }
-    loaded = false;
-    bar.arrive();
-    if (ph + 1 < kPhases * L) {  // the next phase's inputs, fetched during the wait
-      describe(ph + 1);
-      prefetch_phase(q, src, (ph + 1) % kPhases == 0 || (ph + 1) % kPhases == 2, E);
-      const int Sn = split();
-      if ((int)blockIdx.x < (q.O + kTileO - 1) / kTileO * Sn) {
-        qmv_load_async<FMT>(q, blockIdx.x / Sn, blockIdx.x % Sn, Sn, wsm);
-        loaded = true;
-      }
-    }
-    bar.wait();
-    stamp();
-  }
+  StackPlan<BT, FMT> plan{a, q, src, m.xx, m.offs, m.amax, ascratch, fscratch,
+                          Stamps{static_cast<unsigned long long*>(a.p[P_STAMPS]), 0}};
+  plan.stamp();
+  stack_phases<BT, FMT>(plan, kPhases * a.L, true, bar, *m.sm, m.wsm);
 
   RowArgs rh = {};
   rh.mode = ROW_HEAD;
@@ -584,63 +357,19 @@ __global__ void __launch_bounds__(kThreads, 1) decode_stack_kernel(const __grid_
   rh.xs_h = f(P_XS_H);
   rh.amax[0] = EXACT ? f(P_AMAX) + B : nullptr;
   bar.finish();
-  for (int b = blockIdx.x; b < B; b += G) row_run<EXACT>(rh, b, xx, fscratch, ascratch);
-  stamp();
+  for (int b = blockIdx.x; b < B; b += G) row_run<EXACT>(rh, b, m.xx, fscratch, ascratch);
+  plan.stamp();
 }
-
-// Blocks of one decode_stack_kernel<BT, FMT> launch on the current device
-// (occupancy per SM times the SMs), after allowing its shared memory.
-template <int BT, int FMT>
-cudaError_t stack_grid(int E, int B, int* grid, size_t* smem) {
-  auto kern = decode_stack_kernel<BT, FMT>;
-  *smem = stack_smem<BT, FMT>(E, B);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)*smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, *smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *grid = per_sm * sms;
-  return cudaSuccess;
-}
-
-template <int BT, int FMT>
-cudaError_t launch_stack(const StackArgs& a, cudaStream_t st, int* grid) {
-  size_t smem = 0;
-  cudaError_t e = stack_grid<BT, FMT>(a.E, a.B, grid, &smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // not left behind for the next launch's check
-    return e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(*grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  void* args[] = {const_cast<StackArgs*>(&a)};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decode_stack_kernel<BT, FMT>), args);
-  const cudaError_t last = cudaGetLastError();  // read either way: nothing left behind
-  return e != cudaSuccess ? e : last;
-}
-
-// Batch rows a group: 1, 2 or 4.
-inline int stack_bt(int B) { return B <= 1 ? 1 : (B <= 2 ? 2 : 4); }
 
 template <int FMT>
 cudaError_t launch_stack_fmt(const StackArgs& a, cudaStream_t st, int* grid) {
   const int bt = stack_bt(a.B);
-  if (bt == 1) return launch_stack<1, FMT>(a, st, grid);
-  if (bt == 2) return launch_stack<2, FMT>(a, st, grid);
-  return launch_stack<4, FMT>(a, st, grid);
+#define RWKV_LAUNCH(BT_) \
+  coop_launch(decode_stack_kernel<BT_, FMT>, a, stack_smem<BT_, FMT>(a.E, a.B), st, grid)
+  if (bt == 1) return RWKV_LAUNCH(1);
+  if (bt == 2) return RWKV_LAUNCH(2);
+  return RWKV_LAUNCH(4);
+#undef RWKV_LAUNCH
 }
 
 // N grid barriers and nothing else, at a given grid (tools/qmv_probe.py).
@@ -664,11 +393,11 @@ extern "C" int rwkv_decode_stack_pointer_count() { return P_COUNT; }
 // Blocks of the step's launch at batch B and width E, in *grid: q4 and a8
 // select the instantiation. Returns the first CUDA error (0 if none).
 extern "C" int rwkv_decode_stack_grid(int B, int E, int q4, int a8, int* grid) {
-  size_t smem = 0;
   const int fmt = a8 ? kA8 : (q4 ? kQ4 : kQ8);
   const int bt = stack_bt(B);
   cudaError_t e = cudaErrorInvalidValue;
-#define RWKV_GRID(BT_, F_) if (bt == BT_ && fmt == F_) e = stack_grid<BT_, F_>(E, B, grid, &smem)
+#define RWKV_GRID(BT_, F_) \
+  if (bt == BT_ && fmt == F_) e = coop_grid(decode_stack_kernel<BT_, F_>, stack_smem<BT_, F_>(E, B), grid)
   RWKV_GRID(1, kQ8); RWKV_GRID(2, kQ8); RWKV_GRID(4, kQ8);
   RWKV_GRID(1, kQ4); RWKV_GRID(2, kQ4); RWKV_GRID(4, kQ4);
   RWKV_GRID(1, kA8); RWKV_GRID(2, kA8); RWKV_GRID(4, kA8);

@@ -1,5 +1,5 @@
 // One tensor-parallel decode step of every model shard of a data row, q8 or
-// q4 (kernel K7).
+// q4 (kernel K7), in one persistent, cooperative launch.
 //
 // Replaces rwkv_tpu/ops/pallas/decode_stack_tp.py:_decode_stack_tp_kernel,
 // reached through decode_stack_tp() from the "fused" body of
@@ -13,62 +13,64 @@
 // columns [E, V_loc] and the embedding's rows [V_loc, E]. The TPU kernel runs
 // one shard's whole step as one grid on each chip and exchanges the partials
 // between chips by remote DMAs inside it. Here all shards of a data row lie
-// on one card, and one host call, rwkv_decode_stack_tp(), enqueues the whole
-// step of all of them on one stream: 7 * L + 2 launches whatever tp is.
+// on one card, and the whole step of all of them is one cooperative launch,
+// built on the unsharded stack's machinery (stack.cuh, decode_stack.cu):
+// 4 * L + 1 phases behind 4 * L grid barriers, the shard one more index of a
+// phase's items (family, shard, column tile, split),
 //
-//   per layer:
-//   1. row_kernel ATT : (row.cuh) completes the previous layer's ffn exchange,
-//                       x += gate * (vpart[0] + ... + vpart[tp-1]) (layer 0:
-//                       the vocab-sharded embedding gather, its sum over the
-//                       shards and ln0, or a given x), then ln1 + mix -> the
-//                       k/v/r inputs, the new xy
-//   2. qmv  k,v,r     : every shard's three column-parallel matvecs on its
-//                       E_loc channels + the WKV step on its aa/bb/pp slices
-//   3. qmv  output    : every shard's row-parallel out-projection PARTIAL
-//                       [B, E], its offset share folded in
-//   4. row_kernel FFN : x += apart[0] + ... + apart[tp-1]; ln2 + mix, new dd
-//   5. qmv  gate      : every shard's sigmoid(receptance) on its E_loc channels
-//   6. qmv  key       : every shard's relu(key)^2 on its F_loc channels
-//   7. qmv  value     : every shard's row-parallel value PARTIAL [B, E]
-//   then one row_kernel HEAD (the last ffn exchange, ln_out, the head's
-//   scaled input and offset term) and one qmv over every shard's V_loc head
-//   columns: the local logits, no logit bias (the caller adds its slice and
-//   gathers them).
+//   A. the previous layer's ffn exchange, x += gate * (vpart[0] + ... +
+//      vpart[tp-1]) (layer 0: the vocab-sharded embedding gather summed over
+//      the shards, then ln0; or a given x), ln1 + mix folded in: every
+//      shard's k/v/r on its E_loc channels + the WKV step on its aa/bb/pp
+//      slices -> sigmoid(r) * y
+//   B. every shard's out-projection PARTIAL [B, E], its offset share folded in
+//   C. the att exchange, x += apart[0] + ... + apart[tp-1], ln2 + mix folded
+//      in: every shard's relu(key)^2 on its F_loc channels; the receptance
+//      mix and its rank-1 term written for D
+//   D. every shard's value PARTIAL [B, E], and, as items of their own
+//      family, its gate sigmoid(receptance) on its E_loc channels (the
+//      gate's O is E_loc, the value's E, and one matvec's matrices share O;
+//      the blocks are dealt to the two by their bytes). The unsharded stack
+//      runs the gate in D too: in C beside the key, on the same blocks, it
+//      lengthened the key's splits, measured slower (PERF.md)
+//   H. the last ffn exchange, ln_out folded in: every shard's V_loc head
+//      columns, its local logits with no logit bias (the caller adds its
+//      slice and gathers them)
 //
-// The exchange. Each matvec launch's grid is (column tiles, split, shard):
-// the shards run at once, each with its own split-K partials, counters and
-// output slices, so nothing is shared between them but the inputs they read.
-// The launch order on the stream is the barrier between the producers of the
-// partials and their consumer: the next row kernel reads the tp partials in
-// the fixed order 0..tp-1, as the JAX kernel sums the received chunks in
-// sender order, so every shard's x is the same bits. The replicated state
-// (x, xy, dd, and the column families' inputs and offset terms) is computed
-// once per data row by the row kernel, never as racing identical stores: the
-// row kernels read shard 0's replicated vectors. A row-parallel family's
-// rank-1 offset term is the sum over its shard's contraction slice, which the
-// producing epilogue leaves per column tile (next_off), so each shard's
-// partial carries its share and the sum of partials is the partial of the sum.
+// The exchange is part of the fold: every block of A, C and H sums the tp
+// partials in the fixed order 0..tp-1, with the same code (FoldSrc's
+// tp_rows4), as the JAX kernel sums the received chunks in sender order, so
+// every block gets the same bits, and each element of x, xy and dd is written
+// by one owner. x lives in two buffers: A reads x and writes x_mid, C reads
+// x_mid and writes x, H reads x, so no phase writes the x it reads. A
+// row-parallel family's rank-1 offset term is the sum over its shard's
+// contraction slice, which the producing epilogue leaves per column tile
+// (next_off), so each shard's partial carries its share and the sum of
+// partials is the partial of the sum.
 //
-// q4 (kernel K7 over packed weights): the same launches through qmv.cuh's Q4
-// instantiation. The column families and the head pair rows globally over
-// K = E; att.output and ffn.value pair within their block, which lies whole
-// inside a shard (halves[] below).
+// Each shard keeps its own split-K partials and counters (the shards' items
+// run in one phase at once); phase D's two families have a half each. The
+// grid barrier's words follow the tp sets of counters, and the launch leaves
+// all of them at zero, so a CUDA graph may replay it. With a stamp buffer,
+// block 0 writes %globaltimer at the start, after each barrier and at its
+// end (4 * L + 2 stamps).
+//
+// q4 (kernel K7 over packed weights): qmv.cuh's Q4 instantiation. The column
+// families and the head pair rows globally over K = E; att.output and
+// ffn.value pair within their block, which lies whole inside a shard
+// (halves[] below).
 //
 // Bound on the card: the weight bytes of all shards per step, read once,
 // over device memory bandwidth: at 430M, 379 MB in q8 and 189.5 MB in q4,
-// head included: 0.113 and 0.057 ms on a 3.35 TB/s card. The launch design
-// does what K1 does about it (qmv.cuh: every weight byte read once, the
-// contraction split so that a launch fills the card, the launches of a step
-// from one host call); the shards share each launch's blocks, so at tp > 1
-// a launch covers the shards' slices at once, not tp launches one after the
-// other.
+// head included: 0.113 and 0.057 ms on a 3.35 TB/s card. At tp = 1 it reads
+// what K1 + K2 read, and runs K1's phases (its gate with the key, and the
+// head in the launch).
 //
 // Left for a machine with two or more GPUs: the shards of a data row on
-// distinct cards. The exchanges then cross cards: NCCL collectives between
-// launches, or peer stores from the producing epilogues with a flag per
-// shard; and a persistent kernel with grid-wide barriers would take the
-// launch boundaries out. The wrapper refuses such a row.
-#include "row.cuh"
+// distinct cards. The exchanges then cross cards: peer stores from the
+// producing epilogues with a flag per shard in place of the grid barrier.
+// The wrapper refuses such a row.
+#include "stack.cuh"
 
 namespace rwkv {
 
@@ -76,100 +78,319 @@ namespace rwkv {
 // (_SHARED and _SHARD there list the same names in the same order): the
 // data row's pointers, then tp blocks of one shard's.
 enum SharedPtr : int {
-  S_TOKENS, S_X_IN, S_X, S_XK, S_XV, S_XR, S_FK, S_FR, S_XS_H, S_OFF_H,
-  S_OFFS,       // [5, B] double: rank-1 terms of k, v, r, ffn key, ffn receptance
+  S_TOKENS, S_X_IN,
+  S_X, S_X_MID,       // [B, E] x before ln1 (after the att exchange) and before ln2
   S_XY_IN, S_DD_IN, S_XY_OUT, S_DD_OUT,
-  S_APART, S_VPART,  // [tp, B, E] partials
-  S_GATE, S_RWKV,    // [tp, B, E_loc]
-  S_KK,              // [tp, B, F_loc]
+  S_APART, S_VPART,   // [tp, B, E] partials
+  S_GATE, S_RWKV,     // [tp, B, E_loc]
+  S_KK,               // [tp, B, F_loc]
+  S_FR,               // [B, E] the receptance mix, C -> D
+  S_FR_OFF,           // [B] double: its rank-1 term
   S_OFF_PARTS,  // [tp, E_loc / 128 + F_loc / 128, B] double: per-tile offset shares
   S_LOGITS,     // [tp, B, V_loc]
-  S_PARTIAL, S_COUNTERS,  // tp times partial_cap floats, counter_cap ints
+  S_PARTIAL,    // tp times partial_cap floats
+  S_COUNTERS,   // tp times counter_cap ints, then the barrier's kBarrierWords
+  S_STAMPS,     // [4 L + 2] u64 %globaltimer stamps, or null
   S_COUNT
 };
 
 enum ShardPtr : int {
   D_EMB, D_LN0_W, D_LN0_B, D_LN1_W, D_LN1_B, D_LN2_W, D_LN2_B,
-  D_MIX_K, D_MIX_V, D_MIX_R, D_FMIX_K, D_FMIX_R,
-  D_K_W, D_K_S, D_K_O, D_V_W, D_V_S, D_V_O, D_R_W, D_R_S, D_R_O, D_O_W, D_O_S, D_O_O,
-  D_FK_W, D_FK_S, D_FK_O, D_FV_W, D_FV_S, D_FV_O, D_FR_W, D_FR_S, D_FR_O,
+  D_ATT_MIX_K, D_ATT_MIX_V, D_ATT_MIX_R, D_FFN_MIX_K, D_FFN_MIX_R,
+  D_ATT_K_W, D_ATT_K_S, D_ATT_K_O, D_ATT_V_W, D_ATT_V_S, D_ATT_V_O,
+  D_ATT_R_W, D_ATT_R_S, D_ATT_R_O, D_ATT_O_W, D_ATT_O_S, D_ATT_O_O,
+  D_FFN_K_W, D_FFN_K_S, D_FFN_K_O, D_FFN_V_W, D_FFN_V_S, D_FFN_V_O,
+  D_FFN_R_W, D_FFN_R_S, D_FFN_R_O,
   D_LN_OUT_W, D_LN_OUT_B, D_HEAD_W, D_HEAD_S, D_HEAD_O,
   D_DECAY, D_BONUS,
-  D_AA_IN, D_BB_IN, D_PP_IN, D_AA_OUT, D_BB_OUT, D_PP_OUT,
+  D_AA, D_BB, D_PP, D_AA_OUT, D_BB_OUT, D_PP_OUT,
   D_COUNT
 };
 
 // The matrix families in the order of rwkv_decode_stack_tp()'s halves[].
 enum Fam : int { H_K, H_V, H_R, H_O, H_FK, H_FV, H_FR, H_HEAD, H_COUNT };
 
-struct Step {
-  void* const* p;
-  int tp, B, E, El, Fl, Vl, q4;
-  const int* halves;
-  long long partial_cap;
-  int counter_cap, target_blocks;
-  cudaStream_t st;
-  int* n_launched;
+constexpr int kTpPhases = 4;  // per layer: A, B, C, D; then H
+constexpr int kHead = 4;      // the kind of phase H
+constexpr int kMaxFams = 2;   // matrix families of one phase (D: value and gate)
 
-  float* f(int i) const { return static_cast<float*>(p[i]); }
-  double* d(int i) const { return static_cast<double*>(p[i]); }
-  // shard j's pointer i
-  float* sf(int j, int i) const { return static_cast<float*>(p[S_COUNT + j * D_COUNT + i]); }
-  const int8_t* sw(int j, int i) const {
-    return static_cast<const int8_t*>(p[S_COUNT + j * D_COUNT + i]);
-  }
-  // weight bytes of a [K, O] layer matrix: q4 packs two codes a byte
-  size_t wbytes(size_t K, size_t O) const { return K * O / (q4 ? 2 : 1); }
-  // shard j's offset shares: att.output's [El / 128, B], then ffn.value's
-  double* att_parts(int j) const {
-    const int tiles = (El + kTileO - 1) / kTileO + (Fl + kTileO - 1) / kTileO;
-    return d(S_OFF_PARTS) + (size_t)j * tiles * B;
-  }
-  double* val_parts(int j) const { return att_parts(j) + (size_t)((El + kTileO - 1) / kTileO) * B; }
-
-  QmvArgs qmv(int j, int nmat, int O, int epi, float* out) const {
-    QmvArgs q = {};
-    q.nmat = nmat;
-    q.B = B;
-    q.O = O;
-    q.epi = epi;
-    q.out = out;
-    q.partial = f(S_PARTIAL) + (size_t)j * partial_cap;
-    q.counters = static_cast<int*>(p[S_COUNTERS]) + (size_t)j * counter_cap;
-    return q;
-  }
-  Mat mat(const float* x, const float* s, const double* off, int n_off, const int8_t* w, int K,
-          int fam) const {
-    Mat m = {};
-    m.x = x;
-    m.scale = s;
-    m.off = off;
-    m.n_off = n_off;
-    m.w = w;
-    m.K = K;
-    m.half = q4 ? halves[fam] : K / 2;
-    return m;
-  }
-  RowArgs row(int mode) const {
-    RowArgs r = {};
-    r.mode = mode;
-    r.B = B;
-    r.E = E;
-    r.x = f(S_X);
-    r.tp = tp;
-    r.El = El;
-    return r;
-  }
-  int done(cudaError_t e) const {  // after each launch
-    ++*n_launched;
-    return (int)e;
-  }
-  int rows(const RowArgs& r) const { return done(launch_rows<false>(r, st)); }
-  int matvec(const QmvShards& q) const {
-    return done(q4 ? launch_qmv_shards<kQ4>(q, tp, partial_cap, counter_cap, target_blocks, st)
-                   : launch_qmv_shards<kQ8>(q, tp, partial_cap, counter_cap, target_blocks, st));
-  }
+struct TpArgs {
+  void* p[S_COUNT + kMaxShards * D_COUNT];
+  int tp, L, B, E, El, Fl, Vl, n_emb;
+  int halves[H_COUNT];
+  long long partial_cap;  // floats of split-K partials a shard
+  int counter_cap;        // split-K counters a shard
 };
+
+__device__ __forceinline__ float* tp_f(const TpArgs& a, int i) {
+  return static_cast<float*>(a.p[i]);
+}
+
+__device__ __forceinline__ double* tp_d(const TpArgs& a, int i) {
+  return static_cast<double*>(a.p[i]);
+}
+
+// shard j's pointer i
+__device__ __forceinline__ void* tp_shard(const TpArgs& a, int j, int i) {
+  return a.p[S_COUNT + j * D_COUNT + i];
+}
+
+// The matvec of family f, shard j, in phase `kind` (0..3: A..D, kHead: H)
+// of layer l, written into q (shared memory, by one thread). offs_sm: the
+// folded mixes' rank-1 terms in shared memory, [3, B].
+template <int FMT>
+__device__ void tp_phase_args(QmvArgs& q, const TpArgs& a, int l, int kind, int f, int j,
+                              double* offs_sm) {
+  const int B = a.B, E = a.E, El = a.El, Fl = a.Fl;
+  const bool q4 = FMT == kQ4;
+  auto sf = [&](int i) { return static_cast<float*>(tp_shard(a, j, i)); };
+  auto sw = [&](int i, size_t K, size_t O) {  // layer l of a [L, K, O] weight
+    return static_cast<const int8_t*>(tp_shard(a, j, i)) + l * (K * O / (q4 ? 2 : 1));
+  };
+  const int tiles_el = (El + kTileO - 1) / kTileO, tiles_fl = (Fl + kTileO - 1) / kTileO;
+  double* att_parts = tp_d(a, S_OFF_PARTS) + (size_t)j * (tiles_el + tiles_fl) * B;
+  double* val_parts = att_parts + (size_t)tiles_el * B;
+  const size_t lE = (size_t)l * E, lEl = (size_t)l * El, lFl = (size_t)l * Fl;
+
+  q = QmvArgs{};
+  q.B = B;
+  q.nmat = 1;
+  q.partial = tp_f(a, S_PARTIAL) + (size_t)j * a.partial_cap + (f ? a.partial_cap / 2 : 0);
+  q.counters = static_cast<int*>(a.p[S_COUNTERS]) + (size_t)j * a.counter_cap +
+               (f ? a.counter_cap / 2 : 0);
+  auto mat = [&](Mat& t, const float* x, const float* s, const double* off, int n_off,
+                 const int8_t* w, int K, int fam) {
+    t.x = x;
+    t.scale = s;
+    t.off = off;
+    t.n_off = n_off;
+    t.w = w;
+    t.K = K;
+    t.half = q4 ? a.halves[fam] : 0;
+  };
+  if (kind == 0) {  // A: k, v, r of the folded ln1 mixes, then the WKV step
+    const int ws[3] = {D_ATT_K_W, D_ATT_V_W, D_ATT_R_W}, ss[3] = {D_ATT_K_S, D_ATT_V_S, D_ATT_R_S};
+    q.nmat = 3;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      mat(q.m[m], nullptr, sf(ss[m]) + lE, offs_sm + (size_t)m * B, 1, sw(ws[m], E, El), E, H_K + m);
+    q.O = El;
+    q.epi = EPI_WKV;
+    q.out = tp_f(a, S_RWKV) + (size_t)j * B * El;
+    const size_t lBEl = (size_t)l * B * El;
+    q.aa_in = sf(D_AA) + lBEl;
+    q.bb_in = sf(D_BB) + lBEl;
+    q.pp_in = sf(D_PP) + lBEl;
+    q.aa_out = sf(D_AA_OUT) + lBEl;
+    q.bb_out = sf(D_BB_OUT) + lBEl;
+    q.pp_out = sf(D_PP_OUT) + lBEl;
+    q.decay = sf(D_DECAY) + lEl;
+    q.bonus = sf(D_BONUS) + lEl;
+    q.next_offset = sf(D_ATT_O_O) + lEl;  // the shard's slice of att.output's offset
+    q.next_off = att_parts;
+  } else if (kind == 1) {  // B: the shard's out-projection partial
+    mat(q.m[0], tp_f(a, S_RWKV) + (size_t)j * B * El, sf(D_ATT_O_S) + lEl, att_parts, tiles_el,
+        sw(D_ATT_O_W, El, E), El, H_O);
+    q.O = E;
+    q.epi = EPI_STORE;
+    q.out = tp_f(a, S_APART) + (size_t)j * B * E;
+  } else if (kind == 2) {  // C: relu(key)^2 of the folded ln2 mix
+    mat(q.m[0], nullptr, sf(D_FFN_K_S) + lE, offs_sm, 1, sw(D_FFN_K_W, E, Fl), E, H_FK);
+    q.O = Fl;
+    q.epi = EPI_RELU2;
+    q.out = tp_f(a, S_KK) + (size_t)j * B * Fl;
+    q.next_offset = sf(D_FFN_V_O) + lFl;
+    q.next_off = val_parts;
+  } else if (kind == 3 && f == 1) {  // D: the gate, sigmoid(receptance) of C's mix
+    mat(q.m[0], tp_f(a, S_FR), sf(D_FFN_R_S) + lE, tp_d(a, S_FR_OFF), 1,
+        sw(D_FFN_R_W, E, El), E, H_FR);
+    q.O = El;
+    q.epi = EPI_SIGMOID;
+    q.out = tp_f(a, S_GATE) + (size_t)j * B * El;
+  } else if (kind == 3) {  // D: the shard's value partial
+    mat(q.m[0], tp_f(a, S_KK) + (size_t)j * B * Fl, sf(D_FFN_V_S) + lFl, val_parts, tiles_fl,
+        sw(D_FFN_V_W, Fl, E), Fl, H_FV);
+    q.O = E;
+    q.epi = EPI_STORE;
+    q.out = tp_f(a, S_VPART) + (size_t)j * B * E;
+  } else {  // H: the shard's head columns of ln_out(x), its rank-1 term folded
+    mat(q.m[0], nullptr, sf(D_HEAD_S), offs_sm, 1, static_cast<const int8_t*>(tp_shard(a, j, D_HEAD_W)),
+        E, H_HEAD);
+    q.O = a.Vl;
+    q.epi = EPI_STORE;
+    q.out = tp_f(a, S_LOGITS) + (size_t)j * B * a.Vl;
+  }
+}
+
+// The fold source of phase A (kind 0), C (2) or H (kHead) of layer l,
+// written into src (shared memory, by one thread). The replicated vectors
+// (norms, mixes, the column families' offsets) are shard 0's.
+template <int BT>
+__device__ void tp_fold_src(FoldSrc<BT, false, true>& src, const TpArgs& a, int l, int kind) {
+  auto s0 = [&](int i) { return static_cast<const float*>(tp_shard(a, 0, i)); };
+  const bool att = kind == 0, head = kind == kHead, first = att && l == 0;
+  const size_t lE = (size_t)l * a.E, lBE = (size_t)l * a.B * a.E;
+  src.E = a.E;
+  src.B = a.B;
+  src.tp = a.tp;
+  src.El = a.El;
+  src.n_emb = a.n_emb;
+  src.cached = -1;
+  src.head = head;
+  src.nfold = att ? 3 : 1;
+  src.nmix = att ? 3 : (head ? 1 : 2);
+  src.tokens = first ? static_cast<const int*>(a.p[S_TOKENS]) : nullptr;
+  src.emb = nullptr;
+  for (int p = 0; p < a.tp; ++p) src.embs[p] = static_cast<const float*>(tp_shard(a, p, D_EMB));
+  src.ln0_w = s0(D_LN0_W);
+  src.ln0_b = s0(D_LN0_B);
+  src.resid = tp_f(a, first ? S_X_IN : (kind == 2 ? S_X_MID : S_X));
+  src.add = first ? nullptr : tp_f(a, kind == 2 ? S_APART : S_VPART);
+  src.gate = first || kind == 2 ? nullptr : tp_f(a, S_GATE);
+  src.resid_out = head ? nullptr : tp_f(a, att ? S_X_MID : S_X);
+  src.ln_w = head ? s0(D_LN_OUT_W) : s0(att ? D_LN1_W : D_LN2_W) + lE;
+  src.ln_b = head ? s0(D_LN_OUT_B) : s0(att ? D_LN1_B : D_LN2_B) + lE;
+  src.prev = head ? nullptr : tp_f(a, att ? S_XY_IN : S_DD_IN) + lBE;
+  src.prev_out = head ? nullptr : tp_f(a, att ? S_XY_OUT : S_DD_OUT) + lBE;
+  for (int m = 0; m < 3; ++m) {
+    src.mix[m] = nullptr;
+    src.offset[m] = nullptr;
+    src.qscale[m] = nullptr;
+  }
+  if (att) {
+    src.mix[0] = s0(D_ATT_MIX_K) + lE;
+    src.mix[1] = s0(D_ATT_MIX_V) + lE;
+    src.mix[2] = s0(D_ATT_MIX_R) + lE;
+    src.offset[0] = s0(D_ATT_K_O) + lE;
+    src.offset[1] = s0(D_ATT_V_O) + lE;
+    src.offset[2] = s0(D_ATT_R_O) + lE;
+  } else if (!head) {
+    src.mix[0] = s0(D_FFN_MIX_K) + lE;
+    src.mix[1] = s0(D_FFN_MIX_R) + lE;
+    src.offset[0] = s0(D_FFN_K_O) + lE;
+    src.offset[1] = s0(D_FFN_R_O) + lE;
+  } else {
+    src.offset[0] = s0(D_HEAD_O);
+  }
+  src.fr_out = kind == 2 ? tp_f(a, S_FR) : nullptr;
+  src.fr_off = kind == 2 ? tp_d(a, S_FR_OFF) : nullptr;
+  src.fr_amax = nullptr;
+}
+
+// The plan of decode_stack_tp_kernel's phase loop (stack.cuh's
+// stack_phases): threads 0 .. nfam * tp - 1 describe one (family, shard)
+// matvec each, thread 32 the fold source, at once; then every thread
+// deals the items: family 0's, then family 1's, each shard-major.
+template <int BT, int FMT>
+struct TpPlan {
+  using Fold = FoldSrc<BT, false, true>;
+  const TpArgs& a;
+  QmvArgs* qs;  // shared: [kMaxFams * tp], family-major
+  Fold& s;      // shared
+  float* xx;
+  double* offs;
+  float* amax;
+  float* ascratch;
+  float* fscratch;
+  Stamps stamps;
+  // the families' column tiles, splits and items (scalars: an array indexed
+  // by the family would live in local memory)
+  int kind, nfam, tiles0, tiles1, S0, S1, n0, n1;
+
+  __device__ __forceinline__ void describe(int ph) {
+    const int tid = threadIdx.x, tp = a.tp, l = ph / kTpPhases;
+    kind = l < a.L ? ph % kTpPhases : kHead;
+    nfam = kind == 3 ? 2 : 1;
+    if (tid < nfam * tp) tp_phase_args<FMT>(qs[tid], a, l, kind, tid / tp, tid % tp, offs);
+    if (tid == 32 && fold()) {
+      tp_fold_src<BT>(s, a, l, kind);
+      s.xx = xx;
+      s.offs = offs;
+      s.amax = amax;
+      s.ascratch = ascratch;
+      s.fscratch = fscratch;
+    }
+    __syncthreads();
+    // phase D: the blocks dealt to the value and the gate by their weight
+    // bytes, each family within half the scratch
+    const int G = gridDim.x;
+    auto bytes = [](const QmvArgs& q) { return (long long)qmv_kmax<FMT>(q) * q.O; };
+    const int g0 = nfam == 1 ? G
+                             : max(1, min(G - 1, (int)(G * bytes(qs[0]) /
+                                                       (bytes(qs[0]) + bytes(qs[tp])))));
+    const long long cap = nfam == 1 ? a.partial_cap : a.partial_cap / 2;
+    const int cc = nfam == 1 ? a.counter_cap : a.counter_cap / 2;
+    auto split = [&](const QmvArgs& q, int g, int& tiles, int& S, int& n) {
+      tiles = (q.O + kTileO - 1) / kTileO;
+      S = stack_split(tp * tiles, qmv_kmax<FMT>(q), q.nmat, a.B, q.O, cap, tp * cc, g);
+      n = tp * tiles * S;
+    };
+    split(qs[0], g0, tiles0, S0, n0);
+    tiles1 = S1 = 1;
+    n1 = 0;
+    if (nfam == 2) split(qs[tp], G - g0, tiles1, S1, n1);
+  }
+  __device__ __forceinline__ int items() const { return n0 + n1; }
+  __device__ __forceinline__ bool fold() const { return kind == 0 || kind == 2 || kind == kHead; }
+  __device__ __forceinline__ const QmvArgs& item(int it, int& tile, int& sp, int& Sp) const {
+    const bool f = it >= n0;
+    const int S = f ? S1 : S0, r = it - (f ? n0 : 0), per = (f ? tiles1 : tiles0) * S;
+    const int j = r / per, rt = r - j * per;
+    tile = rt / S;
+    sp = rt % S;
+    Sp = S;
+    return qs[(f ? a.tp : 0) + j];
+  }
+  // the first item writes this block's share of the rows' outputs, block 0
+  // the receptance mix's rank-1 term
+  __device__ __forceinline__ void fold_item(int, int r) {
+    const int G = gridDim.x, total = items(), writers = total < G ? total : G;
+    const int chunk = (a.E + writers - 1) / writers;
+    if (threadIdx.x == 0) {
+      s.lo = r == 0 ? min(a.E, (int)blockIdx.x * chunk) : 0;
+      s.hi = r == 0 ? min(a.E, s.lo + chunk) : 0;
+      if (r || blockIdx.x) s.fr_off = nullptr;
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ const Fold& src() const { return s; }
+  __device__ __forceinline__ void prefetch() const {
+    for (int i = 0; i < nfam * a.tp; ++i) prefetch_qmv(qs[i]);
+    if (fold()) prefetch_fold(s);
+  }
+  __device__ __forceinline__ void stamp() { stamps(); }
+};
+
+// One block a SM, as the unsharded stack (decode_stack.cu says why).
+template <int BT, int FMT>
+__global__ void __launch_bounds__(kThreads, 1) decode_stack_tp_kernel(const __grid_constant__ TpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float ascratch[3 * BT * 33];
+  __shared__ float fscratch[3 * BT * 33];
+  __shared__ QmvArgs qs[kMaxFams * kMaxShards];
+  __shared__ FoldSrc<BT, false, true> src;
+  StackSmem<BT, FMT> m;
+  m.carve(smem, a.E, a.B);
+  GridBarrier bar;
+  bar.init(static_cast<unsigned*>(a.p[S_COUNTERS]) + (size_t)a.tp * a.counter_cap, gridDim.x);
+  TpPlan<BT, FMT> plan{a, qs, src, m.xx, m.offs, m.amax, ascratch, fscratch,
+                       Stamps{static_cast<unsigned long long*>(a.p[S_STAMPS]), 0}};
+  plan.stamp();
+  stack_phases<BT, FMT>(plan, kTpPhases * a.L + 1, false, bar, *m.sm, m.wsm);
+  bar.finish();
+  plan.stamp();
+}
+
+template <int FMT>
+cudaError_t launch_tp_fmt(const TpArgs& a, cudaStream_t st, int* grid) {
+  const int bt = stack_bt(a.B);
+#define RWKV_LAUNCH(BT_) \
+  coop_launch(decode_stack_tp_kernel<BT_, FMT>, a, stack_smem<BT_, FMT>(a.E, a.B), st, grid)
+  if (bt == 1) return RWKV_LAUNCH(1);
+  if (bt == 2) return RWKV_LAUNCH(2);
+  return RWKV_LAUNCH(4);
+#undef RWKV_LAUNCH
+}
 
 }  // namespace rwkv
 
@@ -182,160 +403,57 @@ extern "C" const char* rwkv_error_string(int err) {
 extern "C" int rwkv_decode_stack_tp_shared_count() { return S_COUNT; }
 extern "C" int rwkv_decode_stack_tp_shard_count() { return D_COUNT; }
 extern "C" int rwkv_decode_stack_tp_max_shards() { return kMaxShards; }
+extern "C" int rwkv_decode_stack_tp_barrier_words() { return kBarrierWords; }
 
-// Enqueues one decode step of the tp shards of a data row on `stream`: 7 * L
-// + 2 launches. With tokens (S_TOKENS not null) layer 0 gathers the
+// Blocks of the step's launch at batch B and width E, in *grid: q4 selects
+// the instantiation. Returns the first CUDA error (0 if none).
+extern "C" int rwkv_decode_stack_tp_grid(int B, int E, int q4, int* grid) {
+  const int bt = stack_bt(B);
+  cudaError_t e = cudaErrorInvalidValue;
+#define RWKV_GRID(BT_, F_) \
+  if (bt == BT_ && (q4 ? kQ4 : kQ8) == F_) \
+    e = coop_grid(decode_stack_tp_kernel<BT_, F_>, stack_smem<BT_, F_>(E, B), grid)
+  RWKV_GRID(1, kQ8); RWKV_GRID(2, kQ8); RWKV_GRID(4, kQ8);
+  RWKV_GRID(1, kQ4); RWKV_GRID(2, kQ4); RWKV_GRID(4, kQ4);
+#undef RWKV_GRID
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// Enqueues one decode step of the tp shards of a data row on `stream` as one
+// cooperative launch. With tokens (S_TOKENS not null) layer 0 gathers the
 // embedding rows; else x_in [B, E] is x after ln0. q4: the weights are
 // nibble-packed and halves[8] gives half the pairing block of each family
-// (enum Fam), in rows. partial_cap, counter_cap and target_blocks are each
-// shard's share of the split-K scratch and of the card's blocks. Returns the
-// first CUDA error (0 if none) and the launch count in *n_launched.
+// (enum Fam), in rows. partial_cap and counter_cap are each shard's share of
+// the split-K scratch (S_COUNTERS holds tp * counter_cap + kBarrierWords
+// ints, zero before the first call). Returns the first CUDA error (0 if
+// none), the number of kernels launched in *n_launched (1, or 0 on an error)
+// and the launch's blocks in *grid.
 extern "C" int rwkv_decode_stack_tp(void* const* p, int n_ptrs, int tp, int L, int B, int E,
                                     int El, int Fl, int Vl, int n_emb, int q4,
                                     const int* halves, long long partial_cap, int counter_cap,
-                                    int target_blocks, void* stream, int* n_launched) {
+                                    void* stream, int* n_launched, int* grid) {
   *n_launched = 0;
-  if (tp < 1 || tp > kMaxShards || n_ptrs != S_COUNT + tp * D_COUNT || B < 1 || E % 16 ||
-      El % 16 || Fl % 16 || Vl % 16 || El * tp != E)
+  *grid = 0;
+  if (tp < 1 || tp > kMaxShards || n_ptrs != S_COUNT + tp * D_COUNT || B < 1 || L < 1 ||
+      E % 16 || El % 16 || Fl % 16 || Vl % 16 || El * tp != E || counter_cap < 2 ||
+      partial_cap < 2)
     return (int)cudaErrorInvalidValue;
-  const Step g = {p, tp, B, E, El, Fl, Vl, q4, halves, partial_cap, counter_cap,
-                  target_blocks, static_cast<cudaStream_t>(stream), n_launched};
-  const size_t BE = (size_t)B * E, BEl = (size_t)B * El, BFl = (size_t)B * Fl;
-  const int tiles_el = (El + kTileO - 1) / kTileO, tiles_fl = (Fl + kTileO - 1) / kTileO;
-  double* offs = g.d(S_OFFS);
-  int err;
-
-  for (int l = 0; l < L; ++l) {
-    const size_t lE = (size_t)l * E, lEl = (size_t)l * El, lFl = (size_t)l * Fl;
-    const size_t lBE = (size_t)l * BE, lBEl = (size_t)l * BEl;
-
-    // 1. the previous layer's ffn exchange (or the embedding), ln1 + mix
-    RowArgs ra = g.row(ROW_ATT);
-    if (l == 0) {
-      ra.tokens = static_cast<const int*>(p[S_TOKENS]);
-      ra.x_in = ra.tokens ? nullptr : g.f(S_X_IN);
-      ra.n_emb = n_emb;
-      for (int j = 0; j < tp; ++j) ra.embs[j] = g.sf(j, D_EMB);
-      ra.ln0_w = g.sf(0, D_LN0_W);
-      ra.ln0_b = g.sf(0, D_LN0_B);
-    } else {
-      ra.add = g.f(S_VPART);
-      ra.gate = g.f(S_GATE);
-    }
-    ra.ln_w = g.sf(0, D_LN1_W) + lE;
-    ra.ln_b = g.sf(0, D_LN1_B) + lE;
-    ra.prev = g.f(S_XY_IN) + lBE;
-    ra.prev_out = g.f(S_XY_OUT) + lBE;
-    const int mixes[3] = {D_MIX_K, D_MIX_V, D_MIX_R};
-    const int mixed[3] = {S_XK, S_XV, S_XR};
-    const int offsets[3] = {D_K_O, D_V_O, D_R_O};
-    for (int j = 0; j < 3; ++j) {
-      ra.mix[j] = g.sf(0, mixes[j]) + lE;
-      ra.mixed[j] = g.f(mixed[j]);
-      ra.offset[j] = g.sf(0, offsets[j]) + lE;
-      ra.off[j] = offs + (size_t)j * B;
-    }
-    ra.nmix = 3;
-    if ((err = g.rows(ra))) return err;
-
-    // 2. k, v, r on each shard's El channels, then the WKV step on its slices
-    QmvShards q;
-    const int ws[3] = {D_K_W, D_V_W, D_R_W}, ss[3] = {D_K_S, D_V_S, D_R_S};
-    for (int s = 0; s < tp; ++s) {
-      QmvArgs& a = q.s[s];
-      a = g.qmv(s, 3, El, EPI_WKV, g.f(S_RWKV) + s * BEl);
-      for (int j = 0; j < 3; ++j)
-        a.m[j] = g.mat(g.f(mixed[j]), g.sf(s, ss[j]) + lE, offs + (size_t)j * B, 1,
-                       g.sw(s, ws[j]) + l * g.wbytes(E, El), E, H_K + j);
-      a.aa_in = g.sf(s, D_AA_IN) + lBEl;
-      a.bb_in = g.sf(s, D_BB_IN) + lBEl;
-      a.pp_in = g.sf(s, D_PP_IN) + lBEl;
-      a.aa_out = g.sf(s, D_AA_OUT) + lBEl;
-      a.bb_out = g.sf(s, D_BB_OUT) + lBEl;
-      a.pp_out = g.sf(s, D_PP_OUT) + lBEl;
-      a.decay = g.sf(s, D_DECAY) + lEl;
-      a.bonus = g.sf(s, D_BONUS) + lEl;
-      a.next_offset = g.sf(s, D_O_O) + lEl;  // the shard's slice of att.output's offset
-      a.next_off = g.att_parts(s);
-    }
-    if ((err = g.matvec(q))) return err;
-
-    // 3. each shard's out-projection partial, its offset share folded in
-    for (int s = 0; s < tp; ++s) {
-      QmvArgs& a = q.s[s];
-      a = g.qmv(s, 1, E, EPI_STORE, g.f(S_APART) + s * BE);
-      a.m[0] = g.mat(g.f(S_RWKV) + s * BEl, g.sf(s, D_O_S) + lEl, g.att_parts(s), tiles_el,
-                     g.sw(s, D_O_W) + l * g.wbytes(El, E), El, H_O);
-    }
-    if ((err = g.matvec(q))) return err;
-
-    // 4. the att exchange, ln2 + mix
-    RowArgs rf = g.row(ROW_FFN);
-    rf.add = g.f(S_APART);
-    rf.ln_w = g.sf(0, D_LN2_W) + lE;
-    rf.ln_b = g.sf(0, D_LN2_B) + lE;
-    rf.prev = g.f(S_DD_IN) + lBE;
-    rf.prev_out = g.f(S_DD_OUT) + lBE;
-    rf.mix[0] = g.sf(0, D_FMIX_K) + lE;
-    rf.mix[1] = g.sf(0, D_FMIX_R) + lE;
-    rf.mixed[0] = g.f(S_FK);
-    rf.mixed[1] = g.f(S_FR);
-    rf.offset[0] = g.sf(0, D_FK_O) + lE;
-    rf.offset[1] = g.sf(0, D_FR_O) + lE;
-    rf.off[0] = offs + 3 * (size_t)B;
-    rf.off[1] = offs + 4 * (size_t)B;
-    rf.nmix = 2;
-    if ((err = g.rows(rf))) return err;
-
-    // 5. the gate on each shard's El channels (its own launch: O = El)
-    for (int s = 0; s < tp; ++s) {
-      QmvArgs& a = q.s[s];
-      a = g.qmv(s, 1, El, EPI_SIGMOID, g.f(S_GATE) + s * BEl);
-      a.m[0] = g.mat(g.f(S_FR), g.sf(s, D_FR_S) + lE, offs + 4 * (size_t)B, 1,
-                     g.sw(s, D_FR_W) + l * g.wbytes(E, El), E, H_FR);
-    }
-    if ((err = g.matvec(q))) return err;
-
-    // 6. relu(key)^2 on each shard's Fl channels, leaving ffn.value's offset shares
-    for (int s = 0; s < tp; ++s) {
-      QmvArgs& a = q.s[s];
-      a = g.qmv(s, 1, Fl, EPI_RELU2, g.f(S_KK) + s * BFl);
-      a.m[0] = g.mat(g.f(S_FK), g.sf(s, D_FK_S) + lE, offs + 3 * (size_t)B, 1,
-                     g.sw(s, D_FK_W) + l * g.wbytes(E, Fl), E, H_FK);
-      a.next_offset = g.sf(s, D_FV_O) + lFl;
-      a.next_off = g.val_parts(s);
-    }
-    if ((err = g.matvec(q))) return err;
-
-    // 7. each shard's value partial
-    for (int s = 0; s < tp; ++s) {
-      QmvArgs& a = q.s[s];
-      a = g.qmv(s, 1, E, EPI_STORE, g.f(S_VPART) + s * BE);
-      a.m[0] = g.mat(g.f(S_KK) + s * BFl, g.sf(s, D_FV_S) + lFl, g.val_parts(s), tiles_fl,
-                     g.sw(s, D_FV_W) + l * g.wbytes(Fl, E), Fl, H_FV);
-    }
-    if ((err = g.matvec(q))) return err;
-  }
-
-  // the last ffn exchange, ln_out, the head's input and offset term
-  RowArgs rh = g.row(ROW_HEAD);
-  rh.add = g.f(S_VPART);
-  rh.gate = g.f(S_GATE);
-  rh.ln_w = g.sf(0, D_LN_OUT_W);
-  rh.ln_b = g.sf(0, D_LN_OUT_B);
-  rh.head_scale = g.sf(0, D_HEAD_S);
-  rh.offset[0] = g.sf(0, D_HEAD_O);
-  rh.off_h = g.f(S_OFF_H);
-  rh.xs_h = g.f(S_XS_H);
-  if ((err = g.rows(rh))) return err;
-
-  // each shard's head columns: its local logits
-  QmvShards h;
-  for (int s = 0; s < tp; ++s) {
-    QmvArgs& a = h.s[s];
-    a = g.qmv(s, 1, Vl, EPI_STORE, g.f(S_LOGITS) + (size_t)s * B * Vl);
-    a.row_add = g.f(S_OFF_H);
-    a.m[0] = g.mat(g.f(S_XS_H), nullptr, nullptr, 0, g.sw(s, D_HEAD_W), E, H_HEAD);
-  }
-  return g.matvec(h);
+  TpArgs a = {};
+  for (int i = 0; i < n_ptrs; ++i) a.p[i] = p[i];
+  a.tp = tp;
+  a.L = L;
+  a.B = B;
+  a.E = E;
+  a.El = El;
+  a.Fl = Fl;
+  a.Vl = Vl;
+  a.n_emb = n_emb;
+  for (int i = 0; i < H_COUNT; ++i) a.halves[i] = q4 ? halves[i] : 0;
+  a.partial_cap = partial_cap;
+  a.counter_cap = counter_cap;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = q4 ? launch_tp_fmt<kQ4>(a, st, grid) : launch_tp_fmt<kQ8>(a, st, grid);
+  if (e == cudaSuccess) *n_launched = 1;
+  return (int)e;
 }

@@ -453,8 +453,8 @@ __device__ __forceinline__ void reduce_tile_body(float (&acc)[BT][kColsPerThread
   __syncthreads();
 }
 
-// The functions below come twice: as calls (qmv_kernel and
-// qmv_shards_kernel, one launch a matvec, as before the persistent stack),
+// The functions below come twice: as calls (qmv_kernel, one launch a
+// matvec: the heads and K6),
 // and inlined whole (INL) into the persistent decode stack, where a call's
 // register saves go to local memory and each reload is a cache round trip
 // on a chain of latencies.
@@ -806,8 +806,8 @@ __device__ __forceinline__ bool a8_exact_long(const QmvArgs& a, int S) {
 // On the short path the block's weights go to registers for each batch
 // group, or with wsm to shared memory by cp.async once, where `loaded` says
 // they already are (qmv_load_async before the call). The body of
-// qmv_kernel, qmv_shards_kernel and each matvec phase of the persistent
-// decode stack (INL: everything inlined).
+// qmv_kernel and of each matvec phase of the persistent decode stacks
+// (INL: everything inlined).
 template <int BT, int FMT, class Src = GlobalSrc, bool INL = false>
 __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S,
                                         QmvSmem<BT, FMT>& sm, int4* wsm = nullptr,
@@ -1047,20 +1047,8 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
   qmv_run<BT, FMT>(a, blockIdx.x, blockIdx.y, gridDim.y, sm);
 }
 
-// The shards of one tensor-parallel data row in one launch (kernel K7):
-// shard blockIdx.z runs s[blockIdx.z]. The shards run at once, so each has
-// its own split-K partials and counters.
+// Model shards of one tensor-parallel data row (kernel K7, decode_stack_tp.cu).
 constexpr int kMaxShards = 8;
-
-struct QmvShards {
-  QmvArgs s[kMaxShards];
-};
-
-template <int BT, int FMT>
-__global__ void __launch_bounds__(kThreads) qmv_shards_kernel(const __grid_constant__ QmvShards a) {
-  __shared__ QmvSmem<BT, FMT> sm;
-  qmv_run<BT, FMT>(a.s[blockIdx.z], blockIdx.x, blockIdx.y, gridDim.y, sm);
-}
 
 // Split of the contraction dim: enough blocks to fill the card, and at least
 // enough splits that a block's share is one 128-row group (the short path),
@@ -1096,29 +1084,6 @@ inline cudaError_t launch_qmv(const QmvArgs& a, long long partial_cap, int count
     qmv_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
   else
     qmv_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
-  return cudaGetLastError();
-}
-
-// The first n of a.s in one launch, grid (tiles, S, n): every shard has the
-// shapes of a.s[0], and partial_cap, counter_cap and target_blocks are each
-// shard's share.
-template <int FMT>
-inline cudaError_t launch_qmv_shards(const QmvShards& a, int n, long long partial_cap,
-                                     int counter_cap, int target_blocks, cudaStream_t st) {
-  if (n < 1 || n > kMaxShards) return cudaErrorInvalidValue;
-  const QmvArgs& q = a.s[0];
-  const int tiles = (q.O + kTileO - 1) / kTileO;
-  int kmax = 0;
-  for (int m = 0; m < q.nmat; ++m)
-    kmax = mat_rows<FMT>(q.m[m]) > kmax ? mat_rows<FMT>(q.m[m]) : kmax;
-  const int S = qmv_split(tiles, kmax, q.nmat, q.B, q.O, partial_cap, counter_cap, target_blocks);
-  const dim3 grid(tiles, S, n);
-  if (q.B <= 1)
-    qmv_shards_kernel<1, FMT><<<grid, kThreads, 0, st>>>(a);
-  else if (q.B <= 2)
-    qmv_shards_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
-  else
-    qmv_shards_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

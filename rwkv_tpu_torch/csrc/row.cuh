@@ -1,15 +1,12 @@
 // Row kernel shared by the decode stack (decode_stack.cu: kernels K1, K4 and
-// K5's stack), the tensor-parallel layer halves (tp_halves.cu: kernel K6) and
-// the tensor-parallel decode stack (decode_stack_tp.cu: kernel K7).
+// K5's stack: its ln_out phase) and the tensor-parallel layer halves
+// (tp_halves.cu: kernel K6).
 //
 // One block per batch row: optionally the embedding gather + ln0, then a
 // LayerNorm (ln1, ln2 or ln_out), the token-shift mixes that feed the next
 // matvecs, and the whole rank-1 offset sums of the matrices that read the
-// mixed rows (csrc/qmv.cuh says why they are computed here). For K7 it first
-// completes the shards' exchange: the vocab-sharded embedding gather, or the
-// residual update from the tp shards' partials, summed in shard order. Every
-// operation reads and writes O(B * E) floats (times tp for an exchange): it
-// is one launch of a few microseconds.
+// mixed rows (csrc/qmv.cuh says why they are computed here). Every operation
+// reads and writes O(B * E) floats: it is one launch of a few microseconds.
 #pragma once
 
 #include <type_traits>
@@ -42,17 +39,6 @@ struct RowArgs {
   const float* qscale[3];    // a8: [E] scale vector of the matrix that reads mixed[j]
   float* amax[3];            // a8: [B] max_i |mixed[j][b, i] * qscale[j][i]|
                              //   (ROW_HEAD: amax[0] = max_i |xs_h[b, i]|)
-  // Tensor parallel (kernel K7); zero elsewhere. With tokens and tp > 0,
-  // shard p holds vocab rows [p * n_emb, (p + 1) * n_emb) in embs[p], and a
-  // row outside every shard is zero. x_in: x's value before the step, copied
-  // into x. add: x += sum_p add[p] (gate null) or x += gate * sum_p add[p],
-  // the sum in the order p = 0..tp-1, gate[p] being channels
-  // [p * El, (p + 1) * El); x is written back.
-  int tp, El;
-  const float* embs[kMaxShards];
-  const float* x_in;         // [B, E] or null
-  const float* add;          // [tp, B, E] or null
-  const float* gate;         // [tp, B, El] or null
 };
 
 template <typename T>
@@ -151,42 +137,14 @@ __device__ void row_run(const RowArgs& a, int b, float* v, float* scratch,
   float* xrow = a.x + (size_t)b * E;
   if (a.tokens) {
     int t = a.tokens[b];
-    if (a.tp > 0) {  // the vocab-sharded gather and its sum over the shards
-      for (int i = threadIdx.x; i < E; i += blockDim.x) {
-        float s = 0.f;
-        for (int p = 0; p < a.tp; ++p) {
-          const int rel = t - p * a.n_emb;
-          const float e = rel >= 0 && rel < a.n_emb ? a.embs[p][(size_t)rel * E + i] : 0.f;
-          s = p == 0 ? e : __fadd_rn(s, e);
-        }
-        v[i] = s;
-      }
-    } else {
-      t = t < 0 ? 0 : (t >= a.n_emb ? a.n_emb - 1 : t);  // clamp like a gather
-      const float* er = a.emb + (size_t)t * E;
-      for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = er[i];
-    }
+    t = t < 0 ? 0 : (t >= a.n_emb ? a.n_emb - 1 : t);  // clamp like a gather
+    const float* er = a.emb + (size_t)t * E;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = er[i];
     __syncthreads();
     row_layer_norm<EXACT>(v, E, a.ln0_w, a.ln0_b, ascratch);
     for (int i = threadIdx.x; i < E; i += blockDim.x) xrow[i] = v[i];
   } else {
-    const float* src = a.x_in ? a.x_in + (size_t)b * E : xrow;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      float xv = __ldcg(src + i);
-      if (a.add) {
-        const size_t BE = (size_t)a.B * E;
-        const float* ad = a.add + (size_t)b * E + i;
-        float s = ad[0];
-        for (int p = 1; p < a.tp; ++p) s = __fadd_rn(s, ad[p * BE]);
-        if (a.gate) {
-          const int p = i / a.El;
-          s = __fmul_rn(a.gate[((size_t)p * a.B + b) * a.El + i - p * a.El], s);
-        }
-        xv = __fadd_rn(xv, s);
-      }
-      v[i] = xv;
-      if (a.x_in || a.add) xrow[i] = xv;
-    }
+    for (int i = threadIdx.x; i < E; i += blockDim.x) v[i] = __ldcg(xrow + i);
     __syncthreads();
   }
   row_layer_norm<EXACT>(v, E, a.ln_w, a.ln_b, ascratch);

@@ -53,9 +53,9 @@ namespace rwkv {
 // Positions in the pointer tables passed by rwkv_tpu_torch/ops/cuda/tp_halves.py
 // (_ATT_POINTERS and _FFN_POINTERS there list the same names in the same order).
 enum AttPtr : int {
-  A_X, A_XY, A_LN_W, A_LN_B, A_MIX_K, A_MIX_V, A_MIX_R,
-  A_K_W, A_K_S, A_K_O, A_V_W, A_V_S, A_V_O, A_R_W, A_R_S, A_R_O,
-  A_O_W, A_O_S, A_O_O, A_DECAY, A_BONUS, A_AA_IN, A_BB_IN, A_PP_IN,
+  A_X, A_XY, A_LN1_W, A_LN1_B, A_ATT_MIX_K, A_ATT_MIX_V, A_ATT_MIX_R,
+  A_ATT_K_W, A_ATT_K_S, A_ATT_K_O, A_ATT_V_W, A_ATT_V_S, A_ATT_V_O, A_ATT_R_W, A_ATT_R_S, A_ATT_R_O,
+  A_ATT_O_W, A_ATT_O_S, A_ATT_O_O, A_DECAY, A_BONUS, A_AA, A_BB, A_PP,
   A_PARTIAL, A_AA_OUT, A_BB_OUT, A_PP_OUT, A_XY_OUT,
   A_XK, A_XV, A_XR, A_RWKV,
   A_OFFS,       // [3, B] double: rank-1 terms of k, v, r
@@ -65,9 +65,9 @@ enum AttPtr : int {
 };
 
 enum FfnPtr : int {
-  F_X, F_DD, F_LN_W, F_LN_B, F_MIX_K, F_MIX_R,
-  F_K_W, F_K_S, F_K_O, F_R_W, F_R_S, F_R_O, F_V_W, F_V_S, F_V_O,
-  F_VPART, F_GATE, F_DD_OUT,
+  F_X, F_DD, F_LN2_W, F_LN2_B, F_FFN_MIX_K, F_FFN_MIX_R,
+  F_FFN_K_W, F_FFN_K_S, F_FFN_K_O, F_FFN_R_W, F_FFN_R_S, F_FFN_R_O, F_FFN_V_W, F_FFN_V_S, F_FFN_V_O,
+  F_VPARTIAL, F_GATE, F_DD_OUT,
   F_FK, F_FR, F_KK,
   F_OFFS,       // [2, B] double: rank-1 terms of ffn key, ffn receptance
   F_OFF_PARTS,  // [F_loc / 128, B] double: per-tile shares of ffn.value's term
@@ -150,13 +150,13 @@ extern "C" int rwkv_att_half(void* const* p, int n_ptrs, int l, int B, int E, in
   ra.B = B;
   ra.E = E;
   ra.x = g.f(A_X);  // read only: no tokens
-  ra.ln_w = g.f(A_LN_W) + lE;
-  ra.ln_b = g.f(A_LN_B) + lE;
+  ra.ln_w = g.f(A_LN1_W) + lE;
+  ra.ln_b = g.f(A_LN1_B) + lE;
   ra.prev = g.f(A_XY);
   ra.prev_out = g.f(A_XY_OUT);
-  const int mixes[3] = {A_MIX_K, A_MIX_V, A_MIX_R};
+  const int mixes[3] = {A_ATT_MIX_K, A_ATT_MIX_V, A_ATT_MIX_R};
   const int mixed[3] = {A_XK, A_XV, A_XR};
-  const int offsets[3] = {A_K_O, A_V_O, A_R_O};
+  const int offsets[3] = {A_ATT_K_O, A_ATT_V_O, A_ATT_R_O};
   for (int j = 0; j < 3; ++j) {
     ra.mix[j] = g.f(mixes[j]) + lE;
     ra.mixed[j] = g.f(mixed[j]);
@@ -168,26 +168,26 @@ extern "C" int rwkv_att_half(void* const* p, int n_ptrs, int l, int B, int E, in
 
   // k, v, r on the shard's El channels, then the WKV step on its state slices
   QmvArgs q = g.qmv(3, El, EPI_WKV, g.f(A_RWKV), A_SPLIT, A_COUNTERS);
-  const int ws[3] = {A_K_W, A_V_W, A_R_W}, ss[3] = {A_K_S, A_V_S, A_R_S};
+  const int ws[3] = {A_ATT_K_W, A_ATT_V_W, A_ATT_R_W}, ss[3] = {A_ATT_K_S, A_ATT_V_S, A_ATT_R_S};
   for (int j = 0; j < 3; ++j)
     q.m[j] = Launcher::mat(g.f(mixed[j]), g.f(ss[j]) + lE, g.d(A_OFFS) + (size_t)j * B, 1,
                            g.i8(ws[j]) + lW, E);
-  q.aa_in = g.f(A_AA_IN);
-  q.bb_in = g.f(A_BB_IN);
-  q.pp_in = g.f(A_PP_IN);
+  q.aa_in = g.f(A_AA);
+  q.bb_in = g.f(A_BB);
+  q.pp_in = g.f(A_PP);
   q.aa_out = g.f(A_AA_OUT);
   q.bb_out = g.f(A_BB_OUT);
   q.pp_out = g.f(A_PP_OUT);
   q.decay = g.f(A_DECAY) + lEl;
   q.bonus = g.f(A_BONUS) + lEl;
-  q.next_offset = g.f(A_O_O) + lEl;  // the shard's slice of att.output's offset
+  q.next_offset = g.f(A_ATT_O_O) + lEl;  // the shard's slice of att.output's offset
   q.next_off = g.d(A_OFF_PARTS);
   if ((err = g.matvec(q))) return err;
 
   // the row-parallel out-projection's partial, its offset share folded in
   QmvArgs o = g.qmv(1, E, EPI_STORE, g.f(A_PARTIAL), A_SPLIT, A_COUNTERS);
-  o.m[0] = Launcher::mat(g.f(A_RWKV), g.f(A_O_S) + lEl, g.d(A_OFF_PARTS),
-                         (El + kTileO - 1) / kTileO, g.i8(A_O_W) + lW, El);
+  o.m[0] = Launcher::mat(g.f(A_RWKV), g.f(A_ATT_O_S) + lEl, g.d(A_OFF_PARTS),
+                         (El + kTileO - 1) / kTileO, g.i8(A_ATT_O_W) + lW, El);
   return g.matvec(o);
 }
 
@@ -210,16 +210,16 @@ extern "C" int rwkv_ffn_half(void* const* p, int n_ptrs, int l, int B, int E, in
   rf.B = B;
   rf.E = E;
   rf.x = g.f(F_X);
-  rf.ln_w = g.f(F_LN_W) + lE;
-  rf.ln_b = g.f(F_LN_B) + lE;
+  rf.ln_w = g.f(F_LN2_W) + lE;
+  rf.ln_b = g.f(F_LN2_B) + lE;
   rf.prev = g.f(F_DD);
   rf.prev_out = g.f(F_DD_OUT);
-  rf.mix[0] = g.f(F_MIX_K) + lE;
-  rf.mix[1] = g.f(F_MIX_R) + lE;
+  rf.mix[0] = g.f(F_FFN_MIX_K) + lE;
+  rf.mix[1] = g.f(F_FFN_MIX_R) + lE;
   rf.mixed[0] = g.f(F_FK);
   rf.mixed[1] = g.f(F_FR);
-  rf.offset[0] = g.f(F_K_O) + lE;
-  rf.offset[1] = g.f(F_R_O) + lE;
+  rf.offset[0] = g.f(F_FFN_K_O) + lE;
+  rf.offset[1] = g.f(F_FFN_R_O) + lE;
   rf.off[0] = g.d(F_OFFS);
   rf.off[1] = g.d(F_OFFS) + B;
   rf.nmix = 2;
@@ -227,21 +227,21 @@ extern "C" int rwkv_ffn_half(void* const* p, int n_ptrs, int l, int B, int E, in
 
   // the gate on the shard's El channels
   QmvArgs r = g.qmv(1, El, EPI_SIGMOID, g.f(F_GATE), F_SPLIT, F_COUNTERS);
-  r.m[0] = Launcher::mat(g.f(F_FR), g.f(F_R_S) + lE, g.d(F_OFFS) + B, 1,
-                         g.i8(F_R_W) + (size_t)l * E * El, E);
+  r.m[0] = Launcher::mat(g.f(F_FR), g.f(F_FFN_R_S) + lE, g.d(F_OFFS) + B, 1,
+                         g.i8(F_FFN_R_W) + (size_t)l * E * El, E);
   if ((err = g.matvec(r))) return err;
 
   // relu(key)^2 on the shard's Fl channels, leaving ffn.value's offset shares
   QmvArgs k = g.qmv(1, Fl, EPI_RELU2, g.f(F_KK), F_SPLIT, F_COUNTERS);
-  k.m[0] = Launcher::mat(g.f(F_FK), g.f(F_K_S) + lE, g.d(F_OFFS), 1,
-                         g.i8(F_K_W) + (size_t)l * E * Fl, E);
-  k.next_offset = g.f(F_V_O) + lFl;
+  k.m[0] = Launcher::mat(g.f(F_FK), g.f(F_FFN_K_S) + lE, g.d(F_OFFS), 1,
+                         g.i8(F_FFN_K_W) + (size_t)l * E * Fl, E);
+  k.next_offset = g.f(F_FFN_V_O) + lFl;
   k.next_off = g.d(F_OFF_PARTS);
   if ((err = g.matvec(k))) return err;
 
   // the row-parallel value partial
-  QmvArgs v = g.qmv(1, E, EPI_STORE, g.f(F_VPART), F_SPLIT, F_COUNTERS);
-  v.m[0] = Launcher::mat(g.f(F_KK), g.f(F_V_S) + lFl, g.d(F_OFF_PARTS),
-                         (Fl + kTileO - 1) / kTileO, g.i8(F_V_W) + (size_t)l * Fl * E, Fl);
+  QmvArgs v = g.qmv(1, E, EPI_STORE, g.f(F_VPARTIAL), F_SPLIT, F_COUNTERS);
+  v.m[0] = Launcher::mat(g.f(F_KK), g.f(F_FFN_V_S) + lFl, g.d(F_OFF_PARTS),
+                         (Fl + kTileO - 1) / kTileO, g.i8(F_FFN_V_W) + (size_t)l * Fl * E, Fl);
   return g.matvec(v);
 }

@@ -76,7 +76,8 @@ launches_a8 = 0
 _lib = None
 
 # The pointer table of rwkv_decode_stack(), in the order of `enum Ptr` in
-# csrc/decode_stack.cu.
+# csrc/decode_stack.cu (tests/test_torch_kernel_tables.py holds the two
+# against each other).
 _POINTERS = (
     "tokens", "emb", "ln0.weight", "ln0.bias", "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
     "att.mix_k", "att.mix_v", "att.mix_r", "att.decay", "att.bonus",
@@ -89,7 +90,7 @@ _POINTERS = (
     "ffn.value.w", "ffn.value.scale", "ffn.value.offset",
     "ffn.receptance.w", "ffn.receptance.scale", "ffn.receptance.offset",
     "ln_out.weight", "ln_out.bias", "head.scale", "head.offset",
-    "xy", "aa", "bb", "pp", "dd",
+    "xy_in", "aa_in", "bb_in", "pp_in", "dd_in",
     "xy_out", "aa_out", "bb_out", "pp_out", "dd_out",
     "x", "rwkv", "fr", "kk", "xs_h", "off_h",
     "offs", "off_parts", "amax", "amax_parts", "partial", "counters", "stamps",

@@ -18,14 +18,20 @@ logits carry no logit bias (as in the JAX kernel): the caller adds each
 shard's slice and gathers them. The replicated xy/dd of the new states are
 the same tensors for every shard.
 
-On CUDA tensors the wrapper launches csrc/decode_stack_tp.cu, where one host
-call enqueues the whole step of all the shards (7 * L + 2 launches, each
-covering every shard) and the exchanges are sums of the shards' partials in
-shard order 0..tp-1; every shard of the row must lie on that one device. On
-CPU tensors it runs `decode_stack_tp_reference`, which does the exchanges as
-the same explicit sums. Weights: signed int8 (models.rwkv4.signedize_params)
-or, in q4, every family Quant4Linear, with att.output and ffn.value packed in
-blocks that divide E / tp and F / tp. Bound on the card: the weight bytes of
+On CUDA tensors the wrapper launches csrc/decode_stack_tp.cu: the whole step
+of all the shards is one persistent, cooperative launch (4 * L + 1 phases
+behind 4 * L grid barriers, the grid the occupancy API's blocks per SM times
+the SMs: `stack_grid_tp`), and the exchanges are sums of the shards' partials
+in shard order 0..tp-1 folded into the phases that read them; every shard of
+the row must lie on that one device. A launch the card refuses raises; there
+is no other route. `stamps=` takes an int64 CUDA tensor of at least 4 * L + 2
+entries, into which the kernel writes %globaltimer at its start, after each
+barrier and at its end (tools/decode_profile.py reads the time of each
+phase). On CPU tensors it runs `decode_stack_tp_reference`, which does the
+exchanges as the same explicit sums. Weights: signed int8
+(models.rwkv4.signedize_params) or, in q4, every family Quant4Linear, with
+att.output and ffn.value packed in blocks that divide E / tp and F / tp.
+Bound on the card: the weight bytes of
 all shards per step over device memory bandwidth (379 MB in q8, 189.5 MB in
 q4 at 430M: 0.113 and 0.057 ms at 3.35 TB/s).
 
@@ -48,22 +54,26 @@ from rwkv_tpu_torch.ops.layernorm import layer_norm
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear, unpack4
 from rwkv_tpu_torch.ops.wkv import WKVChannelState, wkv_step
 
-# kernel launches, for showing that a path ran on the kernel: q8, q4
+# kernel launches, for showing that a path ran on the kernel: q8, q4; one
+# per step
 launches = 0
 launches_q4 = 0
 
 MAX_SHARDS = 8    # csrc/qmv.cuh's kMaxShards: one launch's shards
 FUSE_EMBED_MAX_B = 8  # the embedding gather rides in the step up to this batch
+_BARRIER_WORDS = 64   # csrc/grid.cuh's kBarrierWords, after the shards' counters
+_COUNTERS = 4096      # split-K counters a shard (phase D's two families: half each)
 
 _lib = None
 
 # The pointer table of rwkv_decode_stack_tp(): the data row's pointers in the
 # order of `enum SharedPtr` in csrc/decode_stack_tp.cu, then one block per
-# shard in the order of `enum ShardPtr`.
+# shard in the order of `enum ShardPtr` (tests/test_torch_kernel_tables.py
+# holds each tuple against its enum).
 _SHARED = (
-    "tokens", "x_in", "x", "xk", "xv", "xr", "fk", "fr", "xs_h", "off_h", "offs",
-    "xy", "dd", "xy_out", "dd_out", "apart", "vpart", "gate", "rwkv", "kk", "off_parts",
-    "logits", "partial", "counters",
+    "tokens", "x_in", "x", "x_mid", "xy_in", "dd_in", "xy_out", "dd_out", "apart", "vpart",
+    "gate", "rwkv", "kk", "fr", "fr_off", "off_parts", "logits", "partial", "counters",
+    "stamps",
 )
 _SHARD = (
     "emb", "ln0.weight", "ln0.bias", "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
@@ -93,14 +103,17 @@ def _kernel():
         lib = _build.load("decode_stack_tp")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rwkv_decode_stack_tp.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I, I, I, I,
-                                             ctypes.POINTER(I), ctypes.c_longlong, I, I, P,
-                                             ctypes.POINTER(I)]
-        for fn in (lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_shared_count,
-                   lib.rwkv_decode_stack_tp_shard_count, lib.rwkv_decode_stack_tp_max_shards):
+                                             ctypes.POINTER(I), ctypes.c_longlong, I, P,
+                                             ctypes.POINTER(I), ctypes.POINTER(I)]
+        lib.rwkv_decode_stack_tp_grid.argtypes = [I, I, I, ctypes.POINTER(I)]
+        for fn in (lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_grid,
+                   lib.rwkv_decode_stack_tp_shared_count, lib.rwkv_decode_stack_tp_shard_count,
+                   lib.rwkv_decode_stack_tp_max_shards, lib.rwkv_decode_stack_tp_barrier_words):
             fn.restype = I
         if (lib.rwkv_decode_stack_tp_shared_count() != len(_SHARED)
                 or lib.rwkv_decode_stack_tp_shard_count() != len(_SHARD)
-                or lib.rwkv_decode_stack_tp_max_shards() != MAX_SHARDS):
+                or lib.rwkv_decode_stack_tp_max_shards() != MAX_SHARDS
+                or lib.rwkv_decode_stack_tp_barrier_words() != _BARRIER_WORDS):
             raise RuntimeError("decode_stack_tp.cu's pointer tables do not match this module's")
         _lib = lib
     return _lib
@@ -326,52 +339,50 @@ class _Prepared:
         self.param_ptrs = ptrs
         self.device, self.tp, self.q4 = dev, tp, q4
         self.dims = (L, E, El, Fl, Vl, n_emb)
-        self.split = _split_scratch(dev, tp)
         self.tables: dict = {}
 
     def table(self, B: int):
-        """The pointer array for batch size B (its scratch kept beside it)."""
+        """(pointer array, split-K partial floats a shard) for batch size B,
+        its scratch kept beside it. Each shard's partials hold a phase's
+        splits when the grid holds one item a block (csrc/stack.cuh's
+        stack_split): at most 3 matrices x B rows x 128 columns a block."""
         got = self.tables.get(B)
         if got is None:
             L, E, El, Fl, Vl, _ = self.dims
             tp, dev = self.tp, self.device
+            with torch.cuda.device(dev):
+                grid = stack_grid_tp(B, E, q4=self.q4)
             z = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
             tiles = -(-El // 128) + -(-Fl // 128)  # column tiles of 128 (csrc/qmv.cuh)
-            buf = {"x": z(B, E), "xk": z(B, E), "xv": z(B, E), "xr": z(B, E), "fk": z(B, E),
-                   "fr": z(B, E), "xs_h": z(B, E), "off_h": z(B),
-                   # the rank-1 offset terms are summed in double
-                   "offs": z(5, B).double(), "apart": z(tp, B, E), "vpart": z(tp, B, E),
+            cap = min(3 * B * 128 * grid, _build.SPLIT_FLOATS)
+            buf = {"x": z(B, E), "x_mid": z(B, E), "apart": z(tp, B, E), "vpart": z(tp, B, E),
                    "gate": z(tp, B, El), "rwkv": z(tp, B, El), "kk": z(tp, B, Fl),
-                   "off_parts": z(tp, tiles, B).double()}
-            partial, counters, _ = self.split
+                   "fr": z(B, E),
+                   # the rank-1 offset terms are summed in double
+                   "fr_off": z(B).double(), "off_parts": z(tp, tiles, B).double(),
+                   "partial": z(tp, cap),
+                   # zero before the first launch; every launch leaves them so
+                   "counters": torch.zeros(tp * _COUNTERS + _BARRIER_WORDS, dtype=torch.int32,
+                                           device=dev)}
             fixed = {n: t.data_ptr() for n, t in buf.items()}
-            fixed.update(partial=partial.data_ptr(), counters=counters.data_ptr())
             arr = (ctypes.c_void_p * (len(_SHARED) + tp * len(_SHARD)))(
                 *(fixed.get(n) for n in _SHARED))
             m = len(_SHARD_PARAMS)
             for j in range(tp):
                 base = len(_SHARED) + j * len(_SHARD)
                 arr[base:base + m] = self.param_ptrs[j * m:(j + 1) * m]
-            got = self.tables[B] = (arr, buf)
-        return got[0]
+            got = self.tables[B] = (arr, cap, buf)
+        return got[:2]
 
 
-_SPLIT: dict = {}
-
-
-def _split_scratch(device: torch.device, tp: int):
-    """(partial f32 [tp, 2^22], zeroed int32 counters [tp, 4096], target
-    blocks per shard) for the split-K matvecs of one launch's tp shards,
-    which run at once and so need a set each (qmv.cuh)."""
-    key = (device, tp)
-    s = _SPLIT.get(key)
-    if s is None:
-        target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-        s = (torch.empty((tp, _build.SPLIT_FLOATS), dtype=torch.float32, device=device),
-             torch.zeros((tp, _build.SPLIT_TILES), dtype=torch.int32, device=device),
-             -(-target // tp))
-        _SPLIT[key] = s
-    return s
+def stack_grid_tp(B: int, E: int, *, q4: bool = False) -> int:
+    """Blocks of the step's cooperative launch on the current CUDA device at
+    batch B and width E: the occupancy API's blocks per SM times the SMs."""
+    lib = _kernel()
+    g = ctypes.c_int(0)
+    _build.check(lib, lib.rwkv_decode_stack_tp_grid(B, E, int(q4), ctypes.byref(g)),
+                 "decode_stack_tp grid")
+    return g.value
 
 
 _prepared: dict = {}
@@ -392,9 +403,11 @@ _D = {n: i for i, n in enumerate(_SHARD)}
 
 
 def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], local, *,
-                    x: Optional[torch.Tensor] = None, token: Optional[torch.Tensor] = None):
+                    x: Optional[torch.Tensor] = None, token: Optional[torch.Tensor] = None,
+                    stamps: Optional[torch.Tensor] = None):
     """One decode step of the shards of a data row; returns (logits_loc, new
-    states) as decode_stack_tp_reference. token [B] (B <= 8) or x [B, E]."""
+    states) as decode_stack_tp_reference. token [B] (B <= 8) or x [B, E].
+    stamps: see the module docstring (CUDA only)."""
     given = token if x is None else x
     if shards[0].emb.device.type == "cpu" and given is not None and given.device.type == "cpu":
         return decode_stack_tp_reference(shards, states, local, x=x, token=token)
@@ -424,16 +437,21 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
         for name, t in zip(WKVState._fields, st):
             if j == 0 or name in ("aa", "bb", "pp"):
                 _io(t, f"shard {j} state.{name}", dev, be if name in ("xy", "dd") else bl)
-    arr = prep.table(B)
+    if stamps is not None:
+        _check(stamps, "stamps", torch.int64, dev, (stamps.numel(),))
+        if stamps.numel() < 4 * L + 2:
+            raise ValueError(f"decode_stack_tp: stamps needs {4 * L + 2} entries")
+    arr, cap = prep.table(B)
     f32 = torch.float32
     xy_out, dd_out = torch.empty(be, dtype=f32, device=dev), torch.empty(be, dtype=f32, device=dev)
     logits = torch.empty((tp, B, Vl), dtype=f32, device=dev)
     outs = [[torch.empty(bl, dtype=f32, device=dev) for _ in range(3)] for _ in range(tp)]
     arr[_S["tokens"]] = tok.data_ptr() if token is not None else None
     arr[_S["x_in"]] = x.data_ptr() if token is None else None
-    arr[_S["xy"]], arr[_S["dd"]] = states[0].xy.data_ptr(), states[0].dd.data_ptr()
+    arr[_S["xy_in"]], arr[_S["dd_in"]] = states[0].xy.data_ptr(), states[0].dd.data_ptr()
     arr[_S["xy_out"]], arr[_S["dd_out"]] = xy_out.data_ptr(), dd_out.data_ptr()
     arr[_S["logits"]] = logits.data_ptr()
+    arr[_S["stamps"]] = None if stamps is None else stamps.data_ptr()
     k, n = len(_SHARED), len(_SHARD)
     for j in range(tp):
         decay, bonus = local[j]
@@ -443,13 +461,12 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
         base = k + j * n
         for name, t in zip(_SHARD_IO, (decay, bonus, st.aa, st.bb, st.pp, *outs[j])):
             arr[base + _D[name]] = t.data_ptr()
-    partial, counters, target = prep.split
     lib = _kernel()
-    launched = ctypes.c_int(0)
+    launched, grid = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, L, B, E, El, Fl, Vl, n_emb, int(prep.q4),
-                                   prep.halves, partial.shape[1], counters.shape[1], target,
+                                   prep.halves, cap, _COUNTERS,
                                    torch.cuda.current_stream(dev).cuda_stream,
-                                   ctypes.byref(launched))
+                                   ctypes.byref(launched), ctypes.byref(grid))
     if prep.q4:
         launches_q4 += launched.value
     else:

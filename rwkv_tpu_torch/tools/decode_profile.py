@@ -10,8 +10,8 @@ shard, models.rwkv4.q4_pack_block(E, N)), and with --a8 the W8A8 step (q8
 weights, kernel K5, the engine's a8 block), or with --tp N the
 tensor-parallel step (parallel/tp_step.py) on a mesh that names the card N
 times, by default the "fused" body (kernel K7: the whole step of the shards
-from one host call; q8 or q4), or --body halves (q8: kernel K6 per shard and
-layer, the head on K2), it measures:
+as one cooperative launch; q8 or q4), or --body halves (q8: kernel K6 per
+shard and layer, the head on K2), it measures:
   * wall ms per step of forward_step_fused (CUDA events around `steps`
     back-to-back steps: what a caller that does not read the logits sees);
   * host ms per step: the time the Python + C host code takes to enqueue a
@@ -24,13 +24,16 @@ layer, the head on K2), it measures:
     clock after each grid barrier), summed over the layers: ln1+mix with
     k/v/r + WKV, output, ln2+mix with key, value+gate, and ln_out; beside
     it the head kernel's time from the profiler;
-  * with --tp, device ms per step by launch position: the step's rwkv
-    kernels in launch order, with the fused body decode_stack_tp.cu (per layer, each launch
-    covering every shard: ln1+mix with the ffn exchange, k/v/r + WKV, output
-    partial, ln2+mix with the att exchange, gate, key, value partial; then
-    ln_out with the last exchange and the head), or with --body halves
-    tp_halves.cu (per layer and shard: ln1+mix, k/v/r + WKV, output partial;
-    ln2+mix, gate, key, value partial; then the mm8 head of each shard);
+  * with --tp and the fused body, device ms per step by phase of K7's one
+    launch (csrc/decode_stack_tp.cu), from its stamps likewise, summed over
+    the layers: the ffn exchange + ln1+mix with every shard's k/v/r + WKV,
+    the output partials, the att exchange + ln2+mix with every shard's key,
+    the value partials and gates, and the last exchange + ln_out with the
+    shards' head columns;
+  * with --tp and --body halves, device ms per step by launch position: the
+    step's rwkv kernels in launch order, tp_halves.cu (per layer and shard:
+    ln1+mix, k/v/r + WKV, output partial; ln2+mix, gate, key, value partial;
+    then the mm8 head of each shard);
   * with --tp, wall ms per step of the unsharded step (forward_step_fused:
     K1 + K2, or K4 + K3 in q4) and of the tensor-parallel step in turns
     (unsharded, tp, tp, unsharded), CUDA events;
@@ -58,8 +61,8 @@ from functools import partial
 PHASES = ("ln1+mix+k/v/r+wkv", "output", "ln2+mix+key", "value+gate")  # per layer
 TP_PHASES = ("ln1+mix", "k/v/r+wkv", "output partial", "ln2+mix", "gate", "key",
              "value partial")
-FUSED_PHASES = ("ffn exchange+ln1+mix", "k/v/r+wkv", "output partial",
-                "att exchange+ln2+mix", "gate", "key", "value partial")
+FUSED_PHASES = ("ffn exchange+ln1+mix+k/v/r+wkv", "output partial",
+                "att exchange+ln2+mix+key", "value partial+gate")  # per layer
 
 
 def _device_us(evt) -> float:
@@ -103,10 +106,12 @@ def main() -> None:
         signedize_params,
     )
     from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
     from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
+    from rwkv_tpu_torch.ops.layernorm import layer_norm
     from rwkv_tpu_torch.ops.sampling import typical
     from rwkv_tpu_torch.parallel.mesh import make_mesh
-    from rwkv_tpu_torch.parallel.sharding import shard_params
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
     from rwkv_tpu_torch.parallel.tp_step import make_engine_step
     from rwkv_tpu_torch.runtime.engine import RWKV
 
@@ -202,34 +207,42 @@ def main() -> None:
         n = args.tp
         fused = n and args.body == "fused"
         by_position = defaultdict(float)
-        if n:
-            per_step = 7 * cfg.n_layer + 2 if fused else 7 * cfg.n_layer * n + n
+        if n and not fused:  # per layer: n att halves (3 launches), then n ffn halves (4)
+            per_step = 7 * cfg.n_layer * n + n
             for i, e in enumerate(ours):
                 j = i % per_step
-                if fused:  # per layer 7 launches, each over every shard; then 2
-                    label = (FUSED_PHASES[j % 7] if j < 7 * cfg.n_layer
-                             else ("last exchange+ln_out" if j == 7 * cfg.n_layer else head))
-                else:  # per layer: n att halves (3 launches), then n ffn halves (4)
-                    k = j % (7 * n)
-                    label = (head if j >= 7 * cfg.n_layer * n
-                             else TP_PHASES[k % 3] if k < 3 * n
-                             else TP_PHASES[3 + (k - 3 * n) % 4])
+                k = j % (7 * n)
+                label = (head if j >= 7 * cfg.n_layer * n
+                         else TP_PHASES[k % 3] if k < 3 * n
+                         else TP_PHASES[3 + (k - 3 * n) % 4])
                 by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
         else:  # one launch a step: its phases from the kernel's own stamps
             L = cfg.n_layer
             stamps = torch.zeros((args.steps, 4 * L + 2), dtype=torch.int64, device=dev)
-            s = st
-            for i in range(args.steps):
-                s = ds_mod.decode_stack(params, tok, s, a8=args.a8,
-                                        a8_block=a8_block_for(cfg.n_embd) if args.a8 else None,
-                                        stamps=stamps[i])[1]
+            if fused:
+                local = [sharded.local(0, j) for j in range(n)]
+                kw = ({"token": tok} if B <= k7.FUSE_EMBED_MAX_B else
+                      {"x": layer_norm(params.emb[tok], params.ln0.weight, params.ln0.bias)})
+                s = shard_state(st, mesh)[0]
+                for i in range(args.steps):
+                    s = k7.decode_stack_tp(sharded.rows[0], s, local, stamps=stamps[i], **kw)[1]
+            else:
+                s = st
+                for i in range(args.steps):
+                    s = ds_mod.decode_stack(params, tok, s, a8=args.a8,
+                                            a8_block=a8_block_for(cfg.n_embd) if args.a8
+                                            else None, stamps=stamps[i])[1]
             torch.cuda.synchronize()
             ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e6
             for k in range(4 * L):
-                by_position[PHASES[k % 4]] += float(ms[k])
-            by_position["ln_out"] = float(ms[4 * L])
+                by_position[(FUSED_PHASES if fused else PHASES)[k % 4]] += float(ms[k])
+            if fused:
+                by_position["last exchange+ln_out+head"] = float(ms[4 * L])
+            else:
+                by_position["ln_out"] = float(ms[4 * L])
             by_position["stack (first stamp to last)"] = float(ms.sum())
-            by_position[head] = sum(v for k, v in by_kernel.items() if "qmv_kernel" in k)
+            if not fused:
+                by_position[head] = sum(v for k, v in by_kernel.items() if "qmv_kernel" in k)
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
 
@@ -294,8 +307,8 @@ def main() -> None:
                "device_busy_share": device_ms / wall_ms if wall_ms else None,
                "device_ms_per_step_by_kernel": dict(sorted(by_kernel.items(),
                                                            key=lambda kv: -kv[1])),
-               ("device_ms_per_step_by_launch" if args.tp else "device_ms_per_step_by_phase"):
-                   dict(by_position),
+               ("device_ms_per_step_by_launch" if n and not fused
+                else "device_ms_per_step_by_phase"): dict(by_position),
                "rwkv_kernels_seen": len(ours),
                **engine,
                "card": card}

@@ -394,10 +394,10 @@ def test_tp_step_halves_runs_k6_and_k2(dev, tp_setup):
         assert _scaled(a, b) <= 1e-4
 
 
-# Kernel K7 (csrc/decode_stack_tp.cu): the whole step of a data row's shards,
-# q8 and q4, tp 1, 2 and 4 on a virtual mesh (E / tp = 512, 256, 128), B = 1
-# and 8 with the embedding gather in the step and B = 16 with x given,
-# against its plain version over 2 carried steps.
+# Kernel K7 (csrc/decode_stack_tp.cu): the whole step of a data row's shards
+# as one cooperative launch, q8 and q4, tp 1, 2 and 4 on a virtual mesh
+# (E / tp = 512, 256, 128), B = 1 and 8 with the embedding gather in the step
+# and B = 16 with x given, against its plain version over 2 carried steps.
 @pytest.fixture(scope="module")
 def k7_setup():
     if not torch.cuda.is_available():
@@ -436,8 +436,7 @@ def test_decode_stack_tp_matches_plain(dev, k7_setup, quant, tp, B):
         lg_k, new_k = k7.decode_stack_tp(sp.rows[0], st_k, local, **kw)
         after = (k7.launches, k7.launches_q4, ds_mod.launches, mm8_mod.launches)
         moved = [a - b for a, b in zip(after, before)]
-        want = 7 * cfg.n_layer + 2
-        assert moved == ([0, want] if quant == "q4" else [want, 0]) + [0, 0], (counter, moved)
+        assert moved == ([0, 1] if quant == "q4" else [1, 0]) + [0, 0], (counter, moved)
         lg_p, new_p = k7.decode_stack_tp_reference(sp.rows[0], st_p, local, **kw)
         torch.cuda.synchronize()
         for j in range(tp):
@@ -469,12 +468,134 @@ def test_tp_step_fused_runs_k7_alone(dev, k7_setup):
     before = counts()
     sp.mesh.reset_collectives()
     logits, new = step(sp, tok, st)
-    assert [a - b for a, b in zip(counts(), before)] == [7 * cfg.n_layer + 2, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 0, 0, 0]
     assert sp.mesh.collectives == {"psum": 0, "all_gather": 1}
     ref, ref_state = forward_step(p, tok, st)
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
     for a, b in zip(new, ref_state):
         assert _scaled(a, b) <= 1e-4
+
+
+def _k7_call(sp, st, tok, **kw):
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+
+    local = [sp.local(0, j) for j in range(len(sp.rows[0]))]
+    lg, new = k7.decode_stack_tp(sp.rows[0], st, local, token=tok, **kw)
+    return list(lg) + [t for s in new for t in s]
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_decode_stack_tp_same_bits_and_graph_replay(dev, k7_setup, quant, tp):
+    """Two calls give the same bits, and so do three replays of a CUDA graph
+    that captured the launch (the barrier and split-K words are left at zero
+    by every launch); the input state is never written."""
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    cfg, params = k7_setup
+    sp = shard_params(params[quant], make_mesh(model=tp, devices=[dev] * tp))
+    B = 5
+    tok = torch.from_numpy(np.random.default_rng(tp).integers(0, cfg.vocab_size, size=(B,))).to(dev)
+    st = shard_state(init_state(cfg, (B,), device=dev), sp.mesh)[0]
+    for _ in range(2):  # a state that is not all zeros
+        out = _k7_call(sp, st, tok)
+        st = [WKVState(*out[tp + 5 * j:tp + 5 * (j + 1)]) for j in range(tp)]
+    keep = [t.clone() for s in st for t in s]
+    eager = _k7_call(sp, st, tok)
+    again = _k7_call(sp, st, tok)
+    for a, b in zip(eager, again):
+        assert torch.equal(a, b)
+    for a, b in zip((t for s in st for t in s), keep):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _k7_call(sp, st, tok)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+def test_decode_stack_tp_14b_widths_tp8(dev, quant):
+    """RWKV-4 14B widths (E = 5120, F = 20480), L = 2, at tp = 8 (E / tp =
+    640, F / tp = 2560, 128 vocab columns a shard), q4 packed in blocks that
+    lie inside a shard: one launch a step, against the plain version."""
+    from rwkv_tpu_torch.models.rwkv4 import q4_pack_block
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    cfg = RWKVConfig(n_layer=2, n_embd=5120, vocab_size=1000)
+    host = random_quantized_params_np(cfg, seed=41, pad_multiple=1024, q4=quant == "q4",
+                                      q4_block=q4_pack_block(cfg.n_embd, 8))
+    p = params_to(signedize_params(host), dev)
+    del host
+    sp = shard_params(p, make_mesh(model=8, devices=[dev] * 8))
+    local = [sp.local(0, j) for j in range(8)]
+    rng = np.random.default_rng(41)
+    B = 3
+    st_k = st_p = shard_state(init_state(cfg, (B,), device=dev), sp.mesh)[0]
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        before = k7.launches + k7.launches_q4
+        lg_k, new_k = k7.decode_stack_tp(sp.rows[0], st_k, local, token=tok)
+        assert k7.launches + k7.launches_q4 == before + 1
+        lg_p, new_p = k7.decode_stack_tp_reference(sp.rows[0], st_p, local, token=tok)
+        torch.cuda.synchronize()
+        for j in range(8):
+            assert _scaled(lg_k[j], lg_p[j]) <= 1e-4, ("logits", j, _scaled(lg_k[j], lg_p[j]))
+            for name, a, b in zip(WKVState._fields, new_k[j], new_p[j]):
+                assert torch.isfinite(a).all() and _scaled(a, b) <= 1e-4, (name, j, _scaled(a, b))
+        st_k, st_p = new_k, new_p
+
+
+def test_decode_stack_tp_stamps_and_grid(dev, k7_setup):
+    """K7's %globaltimer stamps: 4 L + 2 of them, in order, and the same bits
+    with or without them; the grid is the occupancy API's blocks per SM
+    times the SMs."""
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    cfg, params = k7_setup
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = k7.stack_grid_tp(1, cfg.n_embd)
+    assert grid >= sms and grid % sms == 0
+    sp = shard_params(params["q8"], make_mesh(model=2, devices=[dev, dev]))
+    st = shard_state(init_state(cfg, (1,), device=dev), sp.mesh)[0]
+    tok = torch.tensor([7], device=dev)
+    stamps = torch.zeros(4 * cfg.n_layer + 2, dtype=torch.int64, device=dev)
+    plain = _k7_call(sp, st, tok)
+    stamped = _k7_call(sp, st, tok, stamps=stamps)
+    for a, b in zip(plain, stamped):
+        assert torch.equal(a, b)
+    t = stamps.cpu()
+    assert bool((t > 0).all()) and bool((t[1:] >= t[:-1]).all())
+    with pytest.raises(ValueError, match="stamps"):
+        _k7_call(sp, st, tok, stamps=stamps[:3])
+
+
+def test_decode_stack_tp_refused_launch_raises(dev, k7_setup):
+    """A launch the card refuses (more shared memory than a block may have,
+    for the [3, B] offset terms of a huge batch) raises; no other route runs
+    the step."""
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    cfg, params = k7_setup
+    sp = shard_params(params["q8"], make_mesh(model=1, devices=[dev]))
+    B = 8192
+    st = shard_state(init_state(cfg, (B,), device=dev), sp.mesh)[0]
+    x = torch.zeros((B, cfg.n_embd), device=dev)
+    before = (k7.launches, k7.launches_q4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k7.decode_stack_tp(sp.rows[0], st, [sp.local(0, 0)], x=x)
+    assert (k7.launches, k7.launches_q4) == before
 
 
 # The decode stack as one persistent, cooperative launch a step (q8 K1, q4
