@@ -6,12 +6,15 @@
 Phases, in order; any failure raises and exits non-zero:
 
   1. device   nvidia-smi name + power limit; build every CUDA kernel from
-              rwkv_tpu_torch/csrc (one nvcc per source, all at once); device
-              memory bandwidth from a large device-to-device copy.
+              rwkv_tpu_torch/csrc (one nvcc per source, all at once); the
+              CUDA runtime's and driver's versions; device memory bandwidth
+              from a large device-to-device copy.
   2. mm8      kernel K2 against its plain version at the head shape
               [B, 1024] x [1024, 50688] int8, B in {1, 8}; times of the
-              kernel, the plain version and one torch.matmul on the widened
-              weight (the yardstick, never used by the port).
+              kernel (the median of repeated CUDA-graph replays, and called
+              back to back from Python), the plain version and one
+              torch.matmul on the widened weight (the yardstick, never used
+              by the port).
   3. decode   kernel K1 (+ K2 head) against the plain version at RWKV-4 430M
               widths (L=24, E=1024, F=4096, Vp=50688), weights from a numpy
               seed, B in {1, 8, 16}, 4 consecutive steps: logits and all 5
@@ -25,8 +28,9 @@ Phases, in order; any failure raises and exits non-zero:
               match the plain model on the loaded weights.
   5. mm4      kernel K3 against its plain version at the q4 head shape
               [B, 1024] x packed [512, 50688], B in {1, 8}; times of the
-              kernel, the plain version and one torch.matmul on the
-              pre-widened f32 [1024, 50688] weight (the yardstick).
+              kernel (graph-replay median and eager, as in phase 2), the
+              plain version and one torch.matmul on the pre-widened f32
+              [1024, 50688] weight (the yardstick).
   6. decode4  kernel K4 (+ K3 head) against the plain version at 430M widths
               with packed 4-bit weights from a numpy seed (the default pairing
               block, 1024), B in {1, 8, 16}, 4 steps, logits and all 5 state
@@ -41,8 +45,9 @@ Phases, in order; any failure raises and exits non-zero:
   8. mm8_a8   kernel K5's head (mm8_a8.cu) against its plain version at
               [B, 1024] x [1024, 50688] int8, B in {1, 8, 16}: the int8
               codes equal, the outputs within 1e-6 scaled; times of the
-              kernel, the plain version and torch._int_mm (cuBLAS s8 x s8)
-              on the same codes, rows padded to 24 (the yardstick).
+              kernel (graph-replay median and eager), the plain version and
+              torch._int_mm (cuBLAS s8 x s8) on the same codes, rows padded
+              to 24 (the yardstick).
   9. decode8  kernel K5's stack (the a8 branch of decode_stack.cu) + a8 head
               against the plain a8 version at 430M widths, a8_block 512, B in
               {1, 8, 16}, 4 carried steps: the state bit-equal, logits within
@@ -63,13 +68,19 @@ Phases, in order; any failure raises and exits non-zero:
               new xy/dd within K6_TOL scaled, and the tp shards' partials
               summed in the fixed order against the tp = 1 call within
               K6_SUM_TOL; then 14B widths (E=5120, F=20480, L=2) at tp = 8
-              (E/tp = 640); times of one att_half + ffn_half at tp = 1 beside
-              K1's per-layer share (phase 3).
+              (E/tp = 640). How each of the four launches (a1, a2, f1, f2) is
+              cut: cluster size, blocks, shared memory, and one wave of
+              co-resident clusters at 430M tp = 1. The same bits on two calls
+              and from graph replays. Times at tp = 1: each half per layer
+              over all L layers in turn from a CUDA graph (the weights from
+              device memory, as a step reads them), beside the one-layer
+              L2-hot figure, K1's per-layer share (phase 3) and the bound.
  12. tp serve the phase-4 .bin through RWKV(path, sharding=make_mesh(model=1),
-              tp_body="halves"): 3 requests on the tensor-parallel step (K6
-              per layer, the head on K2), K6's and K2's counters rising and
-              K1's and K7's still, the logits against the plain model,
-              ms/token beside the K1 engine's; then on a virtual model=2 mesh
+              tp_body="halves"): 3 requests on the tensor-parallel step
+              replayed from its CUDA graph (K6, 2 + 2 launches a layer: 4 * L
+              a step; the head on K2), K6's and K2's counters rising and K1's
+              and K7's still, the logits against the plain model, ms/token
+              beside the K1 engine's; then on a virtual model=2 mesh
               (one card twice): logits within TP_TOL of tp = 1, the same 8
               greedy ids, 3L + 2 collectives a step; then a 4-slot
               InferencePool over it serving 6 requests. Times on a virtual
@@ -194,6 +205,7 @@ def main() -> int:
     from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
     from rwkv_tpu_torch.runtime.engine import RWKV
     from rwkv_tpu_torch.runtime.pool import InferencePool
+    from rwkv_tpu_torch.tools.halves_time import graph_median_ms, time_halves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,6 +227,9 @@ def main() -> int:
         for line in _build.build_log(n).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {n}: {line.strip()}")
+    rt, drv = th.cuda_versions()
+    print(f"  CUDA runtime {rt // 1000}.{rt % 1000 // 10}, driver {drv // 1000}.{drv % 1000 // 10} "
+          "(K6's programmatic dependent launches inside a CUDA graph need 12.3)")
 
     def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(warmup):
@@ -279,15 +294,18 @@ def main() -> int:
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm8 B={B}: non-finite output")
         require(serr <= MM8_TOL, f"mm8 B={B}: scaled error {serr:.3e} > {MM8_TOL}")
-        ms = cuda_ms(lambda: mm8_mod.mm8(xs, w), 50)
+        eager_ms = cuda_ms(lambda: mm8_mod.mm8(xs, w), 50)
+        ms = graph_median_ms(lambda: mm8_mod.mm8(xs, w), 50, 15)
         plain_ms = cuda_ms(lambda: mm8_mod.mm8_plain(xs, w), 20)
         lib_ms = cuda_ms(lambda: torch.matmul(xs, w_f32), 50)
         b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * B * K * O)
         bw_ms = K * O / bw * 1e3
-        mm8_rows[B] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+        mm8_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
         print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_TOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul on widened W "
+              f"kernel {ms:.4f} ms (median of 15 CUDA-graph replays of 50 calls; "
+              f"{eager_ms:.4f} called back to back from Python), plain {plain_ms:.4f} ms, "
+              f"torch.matmul on widened W "
               f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks), "
               f"{bw_ms:.4f} ms at the measured copy rate; {K * O / (ms * 1e-3) / 1e9:.0f} GB/s "
               f"of weights {card}")
@@ -516,14 +534,16 @@ def main() -> int:
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm4 B={B}: non-finite output")
         require(serr <= MM4_TOL, f"mm4 B={B}: scaled error {serr:.3e} > {MM4_TOL}")
-        ms = cuda_ms(lambda: mm4_mod.mm4(xs, wp), 50)
+        eager_ms = cuda_ms(lambda: mm4_mod.mm4(xs, wp), 50)
+        ms = graph_median_ms(lambda: mm4_mod.mm4(xs, wp), 50, 15)
         plain_ms = cuda_ms(lambda: mm4_mod.mm4_plain(xs, wp), 20)
         lib_ms = cuda_ms(lambda: torch.matmul(xs, w_f32), 50)
         b_ms, b_by = bound(K * O // 2 + B * K * 4 + B * O * 4, 2 * B * K * O)
-        mm4_rows[B] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+        mm4_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
         print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM4_TOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul on widened W "
+              f"kernel {ms:.4f} ms (graph-replay median; {eager_ms:.4f} eager), "
+              f"plain {plain_ms:.4f} ms, torch.matmul on widened W "
               f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks), "
               f"{K * O / 2 / bw * 1e3:.4f} ms at the measured copy rate; "
               f"{K * O / 2 / (ms * 1e-3) / 1e9:.0f} GB/s of packed weights {card}")
@@ -651,16 +671,18 @@ def main() -> int:
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm8_a8 B={B}: non-finite output")
         require(serr <= MM8_A8_TOL, f"mm8_a8 B={B}: scaled error {serr:.3e} > {MM8_A8_TOL}")
-        ms = cuda_ms(lambda: mm8_mod.mm8_a8(xs, w), 50)
+        eager_ms = cuda_ms(lambda: mm8_mod.mm8_a8(xs, w), 50)
+        ms = graph_median_ms(lambda: mm8_mod.mm8_a8(xs, w), 50, 15)
         plain_ms = cuda_ms(lambda: mm8_mod.mm8_a8_plain(xs, w), 5, warmup=1)
         codes24 = torch.zeros((24, K), dtype=torch.int8, device=dev)  # _int_mm takes > 16 rows
         codes24[:B] = codes
         lib_ms = cuda_ms(lambda: torch._int_mm(codes24, w), 50)
         b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * B * K * O, PEAK_INT8_OPS)
-        a8_rows[B] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+        a8_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by)
         print(f"  B={B}: codes equal; max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_A8_TOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm on the codes (24 rows) "
+              f"kernel {ms:.4f} ms (graph-replay median; {eager_ms:.4f} eager), plain "
+              f"{plain_ms:.4f} ms, torch._int_mm on the codes (24 rows) "
               f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks); "
               f"{K * O / (ms * 1e-3) / 1e9:.0f} GB/s of weights {card}")
     del w, codes24
@@ -878,17 +900,47 @@ def main() -> int:
         cfg, seed=args.seed + 5, pad_multiple=512)), dev)
     torch.manual_seed(args.seed)  # check_halves' inputs
     k6_err = check_halves(params, cfg, (1, 2, 4), (1, 8), "430M")
+    for B in (1, 8):  # how the four launches are cut; one wave at 430M, tp = 1
+        for tp in (1, 2, 4):
+            pl = th.plan(B, E, E // tp, F // tp)
+            print(f"  plan B={B} tp={tp}: " + "; ".join(
+                f"{n} {r['blocks'] // r['cluster']} clusters of {r['cluster']} "
+                f"({r['smem_bytes'] / 1024:.1f} KiB, {r['pass_rows']} rows a block, "
+                f"{r['active_clusters']} clusters co-resident)" for n, r in pl.items()))
+            if tp == 1:
+                require(all(r["blocks"] <= r["cluster"] * r["active_clusters"]
+                            for r in pl.values()), f"K6 at 430M tp=1 B={B}: a launch takes "
+                        f"more than one wave: {pl}")
+    x, xy, dd, aa, pp = (torch.randn((8, E), device=dev) for _ in range(5))
+    bb = torch.randn((8, E), device=dev).abs() + 0.5
+    dl, bl = params.att.decay, params.att.bonus
+    both = lambda: (th.att_half(params, 3, x, xy, aa, bb, pp, dl, bl)  # noqa: E731
+                    + th.ffn_half(params, 3, x, dd))
+    eager_out, again = both(), both()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = both()
+    same = all(torch.equal(a, b) for a, b in zip(eager_out, again))
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for a, b in zip(captured, eager_out))
+    require(same, "K6: two calls or graph replays of one input gave different bits")
+    del g, captured
+    print("  B=8, layer 3: the same bits on two calls and from 3 CUDA-graph replays")
     El_bytes = lambda B, E_, El: 4 * E_ * El + (11 * E_ + 4 * El) * 4 + (4 * B * E_ + 6 * B * El) * 4  # noqa: E731,E501
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
     k6_rows = {}
     for B in (1, 8):
         x, xy, dd = (torch.randn((B, E), device=dev) for _ in range(3))
         aa, pp = torch.randn((B, E), device=dev), torch.randn((B, E), device=dev)
         bb = torch.randn((B, E), device=dev).abs() + 0.5
-        dl, bl = params.att.decay, params.att.bonus
         att = lambda: th.att_half(params, 0, x, xy, aa, bb, pp, dl, bl)  # noqa: E731,B023
         ffn = lambda: th.ffn_half(params, 0, x, dd)  # noqa: E731,B023
         att_eager, ffn_eager = cuda_ms(att, 50), cuda_ms(ffn, 50)
-        att_ms, ffn_ms = graph_ms(att, 50), graph_ms(ffn, 50)
+        t = time_halves(params, B, 15, gen)
         att_plain = cuda_ms(lambda: th.att_half_plain(params, 0, x, xy, aa, bb, pp, dl, bl), 20)  # noqa: B023,E501
         ffn_plain = cuda_ms(lambda: th.ffn_half_plain(params, 0, x, dd), 20)  # noqa: B023
         att_b = bound(El_bytes(B, E, E), 2 * B * 4 * E * E)
@@ -896,13 +948,18 @@ def main() -> int:
         # scale/offset: 8 E; value scale/offset: 2 F), x, dd in; partial, gate, dd out
         ffn_b = bound(2 * E * F + E * E + (8 * E + 2 * F) * 4 + (5 * B * E) * 4,
                       2 * B * (2 * E * F + E * E))
-        k6_rows[B] = dict(att_ms=att_ms, ffn_ms=ffn_ms, att_plain=att_plain, ffn_plain=ffn_plain,
-                          att_bound=att_b, ffn_bound=ffn_b)
+        k6_rows[B] = dict(att_ms=t["att_ms_per_layer"], ffn_ms=t["ffn_ms_per_layer"],
+                          att_hot=t["att_ms_one_layer_l2_hot"], ffn_hot=t["ffn_ms_one_layer_l2_hot"],
+                          att_plain=att_plain, ffn_plain=ffn_plain, att_bound=att_b,
+                          ffn_bound=ffn_b)
+        r = k6_rows[B]
         share = ds_rows[1]["ms"] / L if B == 1 else ds_rows[8]["ms"] / L
-        print(f"  tp=1 B={B}: att_half {att_ms:.4f} ms (3 launches), ffn_half {ffn_ms:.4f} ms "
-              f"(4 launches) replayed from a CUDA graph, together {att_ms + ffn_ms:.4f} ms per "
-              f"layer against K1's per-layer share {share:.4f} ms (phase 3 step / L); called "
-              f"back to back from Python {att_eager:.4f} + {ffn_eager:.4f} ms; plain "
+        print(f"  tp=1 B={B}: per layer over all {L} layers from a CUDA graph (weights from "
+              f"device memory; median of 15 replays): att_half {r['att_ms']:.4f} ms, ffn_half "
+              f"{r['ffn_ms']:.4f} ms (2 launches each), together {r['att_ms'] + r['ffn_ms']:.4f} "
+              f"ms per layer against K1's per-layer share {share:.4f} ms (phase 3 step / L); "
+              f"layer 0 repeated, L2-hot: {r['att_hot']:.4f} + {r['ffn_hot']:.4f} ms; called back "
+              f"to back from Python {att_eager:.4f} + {ffn_eager:.4f} ms; plain "
               f"{att_plain:.4f} + {ffn_plain:.4f} ms; bounds {att_b[0]:.4f} ms ({att_b[1]}) + "
               f"{ffn_b[0]:.4f} ms ({ffn_b[1]}) {card}")
     del params
@@ -923,21 +980,25 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  RWKV(path, sharding=make_mesh(model=1), tp_body='halves') on {eng.device} in "
           f"{time.perf_counter() - t0:.1f} s; step body {eng._step_fn.body}")
-    require(eng.device.type == "cuda" and eng._step_fn.body == "halves",
-            f"the tp=1 engine runs body {eng._step_fn.body} on {eng.device}")
+    require(eng.device.type == "cuda" and eng._step_fn.body == "halves" and eng._step_fn.graphed,
+            f"the tp=1 engine runs body {eng._step_fn.body} on {eng.device}, graphed "
+            f"{getattr(eng._step_fn, 'graphed', None)}")
     steps12, counts12 = serve(eng, label="tp=1")
     c12 = dict(zip(COUNTER_NAMES, counts12))
-    print(f"  launches during the requests: {c12} (K6: 3 + 4 per layer, "
-          f"{7 * L} per step x {steps12} steps: "
-          f"{c12['K6 att'] + c12['K6 ffn'] == 7 * L * steps12}); K2 once per step")
+    print(f"  launches during the requests: {c12} (K6: 2 + 2 per layer, "
+          f"{4 * L} per step x {steps12} steps: "
+          f"{c12['K6 att'] + c12['K6 ffn'] == 4 * L * steps12}); K2 once per step")
     require(c12["K6 att"] > 0 and c12["K6 ffn"] > 0, "K6 never launched on the tp path")
+    require(c12["K6 att"] == c12["K6 ffn"] == 2 * L * steps12,
+            f"K6: {c12['K6 att']} + {c12['K6 ffn']} launches for {steps12} decoded steps, not "
+            f"2 + 2 per layer each")
     require(c12["K2"] > 0, "the tp path's head never launched K2")
     require(all(c12[k] == 0 for k in ("K1", "K4", "K3", "K5 stack", "K5 head", "K7", "K7 q4")),
             f"the tp path launched another stack: {c12}")
     k6_att_launches, k6_ffn_launches = c12["K6 att"], c12["K6 ffn"]
     check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
-    print(f"  decode ms/token, last request: tp=1 engine {ms_per_token['tp=1']:.3f}, K1 engine "
-          f"{ms_per_token['K1']:.3f} (phase 4) {card}")
+    print(f"  decode ms/token, last request: tp=1 halves engine (its step replayed from a CUDA "
+          f"graph) {ms_per_token['tp=1']:.3f}, K1 engine {ms_per_token['K1']:.3f} (phase 4) {card}")
 
     def greedy(e, n=8):
         e.reset_state()
@@ -1221,13 +1282,15 @@ def main() -> int:
          "max_abs_err": mm8_rows[1]["err"], "ms": mm8_rows[1]["ms"],
          "plain_ms": mm8_rows[1]["plain_ms"], "bound_ms": mm8_rows[1]["bound_ms"],
          "bound_by": mm8_rows[1]["bound_by"], "library_ms": mm8_rows[1]["lib_ms"],
-         "shape": f"B=1 K={K} O={O}"},
+         "shape": f"B=1 K={K} O={O}; ms the median of CUDA-graph replays, "
+                  f"{mm8_rows[1]['eager_ms']:.4f} eager"},
         {"name": "mm4", "route": "cuda", "source": "rwkv_tpu_torch/csrc/mm4.cu",
          "replaces": "rwkv_tpu/ops/pallas/mm4.py:87", "launches": k3_launches,
          "max_abs_err": mm4_rows[1]["err"], "ms": mm4_rows[1]["ms"],
          "plain_ms": mm4_rows[1]["plain_ms"], "bound_ms": mm4_rows[1]["bound_ms"],
          "bound_by": mm4_rows[1]["bound_by"], "library_ms": mm4_rows[1]["lib_ms"],
-         "shape": f"B=1 K={K} O={O}, packed [{K // 2}, {O}]"},
+         "shape": f"B=1 K={K} O={O}, packed [{K // 2}, {O}]; ms the median of CUDA-graph "
+                  f"replays, {mm4_rows[1]['eager_ms']:.4f} eager"},
         {"name": "decode_stack_q4", "route": "cuda",
          "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k4_launches,
@@ -1241,7 +1304,8 @@ def main() -> int:
          "max_abs_err": a8_rows[1]["err"], "ms": a8_rows[1]["ms"],
          "plain_ms": a8_rows[1]["plain_ms"], "bound_ms": a8_rows[1]["bound_ms"],
          "bound_by": a8_rows[1]["bound_by"], "library_ms": a8_rows[1]["lib_ms"],
-         "shape": f"B=1 K={K} O={O}; library: torch._int_mm on 24 rows"},
+         "shape": f"B=1 K={K} O={O}; library: torch._int_mm on 24 rows; ms the median of "
+                  f"CUDA-graph replays, {a8_rows[1]['eager_ms']:.4f} eager"},
         {"name": "decode_stack_a8", "route": "cuda",
          "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k5_stack_launches,
@@ -1256,15 +1320,17 @@ def main() -> int:
          "max_abs_err": k6_err["att"], "ms": k6_rows[1]["att_ms"],
          "plain_ms": k6_rows[1]["att_plain"], "bound_ms": k6_rows[1]["att_bound"][0],
          "bound_by": k6_rows[1]["att_bound"][1], "library_ms": None,
-         "shape": f"tp=1, B=1, one layer: E={E}, E_loc={E}, 3 launches per call; ms replayed "
-                  "from a CUDA graph"},
+         "shape": f"tp=1, B=1: E={E}, E_loc={E}, 2 cluster launches with PDL per call; ms per "
+                  f"layer over all {L} layers replayed from a CUDA graph; one layer repeated "
+                  f"(L2-hot) {k6_rows[1]['att_hot']:.4f} ms"},
         {"name": "ffn_half", "route": "cuda", "source": "rwkv_tpu_torch/csrc/tp_halves.cu",
          "replaces": "rwkv_tpu/ops/pallas/tp_halves.py:283", "launches": k6_ffn_launches,
          "max_abs_err": k6_err["ffn"], "ms": k6_rows[1]["ffn_ms"],
          "plain_ms": k6_rows[1]["ffn_plain"], "bound_ms": k6_rows[1]["ffn_bound"][0],
          "bound_by": k6_rows[1]["ffn_bound"][1], "library_ms": None,
-         "shape": f"tp=1, B=1, one layer: E={E}, F_loc={F}, 4 launches per call; ms replayed "
-                  "from a CUDA graph"},
+         "shape": f"tp=1, B=1: E={E}, F_loc={F}, 2 cluster launches with PDL per call; ms per "
+                  f"layer over all {L} layers replayed from a CUDA graph; one layer repeated "
+                  f"(L2-hot) {k6_rows[1]['ffn_hot']:.4f} ms"},
         {"name": "decode_stack_tp", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack_tp.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack_tp.py:519", "launches": k7_launches,
          "max_abs_err": k7_err, "ms": k7_row["ms"], "plain_ms": k7_row["plain_ms"],

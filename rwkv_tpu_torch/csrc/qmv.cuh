@@ -454,7 +454,7 @@ __device__ __forceinline__ void reduce_tile_body(float (&acc)[BT][kColsPerThread
 }
 
 // The functions below come twice: as calls (qmv_kernel, one launch a
-// matvec: the heads and K6),
+// matvec: the heads),
 // and inlined whole (INL) into the persistent decode stack, where a call's
 // register saves go to local memory and each reload is a cache round trip
 // on a chain of latencies.

@@ -1,12 +1,11 @@
-// Row kernel shared by the decode stack (decode_stack.cu: kernels K1, K4 and
-// K5's stack: its ln_out phase) and the tensor-parallel layer halves
-// (tp_halves.cu: kernel K6).
+// Row operations of the persistent decode stacks (stack.cuh; decode_stack.cu:
+// kernels K1, K4 and K5's stack, whose ln_out phase is row_run).
 //
-// One block per batch row: optionally the embedding gather + ln0, then a
+// A batch row by a whole block: optionally the embedding gather + ln0, then a
 // LayerNorm (ln1, ln2 or ln_out), the token-shift mixes that feed the next
 // matvecs, and the whole rank-1 offset sums of the matrices that read the
 // mixed rows (csrc/qmv.cuh says why they are computed here). Every operation
-// reads and writes O(B * E) floats: it is one launch of a few microseconds.
+// reads and writes O(B * E) floats.
 #pragma once
 
 #include <type_traits>
@@ -121,8 +120,6 @@ __device__ __forceinline__ float token_mix(float mix, float xx, float prev) {
   else return mix * xx + (1.f - mix) * prev;
 }
 
-constexpr int kRowThreads = 1024;
-
 // Batch row b of a row operation, by the whole block: LayerNorm, the
 // token-shift mixes, and the whole rank-1 offset sums of the matrices that
 // read the mixed rows (EXACT: in double, rounded once by the consumer).
@@ -189,30 +186,6 @@ __device__ void row_run(const RowArgs& a, int b, float* v, float* scratch,
       }
     }
   }
-}
-
-// One block per batch row, one thread per element up to 1024.
-template <bool EXACT>
-__global__ void __launch_bounds__(kRowThreads) row_kernel(const RowArgs a) {
-  extern __shared__ float v[];  // [E]
-  __shared__ float scratch[3 * 33];
-  __shared__ std::conditional_t<EXACT, double, float> ascratch[3 * 33];
-  row_run<EXACT>(a, blockIdx.x, v, scratch, ascratch);
-}
-
-// Launches row_kernel<EXACT> over the a.B rows of width a.E on `st`; returns
-// the launch's CUDA error.
-template <bool EXACT>
-inline cudaError_t launch_rows(const RowArgs& a, cudaStream_t st) {
-  const size_t smem = (size_t)a.E * sizeof(float);
-  const int threads = a.E < kRowThreads ? (a.E + 31) / 32 * 32 : kRowThreads;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        row_kernel<EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  row_kernel<EXACT><<<a.B, threads, smem, st>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace rwkv

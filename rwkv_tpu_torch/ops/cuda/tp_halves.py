@@ -23,11 +23,13 @@ the shards and adds the residuals (parallel/tp_step.py): a sum of partials is
 the partial of the sum. At tp = 1 (El = E, Fl = F) they are the whole layer
 less its residual adds.
 
-On CUDA tensors the wrappers launch csrc/tp_halves.cu (3 and 4 launches, from
-one host call each; int8 weights, models.rwkv4.signedize_params) or raise; on
+On CUDA tensors the wrappers launch csrc/tp_halves.cu or raise: 2 launches
+a half, from one host call each (int8 weights, models.rwkv4.signedize_params),
+each a thread-block-cluster launch with programmatic dependent launch
+(csrc/cluster_qmv.cuh); launches_att and launches_ffn rise by 2 a call. On
 CPU tensors they run att_half_plain and ffn_half_plain. Bound on the card:
 the shard's weight bytes per layer over device memory bandwidth, 4 * E * El
-(att) and 2 * E * Fl + E * El (ffn).
+(att) and 2 * E * Fl + E * El (ffn). `plan` says how each launch is cut.
 
 Not ported: the JAX module's pick_tp_tile, a model of the TPU's VMEM.
 """
@@ -59,15 +61,14 @@ _ATT_POINTERS = (
     "att.value.w", "att.value.scale", "att.value.offset",
     "att.receptance.w", "att.receptance.scale", "att.receptance.offset",
     "att.output.w", "att.output.scale", "att.output.offset", "decay", "bonus",
-    "aa", "bb", "pp", "partial", "aa_out", "bb_out", "pp_out", "xy_out",
-    "xk", "xv", "xr", "rwkv", "offs", "off_parts", "split", "counters",
+    "aa", "bb", "pp", "partial", "aa_out", "bb_out", "pp_out", "xy_out", "rwkv",
 )
 _FFN_POINTERS = (
     "x", "dd", "ln2.weight", "ln2.bias", "ffn.mix_k", "ffn.mix_r",
     "ffn.key.w", "ffn.key.scale", "ffn.key.offset",
     "ffn.receptance.w", "ffn.receptance.scale", "ffn.receptance.offset",
     "ffn.value.w", "ffn.value.scale", "ffn.value.offset",
-    "vpartial", "gate", "dd_out", "fk", "fr", "kk", "offs", "off_parts", "split", "counters",
+    "vpartial", "gate", "dd_out", "kk",
 )
 _ATT_PARAMS = tuple(n for n in _ATT_POINTERS if "." in n)
 _FFN_PARAMS = tuple(n for n in _FFN_POINTERS if "." in n)
@@ -78,12 +79,13 @@ def _kernel():
     if _lib is None:
         lib = _build.load("tp_halves")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv_att_half.argtypes = [ctypes.POINTER(P), I, I, I, I, I, ctypes.c_longlong, I, I,
-                                      P, ctypes.POINTER(I)]
-        lib.rwkv_ffn_half.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, ctypes.c_longlong, I,
-                                      I, P, ctypes.POINTER(I)]
+        lib.rwkv_att_half.argtypes = [ctypes.POINTER(P), I, I, I, I, I, P, ctypes.POINTER(I)]
+        lib.rwkv_ffn_half.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, P, ctypes.POINTER(I)]
+        lib.rwkv_halves_plan.argtypes = [I, I, I, I, I, ctypes.POINTER(I)]
+        lib.rwkv_cuda_versions.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
         for fn in (lib.rwkv_att_half, lib.rwkv_ffn_half, lib.rwkv_att_half_pointer_count,
-                   lib.rwkv_ffn_half_pointer_count):
+                   lib.rwkv_ffn_half_pointer_count, lib.rwkv_halves_plan,
+                   lib.rwkv_cuda_versions):
             fn.restype = I
         if (lib.rwkv_att_half_pointer_count() != len(_ATT_POINTERS)
                 or lib.rwkv_ffn_half_pointer_count() != len(_FFN_POINTERS)):
@@ -126,7 +128,7 @@ def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
 
 class _Table:
     """The pointer table of one half for one shard and batch size. The
-    parameter, scratch and split-K slots are filled once; a call fills the
+    parameter and scratch slots are filled once; a call fills the
     slots of its inputs and outputs (`dynamic`, in order) and passes the same
     array: the host builds no table per call. The C function copies the
     pointers into its launches before it returns."""
@@ -181,16 +183,10 @@ class _Prepared:
         """(att table, ffn table) for batch size B."""
         got = self.tables.get(B)
         if got is None:
-            buf = _buffers(self.device, B, self.E, self.El, self.Fl)
-            split, counters, target = _build.split_scratch(self.device, "tp_halves")
-            fixed = {**self.ptrs, **{n: t.data_ptr() for n, t in buf.items()},
-                     "split": split.data_ptr(), "counters": counters.data_ptr()}
-            att = _Table(_ATT_POINTERS, {**fixed, "offs": fixed["att_offs"],
-                                         "off_parts": fixed["att_parts"]}, _ATT_IO)
-            ffn = _Table(_FFN_POINTERS, {**fixed, "offs": fixed["ffn_offs"],
-                                         "off_parts": fixed["ffn_parts"]}, _FFN_IO)
-            self.split = (split.numel(), counters.numel(), target)
-            got = self.tables[B] = (att, ffn)
+            buf = _buffers(self.device, B, self.El, self.Fl)
+            fixed = {**self.ptrs, **{n: t.data_ptr() for n, t in buf.items()}}
+            got = self.tables[B] = (_Table(_ATT_POINTERS, fixed, _ATT_IO),
+                                    _Table(_FFN_POINTERS, fixed, _FFN_IO))
         return got
 
 
@@ -207,20 +203,16 @@ def _prepare(p: RWKVParams) -> _Prepared:
     return prep
 
 
-def _buffers(device, B: int, E: int, El: int, Fl: int) -> dict:
-    """Activation scratch. Every shard of a mesh on `device` may share it:
-    their launches run in order on one stream (shards on concurrent streams
-    would need a set each, as would the split-K scratch)."""
-    key = (device, B, E, El, Fl)
+def _buffers(device, B: int, El: int, Fl: int) -> dict:
+    """The halves' intermediates (a1 -> a2, f1 -> f2). Every shard of a mesh
+    on `device` may share them: their launches run in order on one stream,
+    and each writes only once the launch before it has finished (shards on
+    concurrent streams would need a set each)."""
+    key = (device, B, El, Fl)
     s = _scratch.get(key)
     if s is None:
-        z = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)  # noqa: E731
-        zd = lambda *shape: torch.empty(shape, dtype=torch.float64, device=device)  # noqa: E731
-        s = {"xk": z(B, E), "xv": z(B, E), "xr": z(B, E), "rwkv": z(B, El),
-             "fk": z(B, E), "fr": z(B, E), "kk": z(B, Fl),
-             "att_offs": zd(3, B), "att_parts": zd(-(-El // 128), B),
-             "ffn_offs": zd(2, B), "ffn_parts": zd(-(-Fl // 128), B)}
-        _scratch[key] = s
+        s = _scratch[key] = {"rwkv": torch.empty((B, El), dtype=torch.float32, device=device),
+                             "kk": torch.empty((B, Fl), dtype=torch.float32, device=device)}
     return s
 
 
@@ -262,9 +254,9 @@ def ffn_half_plain(p: RWKVParams, l: int, x, dd):
     return _qmm(h, ffn.value, l), gate, xx2
 
 
-def _launch(fn, table: _Table, tensors, dims, split, what: str, device) -> int:
+def _launch(fn, table: _Table, tensors, dims, what: str, device) -> int:
     lib = _kernel()
-    err = fn(lib)(table.fill(tensors), table.n, *dims, *split,
+    err = fn(lib)(table.fill(tensors), table.n, *dims,
                   torch.cuda.current_stream(device).cuda_stream, ctypes.byref(table.launched))
     _build.check(lib, err, what)
     return table.launched.value
@@ -291,8 +283,8 @@ def att_half(p: RWKVParams, l: int, x, xy, aa, bb, pp, decay, bonus):
     out = (torch.empty(be, dtype=torch.float32, device=dev), torch.empty_like(aa),
            torch.empty_like(bb), torch.empty_like(pp), torch.empty_like(xy))
     launches_att += _launch(lambda lib: lib.rwkv_att_half, att,
-                            (x, xy, decay, bonus, aa, bb, pp) + out, (l, B, E, El), prep.split,
-                            "att_half", dev)
+                            (x, xy, decay, bonus, aa, bb, pp) + out, (l, B, E, El), "att_half",
+                            dev)
     return out
 
 
@@ -315,5 +307,35 @@ def ffn_half(p: RWKVParams, l: int, x, dd):
     out = (torch.empty((B, E), dtype=torch.float32, device=dev),
            torch.empty((B, El), dtype=torch.float32, device=dev), torch.empty_like(dd))
     launches_ffn += _launch(lambda lib: lib.rwkv_ffn_half, ffn, (x, dd) + out,
-                            (l, B, E, El, Fl), prep.split, "ffn_half", dev)
+                            (l, B, E, El, Fl), "ffn_half", dev)
     return out
+
+
+LAUNCHES = ("a1", "a2", "f1", "f2")  # in order: att_half's two, then ffn_half's
+
+
+def plan(B: int, E: int, El: int, Fl: int, device=None) -> dict:
+    """How each of the four launches is cut on the card at these widths:
+    {launch: {"cluster", "blocks", "smem_bytes", "pass_rows",
+    "active_clusters"}}; active_clusters is how many of its clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters), so blocks <=
+    cluster * active_clusters means one wave. Launches nothing."""
+    lib = _kernel()
+    out = (ctypes.c_int * 5)()
+    keys = ("cluster", "blocks", "smem_bytes", "pass_rows", "active_clusters")
+    got = {}
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        for h, name in enumerate(LAUNCHES):
+            _build.check(lib, lib.rwkv_halves_plan(h, B, E, El, Fl, out), f"plan {name}")
+            got[name] = dict(zip(keys, out))
+    return got
+
+
+def cuda_versions() -> tuple:
+    """(runtime, driver) CUDA versions as 1000 * major + 10 * minor, from
+    the kernel library: programmatic dependent launch inside a CUDA graph
+    needs 12.3 or later of both."""
+    lib = _kernel()
+    rt, drv = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.rwkv_cuda_versions(ctypes.byref(rt), ctypes.byref(drv)), "versions")
+    return rt.value, drv.value

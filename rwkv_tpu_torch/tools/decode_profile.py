@@ -30,10 +30,17 @@ shard and layer, the head on K2), it measures:
     the output partials, the att exchange + ln2+mix with every shard's key,
     the value partials and gates, and the last exchange + ln_out with the
     shards' head columns;
-  * with --tp and --body halves, device ms per step by launch position: the
-    step's rwkv kernels in launch order, tp_halves.cu (per layer and shard:
-    ln1+mix, k/v/r + WKV, output partial; ln2+mix, gate, key, value partial;
-    then the mm8 head of each shard);
+  * with --tp and --body halves, device ms per step by launch position over
+    the eager body (torch.profiler): every device kernel in launch order,
+    K6's (csrc/tp_halves.cu, per layer and shard: a1 ln1+mix+k/v/r+WKV, a2
+    output partial; f1 ln2+mix+key+gate, f2 value partial), the torch
+    kernels between them by the K6 launch they follow (the psum and residual
+    add after a2, the psum, gate gather and addcmul after f2), then the mm8
+    head of each shard. K6's launches overlap the one before them
+    (programmatic dependent launch), so each span is counted from where the
+    spans before it ended: the positions sum to the device's busy time;
+    also the halves step's wall ms eager (its body called directly) beside
+    the engine's graphed step;
   * with --tp, wall ms per step of the unsharded step (forward_step_fused:
     K1 + K2, or K4 + K3 in q4) and of the tensor-parallel step in turns
     (unsharded, tp, tp, unsharded), CUDA events;
@@ -59,8 +66,8 @@ from functools import partial
 
 
 PHASES = ("ln1+mix+k/v/r+wkv", "output", "ln2+mix+key", "value+gate")  # per layer
-TP_PHASES = ("ln1+mix", "k/v/r+wkv", "output partial", "ln2+mix", "gate", "key",
-             "value partial")
+HALVES_LAUNCHES = ("a1: ln1+mix+k/v/r+wkv", "a2: output partial", "f1: ln2+mix+key+gate",
+                   "f2: value partial")  # K6's launches per layer and shard
 FUSED_PHASES = ("ffn exchange+ln1+mix+k/v/r+wkv", "output partial",
                 "att exchange+ln2+mix+key", "value partial+gate")  # per layer
 
@@ -112,7 +119,7 @@ def main() -> None:
     from rwkv_tpu_torch.ops.sampling import typical
     from rwkv_tpu_torch.parallel.mesh import make_mesh
     from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
-    from rwkv_tpu_torch.parallel.tp_step import make_engine_step
+    from rwkv_tpu_torch.parallel.tp_step import make_engine_step, make_tp_step
     from rwkv_tpu_torch.runtime.engine import RWKV
 
     if not torch.cuda.is_available():
@@ -134,9 +141,14 @@ def main() -> None:
         mesh = make_mesh(model=args.tp, devices=[dev] * args.tp)
         sharded = shard_params(params, mesh)
         tp_step = make_engine_step(mesh, sharded, body=args.body)
+        raw = make_tp_step(mesh, sharded, body=args.body)
+        eager_body = getattr(raw, "eager", raw)
 
         def forward_step_fused(_, token, state):  # noqa: F811: the step profiled
             return tp_step(sharded, token, state)
+
+        def eager_step(_, token, state):  # the body without its CUDA graph
+            return eager_body(sharded, token, state)
 
         head = "head (mm8)" if args.body == "halves" else "head"
     rng = np.random.default_rng(args.seed)
@@ -207,15 +219,44 @@ def main() -> None:
         n = args.tp
         fused = n and args.body == "fused"
         by_position = defaultdict(float)
-        if n and not fused:  # per layer: n att halves (3 launches), then n ffn halves (4)
-            per_step = 7 * cfg.n_layer * n + n
-            for i, e in enumerate(ours):
-                j = i % per_step
-                k = j % (7 * n)
-                label = (head if j >= 7 * cfg.n_layer * n
-                         else TP_PHASES[k % 3] if k < 3 * n
-                         else TP_PHASES[3 + (k - 3 * n) % 4])
-                by_position[label] += e.time_range.elapsed_us() / 1e3 / args.steps
+        eager_wall = None
+        if n and not fused:  # per layer: n att halves (a1, a2), then n ffn halves (f1, f2)
+            s = st
+            for _ in range(3):
+                _, s = eager_step(params, tok, s)
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(args.steps):
+                _, s = eager_step(params, tok, s)
+            b.record()
+            b.synchronize()
+            eager_wall = a.elapsed_time(b) / args.steps
+            with profile(activities=[ProfilerActivity.CUDA]) as prof_h:
+                for _ in range(args.steps):
+                    _, s = eager_step(params, tok, s)
+                torch.cuda.synchronize()
+            kernels = sorted((e for e in prof_h.events()
+                              if getattr(e, "device_type", None)
+                              == torch.autograd.DeviceType.CUDA),
+                             key=lambda e: e.time_range.start)
+            per_step = 4 * cfg.n_layer * n + n
+            i, label, end = 0, None, None
+            for e in kernels:
+                if "rwkv::" in e.name:
+                    j = i % per_step
+                    k = j % (4 * n)
+                    label = (head if j >= 4 * cfg.n_layer * n
+                             else HALVES_LAUNCHES[k % 2] if k < 2 * n
+                             else HALVES_LAUNCHES[2 + (k - 2 * n) % 2])
+                    i += 1
+                    key = label
+                else:
+                    key = f"torch after {label}" if label else "torch before a1"
+                t0_, t1_ = e.time_range.start, e.time_range.end
+                if end is not None:
+                    t0_ = max(t0_, end)
+                end = t1_ if end is None else max(end, t1_)
+                by_position[key] += max(0, t1_ - t0_) / 1e3 / args.steps
         else:  # one launch a step: its phases from the kernel's own stamps
             L = cfg.n_layer
             stamps = torch.zeros((args.steps, 4 * L + 2), dtype=torch.int64, device=dev)
@@ -300,6 +341,7 @@ def main() -> None:
                **({"body": args.body} if args.tp else {}), "batch": B,
                "wall_ms_per_step": wall_ms, "host_enqueue_ms_per_step": host_ms,
                **({"wall_ms_per_step_in_turns": turns} if turns else {}),
+               **({"eager_wall_ms_per_step": eager_wall} if eager_wall is not None else {}),
                "graph_ms_per_step": graph_ms,
                "sampled_ms_per_token": sampled_ms,
                "sampled_device_busy_share": sampled_busy,

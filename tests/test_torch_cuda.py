@@ -351,8 +351,8 @@ def test_tp_halves_match_plain_and_sum_to_tp1(dev, tp_setup, tp, B):
         before = (th.launches_att, th.launches_ffn, ds_mod.launches)
         got = th.att_half(p, l, x, xy, *cut, *sp.local(0, j))
         got_f = th.ffn_half(p, l, x, dd)
-        assert (th.launches_att, th.launches_ffn, ds_mod.launches) == (before[0] + 3,
-                                                                       before[1] + 4, before[2])
+        assert (th.launches_att, th.launches_ffn, ds_mod.launches) == (before[0] + 2,
+                                                                       before[1] + 2, before[2])
         want = th.att_half_plain(p, l, x, xy, *cut, *sp.local(0, j))
         want_f = th.ffn_half_plain(p, l, x, dd)
         for name, a, b in zip(("partial", "aa", "bb", "pp", "xx", "vpartial", "gate", "xx2"),
@@ -387,11 +387,181 @@ def test_tp_step_halves_runs_k6_and_k2(dev, tp_setup):
     before = counts()
     logits, new = step(sp, tok, st)
     L = cfg.n_layer
-    assert [a - b for a, b in zip(counts(), before)] == [3 * L * 2, 4 * L * 2, 2, 0]
+    assert [a - b for a, b in zip(counts(), before)] == [2 * L * 2, 2 * L * 2, 2, 0]
     ref, ref_state = forward_step(sharded[1].rows[0][0], tok, st)
     assert _scaled(logits[:, :cfg.vocab_size], ref[:, :cfg.vocab_size]) <= 1e-4
     for a, b in zip(new, ref_state):
         assert _scaled(a, b) <= 1e-4
+
+
+def _halves_inputs(dev, B, E, El, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+    x, xy, dd, aa, pp = f(B, E), f(B, E), f(B, E), f(B, El), f(B, El)
+    return x, xy, dd, aa, f(B, El).abs() + 0.5, pp
+
+
+def test_tp_halves_same_bits_and_graph_replay(dev, tp_setup):
+    """Each half gives the same bits on two calls and from three replays of
+    a CUDA graph that captured it (the cluster reduction sums in a fixed
+    order, with no atomics); the inputs are never written."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    cfg, sharded = tp_setup
+    sp = sharded[2]
+    p, (decay, bonus) = sp.rows[0][1], sp.local(0, 1)
+    E, El = cfg.n_embd, cfg.n_embd // 2
+    x, xy, dd, aa, bb, pp = _halves_inputs(dev, 5, E, El, 3)
+    keep = [t.clone() for t in (x, xy, dd, aa, bb, pp)]
+
+    def call():
+        return (th.att_half(p, 1, x, xy, aa, bb, pp, decay, bonus)
+                + th.ffn_half(p, 1, x, dd))
+
+    eager, again = call(), call()
+    for a, b in zip(eager, again):
+        assert torch.equal(a, b)
+    for a, b in zip((x, xy, dd, aa, bb, pp), keep):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+
+
+def test_tp_step_halves_graph_equals_eager(dev, tp_setup):
+    """The halves step on a mesh that names one card (tp = 1 and a virtual
+    tp = 2) replays a CUDA graph from its second call: over 3 carried steps
+    its logits and state are bit-equal to the eager body's, and each replay
+    advances K6's and K2's launch counts and the mesh's collectives by one
+    step's worth (2 + 2 K6 launches a layer and shard; 3L + 2 collectives at
+    tp = 2)."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
+
+    cfg, sharded = tp_setup
+    L = cfg.n_layer
+    for tp in (1, 2):
+        sp = sharded[tp]
+        step = make_tp_step(sp.mesh, sp, body="halves")
+        assert step.graphed
+        st = st_e = init_state(cfg, (3,), device=dev)
+        counts = lambda: (th.launches_att, th.launches_ffn, mm8_mod.launches,  # noqa: E731
+                          ds_mod.launches, dict(sp.mesh.collectives))
+        for i, tok in enumerate(([17, 400, 5], [3, 3, 999], [0, 64, 128])):
+            tok = torch.tensor(tok, device=dev)
+            before = counts()
+            logits, st = step(sp, tok, st)
+            after = counts()
+            assert [a - b for a, b in zip(after[:4], before[:4])] == [2 * L * tp, 2 * L * tp,
+                                                                      tp, 0], i
+            want = {"psum": 2 * L + 1, "all_gather": L + 1} if tp > 1 else {"psum": 0,
+                                                                             "all_gather": 0}
+            assert {k: after[4][k] - before[4][k] for k in want} == want
+            ref, st_e = step.eager(sp, tok, st_e)
+            torch.cuda.synchronize()
+            assert torch.equal(logits, ref), (tp, i)
+            for a, b in zip(st, st_e):
+                assert torch.equal(a, b), (tp, i)
+
+
+def test_tp_halves_14b_widths_tp8(dev):
+    """RWKV-4 14B widths (E = 5120, F = 20480), L = 2, at tp = 8 (E / tp =
+    640 and F / tp = 2560: contractions that are not powers of two), B = 1
+    and 8: every shard's halves against their plain versions, 2 + 2
+    launches, and the summed partials against the tp = 1 call."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params
+
+    cfg = RWKVConfig(n_layer=2, n_embd=5120, vocab_size=1000)
+    p = params_to(signedize_params(random_quantized_params_np(cfg, seed=43, pad_multiple=1024)),
+                  dev)
+    E, El, l = cfg.n_embd, cfg.n_embd // 8, 1
+    full = shard_params(p, make_mesh(model=1, devices=[dev]))
+    sp = shard_params(p, make_mesh(model=8, devices=[dev] * 8))
+    del p
+    for B in (1, 8):
+        x, xy, dd, aa, bb, pp = _halves_inputs(dev, B, E, E, B)
+        att1 = th.att_half(full.rows[0][0], l, x, xy, aa, bb, pp, *full.local(0, 0))
+        ffn1 = th.ffn_half(full.rows[0][0], l, x, dd)
+        total = vtotal = None
+        for j in range(8):
+            q = sp.rows[0][j]
+            cut = [t[:, j * El:(j + 1) * El].contiguous() for t in (aa, bb, pp)]
+            before = (th.launches_att, th.launches_ffn)
+            got = th.att_half(q, l, x, xy, *cut, *sp.local(0, j)) + th.ffn_half(q, l, x, dd)
+            assert (th.launches_att, th.launches_ffn) == (before[0] + 2, before[1] + 2)
+            want = (th.att_half_plain(q, l, x, xy, *cut, *sp.local(0, j))
+                    + th.ffn_half_plain(q, l, x, dd))
+            for name, a, b in zip(("partial", "aa", "bb", "pp", "xx", "vpartial", "gate", "xx2"),
+                                  got, want):
+                assert torch.isfinite(a).all() and _scaled(a, b) <= 1e-5, (name, B, j,
+                                                                           _scaled(a, b))
+            total = got[0] if total is None else total + got[0]
+            vtotal = got[5] if vtotal is None else vtotal + got[5]
+        assert _scaled(total, att1[0]) <= 1e-4
+        assert _scaled(vtotal, ffn1[0]) <= 1e-4
+
+
+def test_tp_halves_long_contraction_in_passes(dev):
+    """A width whose blocks' weight shares do not fit in shared memory at
+    once (E = 8192, F = 32768, tp = 1: f1 runs unclustered with 8192 rows a
+    block, f2 with 4096): each block sums its rows in passes, the later
+    ones loaded after the first is summed. Both halves against their plain
+    versions, B = 1 and 3."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    cfg = RWKVConfig(n_layer=1, n_embd=8192, vocab_size=1000)
+    p = params_to(signedize_params(random_quantized_params_np(cfg, seed=47, pad_multiple=1024)),
+                  dev)
+    E, F = cfg.n_embd, cfg.n_ffn
+    plan = th.plan(1, E, E, F)
+    assert plan["f1"]["pass_rows"] < E and plan["f2"]["pass_rows"] < F // plan["f2"]["cluster"]
+    for B in (1, 3):
+        x, xy, dd, aa, bb, pp = _halves_inputs(dev, B, E, E, 47 + B)
+        got = (th.att_half(p, 0, x, xy, aa, bb, pp, p.att.decay, p.att.bonus)
+               + th.ffn_half(p, 0, x, dd))
+        want = (th.att_half_plain(p, 0, x, xy, aa, bb, pp, p.att.decay, p.att.bonus)
+                + th.ffn_half_plain(p, 0, x, dd))
+        for name, a, b in zip(("partial", "aa", "bb", "pp", "xx", "vpartial", "gate", "xx2"),
+                              got, want):
+            assert torch.isfinite(a).all() and _scaled(a, b) <= 1e-5, (name, B, _scaled(a, b))
+
+
+def test_tp_halves_plan_one_wave_at_430m(dev):
+    """At RWKV-4 430M widths, tp = 1, B = 1, each of K6's four launches is a
+    cluster launch whose blocks the card holds at once (one wave)."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    plan = th.plan(1, 1024, 1024, 4096)
+    assert list(plan) == ["a1", "a2", "f1", "f2"]
+    for name, row in plan.items():
+        assert row["cluster"] in (1, 2, 4, 8), (name, row)
+        assert row["blocks"] <= row["cluster"] * row["active_clusters"], (name, row)
+
+
+def test_tp_halves_refused_launch_raises(dev, tp_setup):
+    """A cluster launch the card refuses (more shared memory than a block
+    may have, for the partial sums of a huge batch) raises, and counts no
+    launch; no other route runs the half."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    cfg, sharded = tp_setup
+    sp = sharded[1]
+    B, E = 8192, cfg.n_embd
+    x, xy, dd, aa, bb, pp = _halves_inputs(dev, B, E, E, 5)
+    before = (th.launches_att, th.launches_ffn)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        th.att_half(sp.rows[0][0], 0, x, xy, aa, bb, pp, *sp.local(0, 0))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        th.ffn_half(sp.rows[0][0], 0, x, dd)
+    assert (th.launches_att, th.launches_ffn) == before
 
 
 # Kernel K7 (csrc/decode_stack_tp.cu): the whole step of a data row's shards

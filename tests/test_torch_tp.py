@@ -195,6 +195,33 @@ def test_tp_step_matches_jax_and_unsharded(setup, jax_steps, model, data, body):
             np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=TOL, atol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("model", [1, 2])
+def test_cpu_halves_step_is_eager_and_counts(setup, model):
+    """On a CPU mesh the halves step is not replayed from a CUDA graph: every
+    call runs the body eagerly, with the same results as the body itself,
+    and counts its collectives anew: 2L + 1 psums and L + 1 gathers (3L + 2)
+    a call at tp = 2, none at tp = 1."""
+    cfg, _, p = setup
+    mesh = _cpu_mesh(model)
+    sp = t_sh.shard_params(p, mesh)
+    step = t_tp.make_tp_step(mesh, sp, body="halves")
+    assert step.body == "halves" and not step.graphed
+    want = {"psum": 2 * L_ + 1, "all_gather": L_ + 1} if model > 1 else {"psum": 0,
+                                                                          "all_gather": 0}
+    st = t_m.init_state(cfg, (2,))
+    for tok in TOKENS[:3]:
+        tok = torch.tensor(tok)
+        mesh.reset_collectives()
+        logits, new = step(sp, tok, st)
+        assert mesh.collectives == want
+        assert sum(mesh.collectives.values()) == (3 * L_ + 2 if model > 1 else 0)
+        ref_logits, ref = step.eager(sp, tok, st)
+        assert torch.equal(logits, ref_logits)
+        for a, b in zip(new, ref):
+            assert torch.equal(a, b)
+        st = new
+
+
 def test_tp_step_auto_body_selection(setup):
     """body=None picks halves when E/tp is a multiple of 128, plain otherwise."""
     _, _, p = setup
