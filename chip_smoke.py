@@ -27,10 +27,15 @@ Phases, in order; any failure raises and exits non-zero:
               step, and that the engine's logits
               match the plain model on the loaded weights.
   5. mm4      kernel K3 against its plain version at the q4 head shape
-              [B, 1024] x packed [512, 50688], B in {1, 8}; times of the
-              kernel (graph-replay median and eager, as in phase 2), the
-              plain version and one torch.matmul on the pre-widened f32
-              [1024, 50688] weight (the yardstick).
+              [B, 1024] x packed [512, 50688], B in {1, 8, 16}, and the same
+              bits from a second call; how the kernel cuts the call; times of
+              the kernel as graph-replay medians warm (one weight, L2-resident)
+              and from HBM (the calls rotate over 6 copies of the weight, 156
+              MB: as the q4 step's head finds it) and eager, of the plain
+              version and of one torch.matmul on the pre-widened f32
+              [1024, 50688] weight (the yardstick); the bound counts the
+              tensor-core products the kernel issues (N = 3B rounded up to 8
+              columns) at the bf16 peak.
   6. decode4  kernel K4 (+ K3 head) against the plain version at 430M widths
               with packed 4-bit weights from a numpy seed (the default pairing
               block, 1024), B in {1, 8, 16}, 4 steps, logits and all 5 state
@@ -127,10 +132,12 @@ from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# float32 rate outside the tensor cores (the kernels accumulate in f32 FMAs).
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
+# float32 rate outside the tensor cores (the kernels accumulate in f32 FMAs)
+# and the dense bf16 tensor-core rate (K3's products).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12  # tensor cores, dense: the rate of W8A8's s8 x s8 products
 
 # Tolerances, stated: fp32 sums over 1024..4096 terms in another order than
@@ -206,6 +213,7 @@ def main() -> int:
     from rwkv_tpu_torch.runtime.engine import RWKV
     from rwkv_tpu_torch.runtime.pool import InferencePool
     from rwkv_tpu_torch.tools.halves_time import graph_median_ms, time_halves
+    from rwkv_tpu_torch.tools.head_time import cold_median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -223,10 +231,11 @@ def main() -> int:
     secs = _build.build()
     print(f"  kernel build: {time.perf_counter() - t0:.1f} s wall "
           + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
-    for n in _build.KERNELS:
-        for line in _build.build_log(n).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {n}: {line.strip()}")
+    for n in _build.KERNELS:  # each distinct report line once, with its count of kernels
+        lines = [ln.strip() for ln in _build.build_log(n).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for line in dict.fromkeys(lines):
+            print(f"  ptxas {n}: {line} (x{lines.count(line)})")
     rt, drv = th.cuda_versions()
     print(f"  CUDA runtime {rt // 1000}.{rt % 1000 // 10}, driver {drv // 1000}.{drv % 1000 // 10} "
           "(K6's programmatic dependent launches inside a CUDA graph need 12.3)")
@@ -523,31 +532,43 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 5
     print("phase 5 mm4 (K3) vs plain, [B, 1024] x packed [512, 50688] int8")
-    wp = torch.from_numpy(rng.integers(-128, 128, size=(K // 2, O), dtype=np.int8)).to(dev)
+    copies = [torch.from_numpy(rng.integers(-128, 128, size=(K // 2, O), dtype=np.int8)).to(dev)
+              for _ in range(6)]
+    wp = copies[0]
     w_f32 = unpack4(wp).float()  # the yardstick's operand, prepared beforehand
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mm4_rows = {}
-    for B in (1, 8):
+    for B in (1, 8, 16):
         xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
         got = mm4_mod.mm4(xs, wp)
+        again = mm4_mod.mm4(xs, wp)
         ref = mm4_mod.mm4_plain(xs, wp)
         torch.cuda.synchronize()
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm4 B={B}: non-finite output")
         require(serr <= MM4_TOL, f"mm4 B={B}: scaled error {serr:.3e} > {MM4_TOL}")
+        require(torch.equal(again, got), f"mm4 B={B}: two calls gave different bits")
         eager_ms = cuda_ms(lambda: mm4_mod.mm4(xs, wp), 50)
         ms = graph_median_ms(lambda: mm4_mod.mm4(xs, wp), 50, 15)
+        cold_ms = cold_median_ms(lambda w: mm4_mod.mm4(xs, w), copies, 48, 15)
         plain_ms = cuda_ms(lambda: mm4_mod.mm4_plain(xs, wp), 20)
         lib_ms = cuda_ms(lambda: torch.matmul(xs, w_f32), 50)
-        b_ms, b_by = bound(K * O // 2 + B * K * 4 + B * O * 4, 2 * B * K * O)
-        mm4_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by)
-        print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM4_TOL}); "
-              f"kernel {ms:.4f} ms (graph-replay median; {eager_ms:.4f} eager), "
-              f"plain {plain_ms:.4f} ms, torch.matmul on widened W "
-              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks), "
-              f"{K * O / 2 / bw * 1e3:.4f} ms at the measured copy rate; "
-              f"{K * O / 2 / (ms * 1e-3) / 1e9:.0f} GB/s of packed weights {card}")
-    del wp, w_f32
+        plan = mm4_mod.plan(B, K, O, sms)
+        N = 8 * plan["nt"]  # three bf16 pieces a row, rounded up to 8 columns
+        b_ms, b_by = bound(K * O // 2 + B * K * 4 + B * O * 4, 2 * O * K * N, PEAK_BF16_FLOPS)
+        mm4_rows[B] = dict(err=err, ms=cold_ms, warm_ms=ms, eager_ms=eager_ms,
+                           plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM4_TOL}), the same bits "
+              f"twice; cut {plan}; kernel from HBM {cold_ms:.4f} ms (graph-replay median, 6 "
+              f"copies), warm {ms:.4f} (one weight, L2-resident), eager {eager_ms:.4f}; plain "
+              f"{plain_ms:.4f} ms, torch.matmul on widened W {lib_ms:.4f} ms; bound {b_ms:.4f} "
+              f"ms ({b_by}, published peaks; products at N={N} on bf16 tensor cores) = "
+              f"{b_ms / cold_ms:.0%} of the HBM time; {K * O / 2 / bw * 1e3:.4f} ms at the "
+              f"measured copy rate; {K * O / 2 / (cold_ms * 1e-3) / 1e9:.0f} GB/s of packed "
+              f"weights from HBM {card}")
+    print(f"  B=16 against B=1 from HBM: {mm4_rows[16]['ms'] / mm4_rows[1]['ms']:.2f}x "
+          f"(each weight byte read once for all 16 rows)")
+    del wp, w_f32, copies
 
     # ------------------------------------------------------------------ 6
     print(f"phase 6 decode_stack q4 (K4) + head (K3) vs plain, 430M: L={L} E={E} F={F}")
@@ -1290,7 +1311,10 @@ def main() -> int:
          "plain_ms": mm4_rows[1]["plain_ms"], "bound_ms": mm4_rows[1]["bound_ms"],
          "bound_by": mm4_rows[1]["bound_by"], "library_ms": mm4_rows[1]["lib_ms"],
          "shape": f"B=1 K={K} O={O}, packed [{K // 2}, {O}]; ms the median of CUDA-graph "
-                  f"replays, {mm4_rows[1]['eager_ms']:.4f} eager"},
+                  f"replays from HBM (6 weight copies), warm {mm4_rows[1]['warm_ms']:.4f}, "
+                  f"{mm4_rows[1]['eager_ms']:.4f} eager; B=8 {mm4_rows[8]['ms']:.4f} "
+                  f"(warm {mm4_rows[8]['warm_ms']:.4f}), B=16 {mm4_rows[16]['ms']:.4f} "
+                  f"(warm {mm4_rows[16]['warm_ms']:.4f})"},
         {"name": "decode_stack_q4", "route": "cuda",
          "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k4_launches,

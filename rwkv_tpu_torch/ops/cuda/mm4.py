@@ -1,15 +1,19 @@
-"""4-bit-weight matvec (kernel K3; counterpart of rwkv_tpu/ops/pallas/mm4.py).
+"""4-bit-weight head (kernel K3; counterpart of rwkv_tpu/ops/pallas/mm4.py).
 
 `mm4(xs, wp, block=None)` computes xs [B, K] f32 @ unpack4(wp, block) ->
 [B, O] f32, with wp the nibble-packed [K/2, O] int8 of ops.quant.Quant4Linear
-and both nibbles widened in registers (csrc/mm4.cu, which replaces the
-Pallas `mm4` / `_mm4_kernel_two_dot`). As for mm8, xs arrives already scaled
-by the per-row scale and the caller adds the rank-1 offset term; `row_add`
-and `col_add` let the kernel add it, and a logit bias, in its epilogue.
+(csrc/mm4.cu, which replaces the Pallas `mm4` / `_mm4_kernel_two_dot`). As
+for mm8, xs arrives already scaled by the per-row scale and the caller adds
+the rank-1 offset term; `row_add` and `col_add` let the kernel add it, and a
+logit bias, in its epilogue.
 
-Unlike the Pallas kernel, which rounds its left operand to bf16, the CUDA
-kernel keeps f32 activations and f32 sums: it computes what the JAX
-package's f32 `q4matmul` computes.
+The kernel streams the packed weights through a TMA ring in shared memory
+once for up to 16 batch rows and multiplies on the tensor cores (wgmma,
+bf16 in, f32 accumulate): each nibble widens to an exact bf16 integer and
+each activation is split into three bf16 pieces whose sum is the f32 value,
+so every product is exact and the only rounding is the f32 accumulation.
+Unlike the Pallas kernel, which rounds its left operand to bf16, it computes
+what the JAX package's f32 `q4matmul` computes.
 
 Bound on the card: K * O / 2 packed bytes over device memory bandwidth (the
 430M head, 1024 x 50688, is 26 MB: ~7.7 us at 3.35 TB/s).
@@ -38,9 +42,10 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("mm4")
-        lib.rwkv_mm4.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
-                                 _P, _I, _I, _P]
+        lib.rwkv_mm4.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.rwkv_mm4.restype = _I
+        lib.rwkv_mm4_plan.argtypes = [_I, _I, _I, _I] + [ctypes.POINTER(_I)] * 4
+        lib.rwkv_mm4_plan.restype = None
         _lib = lib
     return _lib
 
@@ -102,15 +107,23 @@ def mm4(xs: torch.Tensor, wp: torch.Tensor, *, block: int | None = None,
     out = torch.empty((B, O), dtype=torch.float32, device=dev)
     if B == 0 or O == 0:
         return out
-    partial, counters, target = _build.split_scratch(dev, "mm4")
     lib = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.rwkv_mm4(ptr(xs), ptr(wp), ptr(out), ptr(row_add), ptr(col_add), B, K, O, half,
-                       ptr(partial), partial.numel(), ptr(counters), counters.numel(), target,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mm4")
     launches += 1
     return out
+
+
+def plan(B: int, K: int, O: int, sms: int) -> dict:
+    """How the kernel cuts a call on a card of `sms` SMs: boxes of 128
+    columns a slab (mt), n-tiles of 8 (nt: three columns a batch row, 16
+    rows a pass), slabs, and the packed rows of one staging of the
+    activations' pieces (chunk_rows)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _kernel().rwkv_mm4_plan(B, K, O, sms, *(ctypes.byref(v) for v in vals))
+    return dict(zip(("mt", "nt", "slabs", "chunk_rows"), (v.value for v in vals)))
 
 
 def qmatmul4_cuda(x: torch.Tensor, q: Quant4Linear) -> torch.Tensor:

@@ -23,7 +23,9 @@ shard and layer, the head on K2), it measures:
     launch (csrc/decode_stack.cu), from its %globaltimer stamps (block 0's
     clock after each grid barrier), summed over the layers: ln1+mix with
     k/v/r + WKV, output, ln2+mix with key, value+gate, and ln_out; beside
-    it the head kernel's time from the profiler;
+    it the head kernel's time from the profiler (K2 and K5's heads run
+    qmv_kernel, K3 mm4_kernel, and K3 before its redesign qmv_kernel: a
+    parent checkout is profiled alike);
   * with --tp and the fused body, device ms per step by phase of K7's one
     launch (csrc/decode_stack_tp.cu), from its stamps likewise, summed over
     the layers: the ffn exchange + ln1+mix with every shard's k/v/r + WKV,
@@ -66,6 +68,7 @@ from functools import partial
 
 
 PHASES = ("ln1+mix+k/v/r+wkv", "output", "ln2+mix+key", "value+gate")  # per layer
+HEAD_KERNELS = ("qmv_kernel", "mm4_kernel")  # the head's kernel names in the profiler
 HALVES_LAUNCHES = ("a1: ln1+mix+k/v/r+wkv", "a2: output partial", "f1: ln2+mix+key+gate",
                    "f2: value partial")  # K6's launches per layer and shard
 FUSED_PHASES = ("ffn exchange+ln1+mix+k/v/r+wkv", "output partial",
@@ -283,7 +286,8 @@ def main() -> None:
                 by_position["ln_out"] = float(ms[4 * L])
             by_position["stack (first stamp to last)"] = float(ms.sum())
             if not fused:
-                by_position[head] = sum(v for k, v in by_kernel.items() if "qmv_kernel" in k)
+                by_position[head] = sum(v for k, v in by_kernel.items()
+                                        if any(n in k for n in HEAD_KERNELS))
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed)
 

@@ -123,7 +123,12 @@ def test_decode_stack_rejects_strided_state(dev, small):
 
 @pytest.mark.parametrize("B,K,O,block", [(1, 64, 16, None), (3, 1000, 144, None),
                                          (8, 1536, 1040, 256), (11, 4096, 256, 1024),
-                                         (5, 4096, 1024, 2), (2, 1024, 50688, None)])
+                                         (5, 4096, 1024, 2), (2, 1024, 50688, None),
+                                         (16, 1024, 50688, None), (17, 1024, 50688, None),
+                                         (1, 4096, 50688, 256), (8, 4096, 50688, 256),
+                                         (16, 4096, 50688, 256), (16, 2048, 16, 2),
+                                         (4, 2048, 144, 256), (9, 2048, 16, 1024),
+                                         (13, 1024, 144, None)])
 def test_mm4_matches_plain(dev, B, K, O, block):
     rng = np.random.default_rng(B * 5 + K)
     xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 100).to(dev)
@@ -135,8 +140,25 @@ def test_mm4_matches_plain(dev, B, K, O, block):
     ref = mm4_mod.mm4_plain(xs, wp, block=block, row_add=row, col_add=col)
     assert mm4_mod.launches == before + 1
     assert _scaled(got, ref) <= 1e-5
-    # deterministic: the split-K partials are summed in a fixed order
+    # deterministic: every output is summed in a fixed order
     assert torch.equal(mm4_mod.mm4(xs, wp, block=block, row_add=row, col_add=col), got)
+
+
+@pytest.mark.parametrize("B,K,O,block", [(3, 4096, 1040, 256), (16, 1024, 50688, None),
+                                         (16, 4096, 144, 2)])
+def test_mm4_wide_range_matches_plain(dev, B, K, O, block):
+    """Activations over 40 binades, with zeros and both signs: the kernel's
+    three bf16 pieces of each f32 value keep its products exact."""
+    rng = np.random.default_rng(B * 3 + K)
+    x = rng.choice([-1.0, 1.0], size=(B, K)) * 10.0 ** rng.uniform(-20, 20, size=(B, K))
+    x[rng.random(size=(B, K)) < 0.1] = 0.0
+    xs = torch.from_numpy(x.astype(np.float32)).to(dev)
+    wp = torch.from_numpy(rng.integers(-128, 128, size=(K // 2, O), dtype=np.int8)).to(dev)
+    got = mm4_mod.mm4(xs, wp, block=block)
+    ref = mm4_mod.mm4_plain(xs, wp, block=block)
+    assert bool(torch.isfinite(got).all())
+    assert _scaled(got, ref) <= 1e-5
+    assert torch.equal(mm4_mod.mm4(xs, wp, block=block), got)
 
 
 def test_mm4_rejects_bad_block_and_dtype(dev):
