@@ -22,10 +22,18 @@ Phases, in order; any failure raises and exits non-zero:
               and replayed from a CUDA graph, against the weight-bytes bound.
   4. e2e      write a 430M .bin with the port's write_bin, load it with
               RWKV(path) on the default device, answer 3 requests
-              (load_context + generate(max_tokens=32)), check that both
-              kernels' launch counters rose, the stack's by one per decoded
-              step, and that the engine's logits
-              match the plain model on the loaded weights.
+              (load_context + generate(max_tokens=32), temp, tau, ban and
+              seed differing per request) with the decode replayed from CUDA
+              graphs (runtime/graphs.py: the first id, then step + ban +
+              typical per chunk), check that both kernels' launch counters
+              rose, the stack's by one per decoded step; the same requests
+              eagerly and at chunk 8, graphed and eager, give the same
+              texts; decode ms/token graphed and eager at chunk 1 and 8 in
+              turns, the device's busy share of generate (torch.profiler);
+              the engine's logits match the plain model on the loaded
+              weights; the graphs made and the shared graph pool's size;
+              typical alone over [1, 50688] and [8, 50688] logits from a
+              CUDA graph.
   5. mm4      kernel K3 against its plain version at the q4 head shape
               [B, 1024] x packed [512, 50688], B in {1, 8, 16}, and the same
               bits from a second call; how the kernel cuts the call; times of
@@ -42,9 +50,9 @@ Phases, in order; any failure raises and exits non-zero:
               tensors; then at RWKV-4 7B widths (E=4096, F=16384, block 256)
               with L=2, where both row-tiled families pair within sub-K blocks.
   7. e2e4     write a 430M q4 artifact with the port's save_q4, load it with
-              RWKV(path), check it runs as q4, answer 3 requests and check
-              the K4 (one per decoded step) and K3 launch counters rose and
-              the logits match the
+              RWKV(path), check it runs as q4, answer 3 requests as phase 4
+              does (graphed, against eager) and check the K4 (one per decoded
+              step) and K3 launch counters rose and the logits match the
               plain model; then load a dense f32 .safetensors at 430M width
               (L=2) with RWKV(path, quant="q4") and decode a few tokens.
   8. mm8_a8   kernel K5's head (mm8_a8.cu) against its plain version at
@@ -64,8 +72,11 @@ Phases, in order; any failure raises and exits non-zero:
               stop strings); all must finish, K5's counters must rise and
               the q8 ones stay still; one request re-run alone in a fresh
               pool gives the same text; tok/s and ms per pool step at full
-              occupancy; then the first 8 requests at 32 tokens on the q8
-              step (K1 + K2) and the a8 step, in turns (q8, a8, a8, q8).
+              occupancy; the pool's step_chunk steps replayed from a CUDA
+              graph: the 12 texts equal an eager pool's, and step_chunk 4's
+              graphed and eager; the a8 engine's requests as phase 4; then
+              the first 8 requests at 32 tokens on the q8 step (K1 + K2) and
+              the a8 step, graphed and eager, in turns.
  11. tp_halves kernel K6 (att_half + ffn_half, csrc/tp_halves.cu) against
               its plain versions at 430M shard widths, tp in {1, 2, 4} on a
               virtual mesh (one card named tp times: E/tp = 1024, 512, 256),
@@ -88,8 +99,10 @@ Phases, in order; any failure raises and exits non-zero:
               beside the K1 engine's; then on a virtual model=2 mesh
               (one card twice): logits within TP_TOL of tp = 1, the same 8
               greedy ids, 3L + 2 collectives a step; then a 4-slot
-              InferencePool over it serving 6 requests. Times on a virtual
-              mesh are correctness runs, not speed-ups.
+              InferencePool over it serving 6 requests, graphed, the texts
+              equal to an eager pool's. The requests run graphed against
+              eager as in phase 4. Times on a virtual mesh are correctness
+              runs, not speed-ups.
  13. tp_fused kernel K7 (csrc/decode_stack_tp.cu: the whole step of a data
               row's shards as one cooperative launch) against its plain
               version at 430M widths, q8 and q4 (block 256, inside a shard up
@@ -108,7 +121,9 @@ Phases, in order; any failure raises and exits non-zero:
               logits against the plain model and
               the same greedy ids as the K1 engine; a virtual model=2 fused
               engine: the same 8 greedy ids, 1 gather and 0 psums a step; a
-              4-slot pool over it serving 6 requests; then a q4 engine on a
+              4-slot pool over it serving 6 requests, graphed, the texts equal
+              to an eager pool's; the requests run graphed against eager as
+              in phase 4, and every engine's ms/token; then a q4 engine on a
               virtual model=2 mesh and an unsharded q4 engine fed the same
               4-bit params (block 512): the same greedy ids, on K7's q4
               instantiation.
@@ -212,7 +227,10 @@ def main() -> int:
     from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
     from rwkv_tpu_torch.runtime.engine import RWKV
     from rwkv_tpu_torch.runtime.pool import InferencePool
+    from rwkv_tpu_torch.ops.sampling import typical
+    from rwkv_tpu_torch.runtime import graphs as graphs_mod
     from rwkv_tpu_torch.tools.halves_time import graph_median_ms, time_halves
+    from torch.profiler import ProfilerActivity, profile
     from rwkv_tpu_torch.tools.head_time import cold_median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -252,12 +270,15 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / iters
 
-    def graph_ms(fn, iters: int) -> float:
+    def graph_ms(fn, iters: int, generators=()) -> float:
         """Device ms per call of fn, `iters` calls captured in one CUDA graph
-        and replayed: the host's launch cost taken out."""
+        and replayed: the host's launch cost taken out. generators: those fn
+        draws from."""
         fn()
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
+        for gen in generators:
+            g.register_generator_state(gen)
         with torch.cuda.graph(g):
             for _ in range(iters):
                 fn()
@@ -451,15 +472,15 @@ def main() -> int:
         (th, "launches_att"), (th, "launches_ffn"), (k7, "launches"), (k7, "launches_q4")
     COUNTER_NAMES = ("K1", "K4", "K2", "K3", "K5 stack", "K5 head", "K6 att", "K6 ffn", "K7",
                      "K7 q4")
-    ms_per_token = {}  # the last request's decode ms/token, by engine
+    ms_per_token = {}  # decode ms/token graphed (and eager), by engine
+    # (temp, tau, ban) of each prompt: they differ, so a value a capture baked
+    # into a graph would show in the replays
+    SETTINGS = [(0.9, 0.8, (0,)), (0.7, 0.5, (0, 11)), (1.2, 1.0, (0, 187, 13))]
 
-    def serve(eng, max_tokens=32, label=None):
-        """Answer the prompts with every launch count set to 0 just before;
-        returns (decode steps, the counts just after: K1, K4, K2, K3, K5's
-        stack and head, K6's att and ffn halves, K7 q8 and q4)."""
-        for mod, name in counters:
-            setattr(mod, name, 0)
-        steps, rates = 0, []
+    def answer(eng, max_tokens, chunk=1, show=False):
+        """The prompts through load_context + generate, seeds seed + i;
+        returns the texts."""
+        texts = []
         for i, prompt in enumerate(prompts):
             eng.reset_state()
             n_prompt = len(eng.tokenizer.encode(prompt))
@@ -468,21 +489,94 @@ def main() -> int:
             eng.load_context(prompt)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            text = eng.generate("", max_tokens=max_tokens, temp=0.9, tau=0.8, seed=args.seed + i)
+            temp, tau, ban = SETTINGS[i]
+            text = eng.generate("", max_tokens=max_tokens, temp=temp, tau=tau, seed=args.seed + i,
+                                ban_tokens=ban, chunk=chunk)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            steps += max_tokens - 1
             require(isinstance(text, str), "generate returned no text")
-            rates.append((n_prompt / (t1 - t0), max_tokens / (t2 - t1)))
-            print(f"  request {i}: prompt {n_prompt} tok, prefill {n_prompt / (t1 - t0):.1f} "
-                  f"tok/s, decode {max_tokens / (t2 - t1):.1f} tok/s "
-                  f"({(t2 - t1) / max_tokens * 1e3:.2f} ms/token) {card}; text {text[:60]!r}")
+            texts.append(text)
+            if show:
+                print(f"  request {i}: prompt {n_prompt} tok, prefill {n_prompt / (t1 - t0):.1f} "
+                      f"tok/s, decode {max_tokens / (t2 - t1):.1f} tok/s "
+                      f"({(t2 - t1) / max_tokens * 1e3:.2f} ms/token, graphed, the first call "
+                      f"of a chunk length capturing) {card}; text {text[:60]!r}")
+        return texts
+
+    def device_busy(fn) -> tuple[float, float]:
+        """(wall ms, the device's busy share of it) of fn, by torch.profiler."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
+        return wall, busy / wall
+
+    def serve(eng, max_tokens=32, label=None):
+        """Answer the prompts with the decode graphed (runtime/graphs.py) and
+        every launch count set to 0 just before; then the same requests
+        eagerly, and graphed and eagerly at chunk 8: the same texts. Then
+        decode ms/token and the device's busy share, graphed and eager in
+        turns. Returns (decode steps, the counts just after the graphed run:
+        K1, K4, K2, K3, K5's stack and head, K6's att and ffn halves, K7 q8
+        and q4)."""
+        g = eng._graphs
+        require(g.enabled and eng.device.type == "cuda", "the engine's decode is not graphed")
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        texts = answer(eng, max_tokens, show=True)
         counts = tuple(getattr(mod, name) for mod, name in counters)
-        pf, dc = rates[-1]
-        print(f"  last request: prefill {pf:.1f} tok/s, decode {dc:.1f} tok/s, "
-              f"{1e3 / dc:.2f} ms/token {card}")
+        steps = len(prompts) * (max_tokens - 1)
+        replays = g.replays
+        for chunk in (1, 8):
+            for graphed in ((False,) if chunk == 1 else (True, False)):
+                g.enabled = graphed
+                require(answer(eng, max_tokens, chunk=chunk) == texts,
+                        f"{label}: chunk {chunk} {'graphed' if graphed else 'eager'} texts differ "
+                        "from the graphed chunk-1 run's")
+        g.enabled = True
+        n = 64
+
+        def one(chunk=1, profiled=False):
+            """ms/token of one request's generate (and the device's busy
+            share of it, by torch.profiler, when profiled)."""
+            eng.reset_state()
+            eng.load_context(prompts[0])
+            run = lambda: eng.generate("", max_tokens=n, temp=0.9, tau=0.8,  # noqa: E731
+                                       seed=args.seed, chunk=chunk)
+            if profiled:
+                return device_busy(run)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        one(8)  # capture chunk 8's graphs
+        modes = [(True, 1), (False, 1), (True, 8), (False, 8)]
+        turns = {m: [] for m in modes}
+        for graphed, chunk in modes + modes[::-1]:  # in turns
+            g.enabled = graphed
+            turns[graphed, chunk].append(one(chunk))
+        busy = {}
+        for graphed in (True, False):
+            g.enabled = graphed
+            busy[graphed] = one(profiled=True)
+        g.enabled = True
+        fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
+        print(f"  graphed texts equal the eager ones, at chunk 1 and 8 ({len(g)} graphs: the "
+              f"first id, k = 1, 8 and 7; {g.replays - replays} replays since the first run); "
+              f"decode ms/token over {n} tokens, in turns: " + "; ".join(
+                  f"{'graphed' if gr else 'eager'} chunk {c} {fmt(v)}"
+                  for (gr, c), v in turns.items())
+              + f"; device busy at chunk 1 (torch.profiler over generate) graphed "
+              f"{busy[True]:.1%}, eager {busy[False]:.1%} {card}")
         if label:
-            ms_per_token[label] = 1e3 / dc
+            ms_per_token[label] = (min(turns[True, 1]), min(turns[False, 1]), busy[True],
+                                   busy[False], min(turns[True, 8]), min(turns[False, 8]))
         return steps, counts
 
     def a8_step_plain(params, tok, state, block):
@@ -528,7 +622,27 @@ def main() -> int:
     require(k2_launches > 0, "mm8 kernel never launched on the main path")
     require(k4_seen == 0 and k3_seen == 0, "the q8 path launched a q4 kernel")
     check_engine_logits(eng, cfg.vocab_size)
+    print(f"  the engine holds {len(eng._graphs)} graphs (the first id; k = 1, 8 and 7); "
+          f"the shared graph pool {graphs_mod.memory_pool_bytes() / 2**20:.1f} MiB")
     del eng
+    for B in (1, 8):  # the sampler alone: the engine's [V] row, the pool's [8, V]
+        shape = (B, Vp) if B > 1 else (Vp,)
+        lg = torch.randn(shape, device=dev) * 3
+        gens = [torch.Generator(device=dev) for _ in range(B)]
+        for i, g in enumerate(gens):
+            g.manual_seed(args.seed + i)
+        temp_t = torch.full(shape[:-1], 0.9, dtype=torch.float64, device=dev)
+        tau_t = torch.full(shape[:-1], 0.8, device=dev)
+        draw = lambda: typical(lg, gens if B > 1 else gens[0], temp_t, tau_t)  # noqa: E731,B023
+        t_ms = graph_ms(draw, 20, generators=gens)
+        f_ms = graph_ms(lambda: typical(lg, gens if B > 1 else gens[0], 0.9, 0.8),  # noqa: B023
+                        20, generators=gens)
+        e_ms = cuda_ms(draw, 20)
+        b_ms, b_by = bound(B * Vp * 4 + B * 8, 0)
+        print(f"  typical over [{B}, {Vp}] logits: {t_ms:.4f} ms on the device with tensor "
+              f"settings (replayed from a CUDA graph, 20 calls; {f_ms:.4f} with float "
+              f"settings), {e_ms:.4f} ms called back to back from Python; the logits read "
+              f"once {b_ms:.4f} ms ({b_by}) {card}")
 
     # ------------------------------------------------------------------ 5
     print("phase 5 mm4 (K3) vs plain, [B, 1024] x packed [512, 50688] int8")
@@ -610,7 +724,7 @@ def main() -> int:
             and np.array_equal(eng.params.head.wp.cpu().numpy(), host_q4.head.wp),
             "weights read back from the artifact differ from the ones written")
     del host_q4
-    steps4, (k1_seen, k4_launches, k2_seen, k3_launches, *_) = serve(eng)
+    steps4, (k1_seen, k4_launches, k2_seen, k3_launches, *_) = serve(eng, label="K4")
     print(f"  launches during the requests: decode_stack q4 {k4_launches} "
           f"(= {per_step} per step x {steps4} steps: {k4_launches == per_step * steps4}), "
           f"mm4 {k3_launches}; q8 kernels {k1_seen}, {k2_seen}")
@@ -785,13 +899,14 @@ def main() -> int:
                  stop=["\n\n", "."] if i % 4 == 1 else None)
             for i, (n, m) in enumerate(spec)]
 
-    def run_pool(step_fn, reqs, slots=8):
-        """Serve `reqs` through a fresh pool: the first `slots` at once, the
-        rest one at a time as slots free up (each then admitted alone).
-        Returns (texts, generated tokens, wall s, ms per step at full
-        occupancy)."""
+    def run_pool(step_fn, reqs, slots=8, graphed=True, step_chunk=1):
+        """Serve `reqs` through a fresh pool, its decode program graphed or
+        eager: the first `slots` at once, the rest one at a time as slots
+        free up (each then admitted alone). Returns (texts, generated
+        tokens, wall s, ms per step at full occupancy)."""
         pool = InferencePool(eng.params, eng.tokenizer, max_streams=slots, prefill_bucket=128,
-                             step_fn=step_fn)
+                             step_fn=step_fn, step_chunk=step_chunk)
+        pool._graphs.enabled = graphed
         todo = list(reqs)
         rids, texts, full_ms, made = [], {}, [], 0
         torch.cuda.synchronize()
@@ -810,6 +925,8 @@ def main() -> int:
                 texts[r.rid] = r.text
                 made += r.produced
         wall = time.perf_counter() - t0
+        require(len(pool._graphs) == (1 if graphed else 0),
+                f"the pool made {len(pool._graphs)} graphs")
         return [texts[r] for r in rids], made, wall, full_ms
 
     for mod, name in counters:
@@ -832,26 +949,37 @@ def main() -> int:
     alone, _, _, _ = run_pool(eng._step_fn, [reqs[11]])
     require(alone[0] == texts[11], "request 11 alone gives another text than among batchmates")
     print("  request 11 re-run alone in a fresh 8-slot pool: the same text")
+    eager_texts, _, _, _ = run_pool(eng._step_fn, reqs, graphed=False)
+    require(eager_texts == texts, "the graphed pool's texts differ from the eager pool's")
+    for k in (4,):
+        for graphed in (True, False):
+            got, _, _, _ = run_pool(eng._step_fn, reqs, graphed=graphed, step_chunk=k)
+            require(got == texts, f"step_chunk {k} {'graphed' if graphed else 'eager'} texts "
+                    "differ from step_chunk 1's")
+    print("  the 12 texts equal an eager pool's, and at step_chunk 4 graphed and eager")
+    steps_a8 = partial(ds_mod.forward_step_fused, a8=True, a8_block=blk)
+    serve(eng, label="K5")
 
     eng.load_params(eng.params)  # the q8 step, K1 + K2
     check_engine_logits(eng, cfg.vocab_size)
     for mod, name in counters:
         setattr(mod, name, 0)
     short_reqs = [dict(r, max_tokens=32) for r in reqs[:8]]
-    steps = {"q8": eng._step_fn, "a8": partial(ds_mod.forward_step_fused, a8=True, a8_block=blk)}
-    runs = {"q8": [], "a8": []}
-    for name in ("q8", "a8", "a8", "q8"):  # in turns
-        _, made_r, wall_r, full_r = run_pool(steps[name], short_reqs)
-        if not runs["q8"]:  # the first q8 run: K1 + K2 only
+    steps = {"q8": eng._step_fn, "a8": steps_a8}
+    runs = {(n, g): [] for n in ("q8", "a8") for g in (True, False)}
+    order = [("q8", True), ("a8", True), ("a8", False), ("q8", False)]
+    for name, graphed in order + order[::-1]:  # in turns
+        _, made_r, wall_r, full_r = run_pool(steps[name], short_reqs, graphed=graphed)
+        if name == "q8" and not runs["q8", True]:  # the first q8 run: K1 + K2 only
             counts_q8 = dict(zip(("K1", "K4", "K2", "K3", "K5 stack", "K5 head"),
                                  (getattr(mod, n) for mod, n in counters)))
             require(counts_q8["K1"] > 0 and counts_q8["K2"] > 0 and counts_q8["K5 stack"] == 0
                     and counts_q8["K5 head"] == 0, f"the q8 pool's launches: {counts_q8}")
-        runs[name].append((made_r / wall_r, sorted(full_r)[len(full_r) // 2]))
-    print("  the first 8 requests at 32 tokens, in turns (q8, a8, a8, q8): "
-          + "; ".join(f"{n} " + ", ".join(f"{tps:.1f} tok/s (median {ms:.3f} ms/step at full "
-                                          f"occupancy)" for tps, ms in v)
-                      for n, v in runs.items()) + f" {card}")
+        runs[name, graphed].append((made_r / wall_r, sorted(full_r)[len(full_r) // 2]))
+    print("  the first 8 requests at 32 tokens, in turns (q8 and a8, graphed and eager): "
+          + "; ".join(f"{n} {'graphed' if g else 'eager'} " + ", ".join(
+              f"{tps:.1f} tok/s (median {ms:.3f} ms/step at full occupancy)" for tps, ms in v)
+              for (n, g), v in runs.items()) + f" {card}")
     del eng
 
     # ------------------------------------------------------------------ 11
@@ -1018,8 +1146,9 @@ def main() -> int:
             f"the tp path launched another stack: {c12}")
     k6_att_launches, k6_ffn_launches = c12["K6 att"], c12["K6 ffn"]
     check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
-    print(f"  decode ms/token, last request: tp=1 halves engine (its step replayed from a CUDA "
-          f"graph) {ms_per_token['tp=1']:.3f}, K1 engine {ms_per_token['K1']:.3f} (phase 4) {card}")
+    print(f"  decode ms/token graphed (eager): tp=1 halves engine {ms_per_token['tp=1'][0]:.3f} "
+          f"({ms_per_token['tp=1'][1]:.3f}), K1 engine {ms_per_token['K1'][0]:.3f} "
+          f"({ms_per_token['K1'][1]:.3f}, phase 4) {card}")
 
     def greedy(e, n=8):
         e.reset_state()
@@ -1029,6 +1158,18 @@ def main() -> int:
             ids.append(int(logits.argmax()))
             logits = e.forward(ids[-1])
         return first, ids
+
+    def eager_same(e, texts):
+        """The 4-slot pool's six requests again with its decode eager: the
+        same texts as graphed."""
+        pool = InferencePool(e.params, e.tokenizer, max_streams=4, prefill_bucket=128,
+                             step_fn=e._step_fn, prefill_fn=e._prefill_impl)
+        pool._graphs.enabled = False
+        rids = [pool.submit(**dict(r, max_tokens=16)) for r in reqs[:6]]
+        out = pool.run()
+        require([out[r] for r in rids] == texts, "the graphed pool's texts differ from the "
+                 "eager pool's")
+        print("  the pool's texts equal an eager pool's")
 
     l1, ids1 = greedy(eng)
     mesh2 = make_mesh(model=2, devices=[dev, dev])
@@ -1063,6 +1204,8 @@ def main() -> int:
             "the tp=2 pool did not finish every request")
     require(th.launches_att > 0 and th.launches_ffn > 0 and ds_mod.launches == 0,
             "the tp=2 pool did not run on K6 alone")
+    require(len(pool._graphs) == 1, "the tp=2 pool's decode is not graphed")
+    eager_same(eng2, [out[r] for r in rids])
     print(f"  4-slot pool over the tp=2 engine: 6 requests, 16 tokens each, all finished in "
           f"{wall:.2f} s (a correctness run on a virtual mesh, not a speed-up) {card}; "
           f"request 0 -> {out[rids[0]][:40]!r}")
@@ -1227,9 +1370,11 @@ def main() -> int:
     check_engine_logits(eng, cfg.vocab_size, ref_params=eng.params.rows[0][0])
     _, ids_f1 = greedy(eng)
     require(ids_f1 == ids_k1, f"fused tp=1 greedy ids {ids_f1} differ from the K1 engine's {ids_k1}")
-    print(f"  greedy ids equal the K1 engine's: {ids_k1}; decode ms/token, last request: fused "
-          f"tp=1 engine {ms_per_token['fused tp=1']:.3f}, halves tp=1 {ms_per_token['tp=1']:.3f}, "
-          f"K1 engine {ms_per_token['K1']:.3f} {card}")
+    print(f"  greedy ids equal the K1 engine's: {ids_k1}; decode ms/token graphed (eager), "
+          "device busy graphed (eager), at chunk 1 and 8, by engine: " + "; ".join(
+              f"{k} {a:.3f} ({b:.3f}), {c:.1%} ({d:.1%}), chunk 8 {e:.3f} ({f:.3f})"
+              for k, (a, b, c, d, e, f) in ms_per_token.items())
+          + f" {card}")
     mesh2 = make_mesh(model=2, devices=[dev, dev])
     eng2 = RWKV(bin_path, sharding=mesh2, tp_body="fused")
     eng2.load_tokenizer()
@@ -1258,6 +1403,8 @@ def main() -> int:
             "the fused tp=2 pool did not finish every request")
     require(c_pool["K7"] > 0 and all(v == 0 for k, v in c_pool.items() if k != "K7"),
             f"the fused tp=2 pool did not run on K7 alone: {c_pool}")
+    require(len(pool._graphs) == 1, "the fused tp=2 pool's decode is not graphed")
+    eager_same(eng2, [out[r] for r in rids])
     print(f"  4-slot pool over the fused tp=2 engine: 6 requests, 16 tokens each, all finished "
           f"in {wall:.2f} s (a correctness run on a virtual mesh) {card}; launches {c_pool}; "
           f"request 0 -> {out[rids[0]][:40]!r}")

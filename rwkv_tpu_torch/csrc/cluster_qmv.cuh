@@ -459,7 +459,10 @@ inline cudaError_t cq_launch_bt(const CqArgs& a, const CqPlan& p, cudaStream_t s
   if (e != cudaSuccess) return e;
   if (d >= 64 || p.smem > opted[d]) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // a refused call: not left behind for the next launch's check
+      return e;
+    }
     if (d < 64) opted[d] = p.smem;
   }
   cudaLaunchAttribute at[2];
@@ -479,8 +482,8 @@ inline cudaError_t cq_launch_bt(const CqArgs& a, const CqPlan& p, cudaStream_t s
   if (max_clusters)  // co-resident clusters: a launch of more runs in waves
     return cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg);
   e = cudaLaunchKernelEx(&cfg, kern, a);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();  // read either way: nothing left behind
+  return e != cudaSuccess ? e : last;
 }
 
 // Launches (or, with max_clusters, only sizes: no launch) the cluster

@@ -481,7 +481,10 @@ cudaError_t launch(const CUtensorMap& map, const Mm4Args& a, int grid, cudaStrea
   const size_t smem = smem_bytes<MT, NT>(a.chunk_rows);
   cudaError_t e = cudaFuncSetAttribute(mm4_kernel<MT, NT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused call: not left behind for the next launch's check
+    return e;
+  }
   mm4_kernel<MT, NT><<<grid, kThreads, smem, st>>>(map, a);
   return cudaGetLastError();
 }

@@ -12,8 +12,15 @@ The draw takes its noise from an explicit torch.Generator on the logits'
 device, so only the chosen id ever needs to reach the host. Given one
 generator per row (the pool's slots, counterpart of the JAX pool's vmapped
 per-slot keys), row b draws from its own generator alone, so a stream's
-draws depend only on its seed, not on its batchmates; temp and tau may then
-be [B] tensors.
+draws depend only on its seed, not on its batchmates.
+
+temp and tau may be Python floats, or tensors: 0-d (one value for every
+row) or [B] (one per row). The tensor path never branches in Python on
+their values, so a CUDA graph captured with it reads them from their
+buffers at every replay (runtime/graphs.py); and it draws the ids the float
+path draws: tau is compared in float32 as a float is, and a float64 temp
+gives the exponent 1 / temp that torch.pow takes from a Python float,
+special cases included (_temper).
 """
 
 from __future__ import annotations
@@ -31,12 +38,17 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
 def typical(logits: torch.Tensor, generator: torch.Generator | Sequence[torch.Generator],
             temp: float | torch.Tensor = 0.9, tau: float | torch.Tensor = 0.8) -> torch.Tensor:
     """Typical sampling. logits: [..., V]. generator: one torch.Generator, or
-    one per row of a [B, V] batch. temp, tau: floats, or [B] tensors (one per
-    row). Returns int64 ids [...]."""
+    one per row of a [B, V] batch. temp, tau: floats, or 0-d or [B] tensors
+    (temp in float64 to draw exactly what the same float draws). Returns
+    int64 ids [...]."""
     logits = logits.float()
-    per_row = lambda a: a.to(logits.device, torch.float32)[:, None]  # noqa: E731
+
+    def per_row(a, dtype):  # 0-d -> [1], [B] -> [B, 1]: broadcast over V
+        a = a.to(logits.device, dtype)
+        return a.reshape(a.shape + (1,))
+
     if torch.is_tensor(tau):
-        tau = per_row(tau)
+        tau = per_row(tau, torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     probs = torch.exp(logp)
     ent = -torch.where(probs > 0, probs * logp, torch.zeros_like(probs)).sum(
@@ -49,8 +61,7 @@ def typical(logits: torch.Tensor, generator: torch.Generator | Sequence[torch.Ge
     threshold = torch.gather(sorted_shifted, -1, cutoff)
     kept = torch.where(shifted > threshold, torch.zeros_like(probs), probs)
     if torch.is_tensor(temp):
-        temp = per_row(temp)
-        kept = torch.where(temp != 1.0, torch.pow(kept, 1.0 / temp), kept)
+        kept = _temper(kept, per_row(temp, torch.float64))
     elif temp != 1.0:
         kept = torch.pow(kept, 1.0 / temp)
 
@@ -67,3 +78,17 @@ def typical(logits: torch.Tensor, generator: torch.Generator | Sequence[torch.Ge
                          for g in generator])
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(logw + gumbel, dim=-1)
+
+
+def _temper(kept: torch.Tensor, temp: torch.Tensor) -> torch.Tensor:
+    """kept ** (1 / temp) as torch.pow(kept, 1 / temp) gives it for a Python
+    float temp, and kept itself where temp is 1: the exponent is the float64
+    inverse rounded to float32, and the exponents that torch.pow special-cases
+    for a scalar (2, 3 and 0.5: x * x, x * x * x and sqrt) take the same
+    arithmetic here. temp: float64, broadcastable against kept."""
+    inv = 1.0 / temp
+    out = torch.pow(kept, inv.to(torch.float32))
+    out = torch.where(inv == 2.0, kept * kept, out)
+    out = torch.where(inv == 3.0, kept * kept * kept, out)
+    out = torch.where(inv == 0.5, torch.sqrt(kept), out)
+    return torch.where(temp == 1.0, kept, out)

@@ -44,18 +44,18 @@ joins them after (sharding.shard_state / unshard_state), so the engine and
 the pool keep one state of full tensors.
 
 The "halves" body on a mesh whose every shard names one CUDA device replays
-a CUDA graph of the whole step (_GraphedStep): eagerly, the host's work a
-layer (wrapper checks, outputs, collectives) takes longer than the device's,
-so the host would set the pace. One graph per (sharded params, B), captured
-at that key's first call right after the call ran eagerly (the warm-up);
-the inputs are copied into its static buffers and the outputs out of them,
-and each replay advances the launch counters and the mesh's collective
-counts by what the capture recorded. Inside a caller's own capture the step
-enqueues eagerly into it.
+a CUDA graph of the whole step (runtime/graphs.py): eagerly, the host's work
+a layer (wrapper checks, outputs, collectives) takes longer than the
+device's, so the host would set the pace. One graph per (sharded params, B),
+captured at that key's first call right after the call ran eagerly (the
+warm-up); each replay advances the launch counters and the mesh's collective
+counts by what the capture recorded. Inside a caller's own capture (the
+engine's and the pool's decode programs) the step enqueues eagerly into it.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -72,8 +72,6 @@ from rwkv_tpu_torch.ops.cuda.decode_stack_tp import (
     decode_stack_tp,
     fused_problem,
 )
-from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
-from rwkv_tpu_torch.ops.cuda import tp_halves as th_mod
 from rwkv_tpu_torch.ops.cuda.mm8 import mm8
 from rwkv_tpu_torch.ops.cuda.tp_halves import att_half, ffn_half
 from rwkv_tpu_torch.ops.layernorm import layer_norm
@@ -81,6 +79,7 @@ from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState, wkv_parallel, wkv_step
 from rwkv_tpu_torch.parallel.mesh import Mesh
 from rwkv_tpu_torch.parallel.sharding import ShardedParams, shard_state, unshard_state
+from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
 
 BODIES = ("plain", "halves", "fused")
 
@@ -266,76 +265,6 @@ def _one_device_rows(mesh: Mesh) -> bool:
     return all(row[0].type == "cuda" and len(set(row)) == 1 for row in mesh.devices)
 
 
-def _same_cuda_device(mesh: Mesh) -> bool:
-    """Every shard of the mesh on one CUDA device."""
-    devs = {d for row in mesh.devices for d in row}
-    return len(devs) == 1 and next(iter(devs)).type == "cuda"
-
-
-class _Captured:
-    """One CUDA graph of an eager step at one (sharded params, B): static
-    token and state buffers, the outputs the capture left, and the counts
-    its launches and collectives add on each replay."""
-
-    # the launch counters of the halves body's kernels (K6, and K2's head)
-    COUNTERS = ((th_mod, "launches_att"), (th_mod, "launches_ffn"), (mm8_mod, "launches"))
-
-    def __init__(self, mesh: Mesh, eager, sp, token, state):
-        self.mesh, self.sp = mesh, sp
-        self.token = token.clone()
-        self.state = WKVState(*(s.clone() for s in state))
-        before = self._counts()
-        torch.cuda.synchronize(mesh.first_device)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(mesh.first_device), torch.cuda.graph(self.graph):
-            self.out = eager(sp, self.token, self.state)
-        after = self._counts()
-        self.delta = [a - b for a, b in zip(after, before)]
-        self._set(before)  # the capture ran nothing
-
-    def _counts(self):
-        return [getattr(m, n) for m, n in self.COUNTERS] + list(self.mesh.collectives.values())
-
-    def _set(self, values):
-        k = len(self.COUNTERS)
-        for (m, n), v in zip(self.COUNTERS, values[:k]):
-            setattr(m, n, v)
-        for name, v in zip(self.mesh.collectives, values[k:]):
-            self.mesh.collectives[name] = v
-
-    def replay(self, token, state):
-        self.token.copy_(token)
-        for s, t in zip(self.state, state):
-            s.copy_(t)
-        self.graph.replay()
-        self._set([c + d for c, d in zip(self._counts(), self.delta)])
-        logits, st = self.out
-        return logits.clone(), WKVState(*(s.clone() for s in st))
-
-
-class _GraphedStep:
-    """A step replayed from a CUDA graph per (sharded params, B): the first
-    call of a key runs eagerly (the warm-up: kernels built, scratch and
-    pointer tables made) and then captures; every later call replays. A
-    failed capture raises. Inside a caller's stream capture the step
-    enqueues eagerly into that capture."""
-
-    def __init__(self, mesh: Mesh, eager):
-        self.mesh, self.eager = mesh, eager
-        self.graphs: dict = {}
-
-    def __call__(self, sp, token, state):
-        if torch.cuda.is_current_stream_capturing():
-            return self.eager(sp, token, state)
-        key = (id(sp), token.shape[0])
-        g = self.graphs.get(key)
-        if g is not None and g.sp is sp:
-            return g.replay(token, state)
-        out = self.eager(sp, token, state)
-        self.graphs[key] = _Captured(self.mesh, self.eager, sp, token, state)
-        return out
-
-
 def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
     """A (params, token [B], state) -> (logits [B, Vp], state) decode step
     over `mesh` with its body's collectives per token (3L + 2 for "plain"
@@ -398,16 +327,19 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
                                _Collectives(mesh))
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
-    run = _GraphedStep(mesh, eager) if body == "halves" and _same_cuda_device(mesh) else eager
+    graphs = Graphs(mesh=mesh) if body == "halves" and one_cuda_device(mesh) else None
 
     def step(sp: ShardedParams, token: torch.Tensor, state: WKVState):
         if token.dim() != 1 or token.shape[0] % nd:
             raise ValueError(f"tp_step: token must be [B] with B divisible by data={nd}, got "
                              f"{tuple(token.shape)}")
-        return run(sp, token, state)
+        if graphs is None:
+            return eager(sp, token, state)
+        # the graph holds sp (through the partial), so its id names it
+        return graphs((id(sp), token.shape[0]), partial(eager, sp), token, state)
 
     step.body = body
-    step.graphed = run is not eager
+    step.graphed = graphs is not None
     step.eager = eager  # the body without the graph, for measuring the two apart
     return step
 

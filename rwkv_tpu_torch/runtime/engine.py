@@ -4,7 +4,8 @@
     RWKV("model.q4.safetensors")        a packed 4-bit artifact (io/q4fmt.py)
     RWKV("model.pth", quant="q4")       a dense .pth/.safetensors, quantized at load
     load_context(prompt)                tokenize + bucketed prefill
-    generate(prompt, max_tokens, ...)   typical sampling, one decode step per token
+    generate(prompt, max_tokens, ...)   typical sampling, `chunk` tokens a device program
+    save_state(path) / load_state(path) a stream's continuation point as .npz
 
 Decode runs the engine's step, `_step_fn`: `forward_step_fused`, on CUDA the
 hand-written kernels K1 (decode stack) and K2 (int8 head), or K4 and K3 for
@@ -13,6 +14,17 @@ the JAX engine's a8 option. On the CPU their plain PyTorch versions.
 Prompt ingest runs `forward_seq(parallel=True)` in plain PyTorch, padded to
 a few fixed buckets with a length mask. State stays on the device between
 calls; during generation only the sampled token ids reach the host.
+
+Decode and sampling are one device program, as the JAX engine's
+`_make_jits` makes them one jit: `_decode` is the step, the ban mask and
+`typical`; `_decode_k` is k of them (JAX: one lax.scan). On CUDA each k is
+captured once per (params, batch shape, k) as a CUDA graph and replayed
+(runtime/graphs.py): at most `chunk` graphs a batch shape, one for each
+tail length, as JAX compiles once per static k; the first token after a
+prompt (`_sample`, JAX: _jit_sample) is one more. The engine's one
+torch.Generator is registered with them and reseeded per generate call.
+On the CPU, and on a mesh over distinct GPUs, the same functions run
+eagerly.
 
     RWKV("model.bin", sharding=make_mesh(model=tp))   tensor-parallel serving
 
@@ -40,6 +52,7 @@ import sys
 from functools import partial
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from rwkv_tpu_torch.models.config import RWKVConfig
@@ -65,6 +78,7 @@ from rwkv_tpu_torch.parallel.sharding import (
     tp_vocab_multiple,
 )
 from rwkv_tpu_torch.parallel.tp_step import make_engine_prefill, make_engine_step
+from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
 from rwkv_tpu_torch.utils.text import StopScanner
@@ -114,6 +128,10 @@ class RWKV:
             device = first
         self._tp_body = tp_body
         self.device = resolve_device(device)
+        # the one generator every generate call draws from, reseeded per call
+        # (its registration with the decode graphs then stays valid)
+        self._gen = torch.Generator(device=self.device)
+        self._graphs: Optional[Graphs] = None  # the decode programs, per params
         if quant not in ("q8", "q4"):
             raise ValueError(f"quant must be 'q8' or 'q4', got {quant!r}")
         self.quant = quant
@@ -249,6 +267,8 @@ class RWKV:
     def _loaded(self, params) -> None:
         self.params = params
         self.config = params.config
+        self._graphs = Graphs(generators=(self._gen,), mesh=self._mesh,
+                              enabled=one_cuda_device(self._mesh))
         # True (unpadded) vocab: padded ids carry a -1e9 logit_bias; forward()
         # returns logits sliced back to this size
         if params.logit_bias is not None:
@@ -316,6 +336,36 @@ class RWKV:
             self._last_logits[stream] = snap["logits"]
         if snap.get("pending") is not None:
             self._pending[stream] = snap["pending"]
+
+    def save_state(self, path: str, stream: int = 0) -> None:
+        """Persist a stream's continuation point (snapshot) as a compressed
+        .npz with the JAX engine's keys (state_xy .. state_dd, logits,
+        pending), so that either package resumes a session the other saved.
+        The logits are written at the true vocab width."""
+        snap = self.snapshot(stream)
+        arrays = {f"state_{k}": v.cpu().numpy() for k, v in zip(WKVState._fields, snap["state"])}
+        if snap.get("logits") is not None:
+            arrays["logits"] = snap["logits"][: self._true_vocab].cpu().numpy()
+        if snap.get("pending") is not None:
+            arrays["pending"] = np.asarray(snap["pending"], np.int64)
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str, stream: int = 0) -> None:
+        """Resume a stream from a save_state file of either package; saved
+        logits of another width are cut to the true vocab and padded with
+        the padded columns' -1e9 bias."""
+        with np.load(path) as z:
+            state = WKVState(*(torch.from_numpy(z[f"state_{k}"]).to(self.device)
+                               for k in WKVState._fields))
+            logits = None
+            if "logits" in z:
+                saved = torch.from_numpy(z["logits"][: self._true_vocab])
+                logits = torch.full((self.config.vocab_size,), -1e9, dtype=torch.float32)
+                logits[: saved.shape[0]] = saved
+                logits = logits.to(self.device)
+            snap = {"state": state, "logits": logits,
+                    "pending": int(z["pending"]) if "pending" in z else None}
+        self.restore(snap, stream)
 
     # -- forward ----------------------------------------------------------------
 
@@ -400,10 +450,32 @@ class RWKV:
 
     # -- generation ----------------------------------------------------------------
 
-    @staticmethod
-    def _sample(logits, gen, temp, tau, ban):
+    def _sample(self, logits, temp, tau, ban):
+        """The ban mask, then typical from the engine's generator (JAX:
+        _sample, the first token after a prompt)."""
         logits = torch.where(ban, torch.full_like(logits, -1e9), logits)
-        return typical(logits, gen, temp=temp, tau=tau)
+        return typical(logits, self._gen, temp=temp, tau=tau)
+
+    def _decode(self, token, state, temp, tau, ban):
+        """One decode step as the device program runs it (JAX: decode): the
+        engine's step, the ban mask and typical. Returns (next id, state)."""
+        logits, state = self._step_fn(self.params, token, state)
+        return self._sample(logits, temp, tau, ban), state
+
+    def _decode_k(self, token, state, temp, tau, ban, *, k):
+        """k decode steps in one device program (JAX: decode_k, one lax.scan
+        of decode): returns (ids [k, ...], token, state, temp, tau, ban),
+        the last id and the state written into `token` and `state` in place:
+        the inputs are the carry the next program starts from (a graph's
+        own buffers are not copied again)."""
+        ids, tok, st = [], token, state
+        for _ in range(k):
+            tok, st = self._decode(tok, st, temp, tau, ban)
+            ids.append(tok)
+        token.copy_(tok)
+        for s, n in zip(state, st):
+            s.copy_(n)
+        return torch.stack(ids), token, state, temp, tau, ban
 
     def generate(
         self,
@@ -424,10 +496,11 @@ class RWKV:
 
         first_token: when continuing from a restored state with no new
         prompt, the token that produced that state's last update.
-        chunk: decode this many tokens before one host read of their ids.
-        The token stream does not depend on it (the same generator draws in
-        the same order); on_text fires per chunk, and a stop string hit
-        mid-chunk leaves the state up to chunk-1 tokens past it."""
+        chunk: decode this many tokens as one device program (on CUDA one
+        CUDA-graph replay) before one host read of their ids. The token
+        stream does not depend on it (the same generator draws in the same
+        order); on_text fires per chunk, and a stop string hit mid-chunk
+        leaves the state up to chunk-1 tokens past it."""
         if self.tokenizer is None:
             raise RuntimeError("tokenizer not loaded")
         self._require_loaded()
@@ -436,12 +509,15 @@ class RWKV:
                 self.load_context(prompt, stream=stream)
             return ""
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        # ban mask at the padded vocab width, like the internal logits
+        self._gen.manual_seed(seed)
+        # ban mask at the padded vocab width, like the internal logits; temp
+        # and tau as tensors, so the device programs read them per replay
+        # (temp in float64: typical then draws what the same float draws)
         ban = torch.zeros(self.config.vocab_size, dtype=torch.bool)
         ban[list(ban_tokens)] = True
         ban = ban.to(self.device)
+        temp_t = torch.tensor(temp, dtype=torch.float64).to(self.device)
+        tau_t = torch.tensor(tau, dtype=torch.float32).to(self.device)
 
         # logits for the first new token, without re-feeding the prompt's last
         if prompt:
@@ -455,7 +531,8 @@ class RWKV:
             self.forward(int(seed_tok), stream=stream)
         logits = self._last_logits[stream]
 
-        token = self._sample(logits, gen, temp, tau, ban)
+        token = self._graphs(("sample", tuple(logits.shape)), self._sample,
+                             logits, temp_t, tau_t, ban)
         state = self.get_state(stream)
 
         decoder = StreamDecoder(self.tokenizer)
@@ -474,12 +551,12 @@ class RWKV:
         feed(decoder.feed([int(token)]))
         remaining = max_tokens - 1
         while remaining > 0 and scanner.cut is None:
-            toks = []
-            for _ in range(min(chunk, remaining)):
-                logits, state = self._step_fn(self.params, token, state)
-                token = self._sample(logits, gen, temp, tau, ban)
-                toks.append(token)
-            ids = torch.stack(toks).tolist()  # the one host read of the chunk
+            # a tail shorter than chunk is one program of its own length
+            k = min(chunk, remaining)
+            ids, token, state, temp_t, tau_t, ban = self._graphs(
+                (tuple(token.shape), k), partial(self._decode_k, k=k),
+                token, state, temp_t, tau_t, ban)
+            ids = ids.tolist()  # the one host read of the chunk
             remaining -= len(ids)
             n_ids += len(ids)
             for tid in ids:

@@ -1,0 +1,193 @@
+"""CUDA graphs of the port's device programs (the counterpart of jax.jit over
+the JAX engine's decode and of its lax.scan of k decode steps).
+
+    graphs = Graphs(generators=(gen,), mesh=mesh)
+    out = graphs(key, fn, *args)
+
+fn takes tensors (or tuples of tensors, such as a WKVState) and returns
+tensors. The first call for a key runs fn eagerly: that call is the warm-up,
+in which the kernels are built and their pointer tables, per-width buffers
+and split-K scratch are made. Then fn is captured into one CUDA graph on
+static copies of the args, and every later call of the key copies its args
+into those copies (an arg that is the static copy itself is not copied),
+replays the graph and returns its outputs: copies of them, except for an
+output that is one of the static inputs (a carry: fn wrote it in place),
+which is returned as it is and is the next call's input. The key names
+everything else fn depends on (shapes, k, the params); fn is not called
+again for a captured key. A capture that fails raises; nothing falls back to
+the eager path.
+
+What a graph draws from a torch.Generator: the generators fn draws from are
+registered with each graph (CUDAGraph.register_generator_state), so a replay
+reads the generator's seed and offset when it starts and advances the offset
+by what the capture drew: a generator reseeded with manual_seed draws on
+replay what a fresh generator with that seed draws eagerly. A generator
+that is not registered makes the capture raise.
+
+Launch counts: the kernels' Python-side launch counters (COUNTERS) and the
+mesh's collective counts rise while fn is captured, though nothing ran;
+they are put back, and each replay adds what the capture added. Inside
+another graph's capture a call enqueues fn eagerly into that capture, so
+the outer graph's replays count its launches once.
+
+Memory: every graph of the port allocates from one memory pool
+(torch.cuda.graph_pool_handle()). A graph's temporaries may then lie where
+another graph's temporaries or outputs lie. That is safe because the
+engine and the pool replay their graphs on one stream, one after another,
+and every output is copied or consumed before the next replay: no graph
+runs while another one's memory is still in use.
+
+On CPU tensors, or with enabled=False (a mesh over distinct GPUs: the
+collectives cross devices, which one stream's graph does not capture), fn
+runs eagerly on every call.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from rwkv_tpu_torch.ops.cuda import decode_stack as _ds
+from rwkv_tpu_torch.ops.cuda import decode_stack_tp as _k7
+from rwkv_tpu_torch.ops.cuda import mm4 as _mm4
+from rwkv_tpu_torch.ops.cuda import mm8 as _mm8
+from rwkv_tpu_torch.ops.cuda import tp_halves as _th
+
+# every kernel wrapper's launch counter: K1, K4, K5's stack; K7 q8 and q4;
+# K2, K5's head; K3; K6's two halves
+COUNTERS = ((_ds, "launches"), (_ds, "launches_q4"), (_ds, "launches_a8"),
+            (_k7, "launches"), (_k7, "launches_q4"), (_mm8, "launches"),
+            (_mm8, "launches_a8"), (_mm4, "launches"), (_th, "launches_att"),
+            (_th, "launches_ffn"))
+
+_POOL: dict = {}  # the one graph memory pool: its handle, and per device a keeper
+
+
+def memory_pool(device: torch.device):
+    """The memory pool that every graph of the port allocates from. The
+    allocator retires a pool once the last graph captured into it is gone
+    (and then refuses it to a new capture), so the first use on a device
+    captures a one-op keeper graph into the pool and keeps it for the
+    process's life."""
+    if "handle" not in _POOL:
+        _POOL["handle"] = torch.cuda.graph_pool_handle()
+    handle = _POOL["handle"]
+    if device not in _POOL:
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(keeper, pool=handle):
+            held = torch.zeros(1, device=device)
+        _POOL[device] = (keeper, held)
+    return handle
+
+
+def memory_pool_bytes() -> int:
+    """Device bytes the shared pool's segments hold (0 before the first
+    capture)."""
+    if "handle" not in _POOL:
+        return 0
+    pool = tuple(_POOL["handle"])
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def counts(mesh=None) -> list[int]:
+    """The launch counters, then the mesh's collective counts."""
+    return ([getattr(m, n) for m, n in COUNTERS]
+            + (list(mesh.collectives.values()) if mesh is not None else []))
+
+
+def set_counts(values: Sequence[int], mesh=None) -> None:
+    """Put the counters (and the mesh's collective counts) to `values`."""
+    for (m, n), v in zip(COUNTERS, values):
+        setattr(m, n, v)
+    if mesh is not None:
+        for name, v in zip(mesh.collectives, values[len(COUNTERS):]):
+            mesh.collectives[name] = v
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for sub in tree for t in _leaves(sub)]
+
+
+def _map(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    items = [_map(fn, sub) for sub in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+class _Captured:
+    """One captured graph: its static inputs, its outputs and the counts its
+    capture added."""
+
+    def __init__(self, fn: Callable, args: tuple, generators, mesh):
+        self.fn, self.mesh = fn, mesh  # fn kept alive: a key may hold id()s it owns
+        self.inputs = _map(lambda t: t.clone(), args)
+        self.input_ids = {id(t) for t in _leaves(self.inputs)}
+        device = _leaves(args)[0].device
+        before = counts(mesh)
+        torch.cuda.synchronize(device)
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(self.graph, pool=memory_pool(device)):
+                self.outputs = fn(*self.inputs)
+            self.delta = [a - b for a, b in zip(counts(mesh), before)]
+        finally:
+            set_counts(before, mesh)  # the capture ran nothing
+
+    def replay(self, args: tuple):
+        for s, a in zip(_leaves(self.inputs), _leaves(args)):
+            if a is not s:
+                if a.shape != s.shape:
+                    raise ValueError(f"graph input of shape {tuple(a.shape)} for a graph "
+                                     f"captured at {tuple(s.shape)}: the key must name the shapes")
+                s.copy_(a)
+        self.graph.replay()
+        set_counts([c + d for c, d in zip(counts(self.mesh), self.delta)], self.mesh)
+        return _map(lambda t: t if id(t) in self.input_ids else t.clone(), self.outputs)
+
+
+class Graphs:
+    """CUDA graphs of device programs, one per key (the module docstring).
+
+    generators: the torch.Generators the programs draw from, registered with
+    every graph. mesh: a parallel.mesh.Mesh whose collective counts the
+    programs advance, or None. enabled: False runs every call eagerly.
+    replays counts the replays made."""
+
+    def __init__(self, generators: Sequence[torch.Generator] = (), mesh=None,
+                 enabled: bool = True):
+        self.generators = tuple(generators)
+        self.mesh = mesh
+        self.enabled = enabled
+        self.replays = 0
+        self._graphs: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, key, fn: Callable, *args):
+        if (not self.enabled or _leaves(args)[0].device.type != "cuda"
+                or torch.cuda.is_current_stream_capturing()):
+            return fn(*args)
+        g = self._graphs.get(key)
+        if g is not None:
+            self.replays += 1
+            return g.replay(args)
+        out = fn(*args)  # the warm-up
+        self._graphs[key] = _Captured(fn, args, self.generators, self.mesh)
+        return out
+
+
+def one_cuda_device(mesh: Optional[object]) -> bool:
+    """Whether a mesh (or no mesh) lets its decode be graphed: every shard on
+    one CUDA device. A mesh over distinct GPUs decodes eagerly."""
+    if mesh is None:
+        return True
+    devs = {d for row in mesh.devices for d in row}
+    return len(devs) == 1 and next(iter(devs)).type == "cuda"

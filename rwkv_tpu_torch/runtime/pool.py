@@ -12,16 +12,28 @@ plain versions). A freed slot keeps its old state until an admission
 overwrites it.
 
 Sampling: each slot draws its noise from its own torch.Generator on the
-device, seeded with the request's seed at admission (the JAX pool keeps one
-PRNG key per slot instead, and its key layout is not ported). So a request's
-tokens depend only on its prompt, its seed and its sampling settings, not on
-its batchmates, and not on step_chunk.
+device, one for the pool's life, reseeded with the request's seed at
+admission (the JAX pool keeps one PRNG key per slot instead, and its key
+layout is not ported). So a request's tokens depend only on its prompt, its
+seed and its sampling settings, not on its batchmates, and not on
+step_chunk.
+
+The batched decode program (`_batched_step_k`: step_chunk steps of the
+decode step, the ban mask and per-slot typical, the JAX pool's _jit_step /
+_jit_step_k) is captured on CUDA as one CUDA graph per step_chunk and
+replayed (runtime/graphs.py); the slot generators are registered with it.
+Its inputs (tokens, temp, tau, active) are built from the host lists
+outside it and copied into its buffers; the state and the tokens are its
+carry. Admission (prefill and the burst's first tokens, JAX: _jit_admit)
+runs eagerly. On the CPU, and over a mesh of distinct GPUs, the program
+runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+from functools import partial
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -29,6 +41,7 @@ import torch
 from rwkv_tpu_torch.models.rwkv4 import RWKVParams, WKVState, forward_seq, init_state
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
 from rwkv_tpu_torch.ops.sampling import typical
+from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
 from rwkv_tpu_torch.utils.text import StopScanner
@@ -104,6 +117,8 @@ class InferencePool:
         self._tokens = [0] * self.B
         self._active = [False] * self.B
         self._gens = [self._generator(i) for i in range(self.B)]
+        mesh = getattr(params, "mesh", None)  # ShardedParams carry their mesh
+        self._graphs = Graphs(generators=self._gens, mesh=mesh, enabled=one_cuda_device(mesh))
         self._temp = [1.0] * self.B
         self._tau = [0.8] * self.B
         # per-slot banned-token mask at the padded vocab width (set from each
@@ -141,12 +156,17 @@ class InferencePool:
         return torch.where(active, nxt, torch.zeros_like(nxt)), state
 
     def _batched_step_k(self, tokens, state, temp, tau, active, ban, *, k):
-        """k batched steps; returns the ids [k, B] (on the device) and the state."""
-        hist = []
+        """k batched steps in one device program; returns (ids [k, B],
+        tokens, state), the last ids and the state written into `tokens` and
+        `state` in place (the carry the next program starts from)."""
+        hist, tok, st = [], tokens, state
         for _ in range(k):
-            tokens, state = self._batched_step(tokens, state, temp, tau, active, ban)
-            hist.append(tokens)
-        return torch.stack(hist), state
+            tok, st = self._batched_step(tok, st, temp, tau, active, ban)
+            hist.append(tok)
+        tokens.copy_(tok)
+        for s, n in zip(state, st):
+            s.copy_(n)
+        return torch.stack(hist), tokens, state
 
     def _admit_sample(self, logits, gens, temp, tau, ban):
         """First tokens of a whole admission burst in one sampling call:
@@ -297,8 +317,10 @@ class InferencePool:
         for b, req in enumerate(reqs):
             rows[b, list(req.ban_tokens)] = True
         rows = rows.to(self.device)
-        gens = [self._generator(req.seed) for req in reqs]
-        temps = torch.tensor([req.temp for req in reqs], dtype=torch.float32)
+        gens = [self._gens[slot] for slot in slots]
+        for g, req in zip(gens, reqs):
+            g.manual_seed(int(req.seed) & 0xFFFFFFFFFFFFFFFF)
+        temps = torch.tensor([req.temp for req in reqs], dtype=torch.float64)
         taus = torch.tensor([req.tau for req in reqs], dtype=torch.float32)
         firsts = self._admit_sample(torch.stack(chunk_lg), gens, temps, taus, rows)
         firsts = firsts.tolist()  # the burst's one host read
@@ -307,7 +329,6 @@ class InferencePool:
         for b, (req, slot) in enumerate(zip(reqs, slots)):
             first = int(firsts[b])
             self._tokens[slot] = first
-            self._gens[slot] = gens[b]
             self._temp[slot] = req.temp
             self._tau[slot] = req.tau
             self._active[slot] = True
@@ -375,13 +396,14 @@ class InferencePool:
             return finished_admit
 
         dev = self.device
+        k = self.step_chunk
         args = (torch.tensor(self._tokens, dtype=torch.int64, device=dev),
                 self._state,
-                torch.tensor(self._temp, dtype=torch.float32, device=dev),
+                torch.tensor(self._temp, dtype=torch.float64, device=dev),
                 torch.tensor(self._tau, dtype=torch.float32, device=dev),
                 torch.tensor(self._active, dtype=torch.bool, device=dev),
                 self._ban)
-        hist_d, self._state = self._batched_step_k(*args, k=self.step_chunk)
+        hist_d, _, self._state = self._graphs((k,), partial(self._batched_step_k, k=k), *args)
         hist = hist_d.tolist()  # [k, B]: the one host read of the chunk
         metrics.inc("pool.steps")
 

@@ -50,10 +50,14 @@ shard and layer, the head on K2), it measures:
     replayed, which takes the host's launch cost out of the wall time;
   * sampled ms per token: the engine's generate loop without the tokenizer
     (step, typical sampling, then the host reads the ids, every token), by
-    the host clock, and the device's busy share of that loop;
+    the host clock, and the device's busy share of that loop; the sampler's
+    device ms per token by kernel (the loop's kernels but the step's);
   * at B=1, engine ms per token: RWKV.generate itself on the same weights
-    after a short prompt, by the host clock, with the device's busy share
-    and the host operations that took the most time (torch.profiler).
+    after a short prompt, by the host clock, its decode replayed from CUDA
+    graphs (runtime/graphs.py) and run eagerly, in turns (graphed, eager,
+    eager, graphed), each with the device's busy share of generate and the
+    host operations that took the most time (torch.profiler); the host ms
+    of one decode program's call (k = 1) without waiting for the device.
 Prints one JSON line per batch size. Needs a CUDA device.
 """
 
@@ -310,6 +314,13 @@ def main() -> None:
         sampled_busy = sum(_device_us(e) for e in prof_s.key_averages()
                            if getattr(e, "device_type", None)
                            == torch.autograd.DeviceType.CUDA) / 1e3 / traced_ms
+        # the sampler's device time by kernel: every device kernel of the loop
+        # but the step's own (ours, K2/K3/K5's heads and the TP body's)
+        step_kernels = set(by_kernel)
+        sampler = sorted(((e.key, _device_us(e) / 1e3 / args.steps)
+                          for e in prof_s.key_averages()
+                          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                          and e.key not in step_kernels), key=lambda kv: -kv[1])
 
         engine = {}
         if B == 1:
@@ -317,28 +328,66 @@ def main() -> None:
             eng.load_params(host, a8=args.a8)
             eng.load_tokenizer()
 
-            def request():
+            def request(profiled=False):
+                """ms of one generate of args.steps tokens after a prompt, or
+                the device's busy share of it and the host ops by time."""
                 eng.reset_state()
                 eng.load_context("In a hole in the ground there lived a hobbit.")
                 torch.cuda.synchronize()
+                if profiled:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof_e:
+                        t0 = time.perf_counter()
+                        eng.generate("", max_tokens=args.steps, seed=args.seed)
+                        torch.cuda.synchronize()
+                        traced_ms = (time.perf_counter() - t0) * 1e3
+                    evts = prof_e.key_averages()
+                    busy = sum(_device_us(e) for e in evts if getattr(e, "device_type", None)
+                               == torch.autograd.DeviceType.CUDA) / 1e3
+                    top = sorted(((e.key, e.self_cpu_time_total / 1e3 / args.steps)
+                                  for e in evts if getattr(e, "device_type", None)
+                                  == torch.autograd.DeviceType.CPU), key=lambda kv: -kv[1])
+                    return busy / traced_ms, dict(top[:8])
                 t0 = time.perf_counter()
                 eng.generate("", max_tokens=args.steps, seed=args.seed)
                 torch.cuda.synchronize()
                 return (time.perf_counter() - t0) * 1e3
 
-            request()
-            engine_ms = request()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_e:
-                traced_ms = request()
-            evts = prof_e.key_averages()
-            busy = sum(_device_us(e) for e in evts if getattr(e, "device_type", None)
-                       == torch.autograd.DeviceType.CUDA) / 1e3
-            top = sorted(((e.key, e.self_cpu_time_total / 1e3 / args.steps) for e in evts
-                           if getattr(e, "device_type", None)
-                           == torch.autograd.DeviceType.CPU), key=lambda kv: -kv[1])[:8]
-            engine = {"engine_ms_per_token": engine_ms / args.steps,
-                      "engine_device_busy_share": busy / traced_ms,
-                      "engine_host_ms_per_token_by_op": dict(top)}
+            request()  # the warm-up: each program captured
+            eng_turns = {"graphed": [], "eager": []}
+            for mode in ("graphed", "eager", "eager", "graphed"):  # in turns
+                eng._graphs.enabled = mode == "graphed"
+                eng_turns[mode].append(request() / args.steps)
+            traced = {}
+            for mode in ("graphed", "eager"):
+                eng._graphs.enabled = mode == "graphed"
+                traced[mode] = request(profiled=True)
+            eng._graphs.enabled = True
+            # the host's cost of one decode program (k = 1) from the engine's
+            # call, without waiting for the device: what paces chunk 1 when
+            # the device waits for the host's read of the last id
+            carry = (torch.tensor(187, device=dev), eng.get_state(0),
+                     torch.tensor(0.9, dtype=torch.float64, device=dev),
+                     torch.tensor(0.8, device=dev),
+                     torch.zeros(eng.config.vocab_size, dtype=torch.bool, device=dev))
+            prog = partial(eng._decode_k, k=1)
+            for _ in range(2):
+                _, *carry = eng._graphs(((), 1), prog, *carry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                _, *carry = eng._graphs(((), 1), prog, *carry)
+            host_replay_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+            torch.cuda.synchronize()
+            engine = {"engine_ms_per_token": min(eng_turns["graphed"]),
+                      "engine_eager_ms_per_token": min(eng_turns["eager"]),
+                      "engine_ms_per_token_in_turns": eng_turns,
+                      "engine_graphs": len(eng._graphs),
+                      "engine_host_ms_per_replay": host_replay_ms,
+                      "engine_device_busy_share": traced["graphed"][0],
+                      "engine_eager_device_busy_share": traced["eager"][0],
+                      "engine_host_ms_per_token_by_op": traced["graphed"][1],
+                      "engine_eager_host_ms_per_token_by_op": traced["eager"][1]}
             del eng
 
         out = {"quant": args.quant, "a8": args.a8, "tp": args.tp,
@@ -349,6 +398,8 @@ def main() -> None:
                "graph_ms_per_step": graph_ms,
                "sampled_ms_per_token": sampled_ms,
                "sampled_device_busy_share": sampled_busy,
+               "sampler_device_ms_per_token": sum(v for _, v in sampler),
+               "sampler_device_ms_per_token_by_kernel": dict(sampler[:12]),
                "device_ms_per_step": device_ms,
                "device_busy_share": device_ms / wall_ms if wall_ms else None,
                "device_ms_per_step_by_kernel": dict(sorted(by_kernel.items(),

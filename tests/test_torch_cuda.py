@@ -586,6 +586,31 @@ def test_tp_halves_refused_launch_raises(dev, tp_setup):
     assert (th.launches_att, th.launches_ffn) == before
 
 
+def test_tp_halves_launch_after_a_refused_one(dev, tp_setup):
+    """A refused K6 launch leaves no error behind: the next launch of the
+    same kernel at a size it takes runs, counts, and matches its plain
+    version (the refused call's error was left as the runtime's last error
+    and reported by the next launch's check)."""
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    cfg, sharded = tp_setup
+    p, E = sharded[1].rows[0][0], cfg.n_embd
+    local = sharded[1].local(0, 0)
+    x, xy, dd, aa, bb, pp = _halves_inputs(dev, 8192, E, E, 5)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        th.att_half(p, 0, x, xy, aa, bb, pp, *local)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        th.ffn_half(p, 0, x, dd)
+    x, xy, dd, aa, bb, pp = _halves_inputs(dev, 3, E, E, 6)
+    before = (th.launches_att, th.launches_ffn)
+    got = th.att_half(p, 1, x, xy, aa, bb, pp, *local) + th.ffn_half(p, 1, x, dd)
+    want = (th.att_half_plain(p, 1, x, xy, aa, bb, pp, *local)
+            + th.ffn_half_plain(p, 1, x, dd))
+    assert (th.launches_att, th.launches_ffn) == (before[0] + 2, before[1] + 2)
+    for a, b in zip(got, want):
+        assert _scaled(a, b) <= 1e-5
+
+
 # Kernel K7 (csrc/decode_stack_tp.cu): the whole step of a data row's shards
 # as one cooperative launch, q8 and q4, tp 1, 2 and 4 on a virtual mesh
 # (E / tp = 512, 256, 128), B = 1 and 8 with the embedding gather in the step
@@ -942,3 +967,150 @@ def test_decode_stack_refused_launch_raises(dev, stack_params):
     with pytest.raises(RuntimeError, match="CUDA error"):
         ds_mod.decode_stack(params["q8"], torch.zeros(B, dtype=torch.long, device=dev), st)
     assert ds_mod.launches == before
+
+
+# -- decode and sampling as one device program (runtime/graphs.py) ----------------
+
+GRAPH_BODIES = ("q8", "q4", "a8", "fused", "halves")
+
+
+@pytest.fixture(scope="module")
+def graph_hosts():
+    """Host params at E = 256, L = 2, the bundled tokenizer's vocab (padded
+    to 50688): q8 and packed q4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = RWKVConfig(n_layer=2, n_embd=256)
+    return {"q8": random_quantized_params_np(cfg, seed=21, pad_multiple=512),
+            "q4": random_quantized_params_np(cfg, seed=22, pad_multiple=512, q4=True)}
+
+
+def _graph_engine(body, hosts, dev):
+    """An engine on the card decoding through `body`: K1 (q8), K4 (q4), K5
+    (a8), or the sharded step on a mesh of the card, "fused" (K7) or
+    "halves" (K6)."""
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.runtime.engine import RWKV
+
+    mesh = make_mesh(model=1, devices=[dev]) if body in ("fused", "halves") else None
+    eng = RWKV(device=dev, quant="q4" if body == "q4" else "q8", sharding=mesh,
+               tp_body=body if mesh else None)
+    eng.load_params(hosts["q4" if body == "q4" else "q8"], a8=body == "a8")
+    eng.load_tokenizer()
+    if mesh is not None:
+        assert eng._step_fn.body == body
+    return eng
+
+
+def _stack_counts():
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    return {"q8": ds_mod.launches, "q4": ds_mod.launches_q4, "a8": ds_mod.launches_a8,
+            "fused": k7.launches, "halves": th.launches_att + th.launches_ffn}
+
+
+# (prompt, temp, tau, seed, ban): every setting changes between calls, so a
+# value the capture baked into a graph would show in the replays
+GRAPH_CALLS = [("Once upon a time", 0.9, 0.8, 1, (0,)),
+               ("The capital of France", 0.5, 1.0, 7, (0, 11)),
+               ("Once upon a time", 1.2, 0.5, 2, (0,)), ("Hello", 1.0, 0.95, 3, (0, 187, 13))]
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("body", GRAPH_BODIES)
+def test_engine_graphed_ids_equal_eager(dev, graph_hosts, body, chunk):
+    """RWKV.generate on the card decodes each chunk as one CUDA-graph replay of
+    step + ban + typical (after the warm-up call of each chunk length), the
+    first id after the prompt as one more: the texts equal the eager path's
+    for the same seeds and settings, one replay a chunk, and the stack's
+    launch count rises by one step's launches per decoded token."""
+    eng = _graph_engine(body, graph_hosts, dev)
+    n, L = 21, eng.config.n_layer
+    per_step = 4 * L if body == "halves" else 1
+    graphed = []
+    for i, (prompt, temp, tau, seed, ban) in enumerate(GRAPH_CALLS):
+        eng.reset_state()
+        eng.load_context(prompt)
+        before, replays = _stack_counts()[body], eng._graphs.replays
+        graphed.append(eng.generate("", max_tokens=n, temp=temp, tau=tau, seed=seed,
+                                    ban_tokens=ban, chunk=chunk))
+        torch.cuda.synchronize()
+        assert _stack_counts()[body] - before == per_step * (n - 1), (body, i)
+        if i:  # every program already captured: one replay a chunk, one for the first id
+            assert eng._graphs.replays - replays == -(-(n - 1) // chunk) + 1, (body, i)
+    # the first id's program, k = chunk and the tail's
+    assert len(eng._graphs) == (2 if chunk == 1 else 3)
+    eng._graphs.enabled = False
+    for (prompt, temp, tau, seed, ban), want in zip(GRAPH_CALLS, graphed):
+        eng.reset_state()
+        eng.load_context(prompt)
+        assert eng.generate("", max_tokens=n, temp=temp, tau=tau, seed=seed, ban_tokens=ban,
+                            chunk=chunk) == want, (body, chunk, prompt)
+
+
+@pytest.mark.parametrize("step_chunk", [1, 4])
+@pytest.mark.parametrize("body", GRAPH_BODIES)
+def test_pool_graphed_texts_equal_eager(dev, graph_hosts, body, step_chunk):
+    """InferencePool.step on the card replays one CUDA graph per step_chunk
+    steps: 7 requests through 3 slots (slot generators reseeded after the
+    capture, settings and bans differing per request) give the eager pool's
+    texts, and the stack's launches equal step_chunk steps a program."""
+    from rwkv_tpu_torch.runtime.pool import InferencePool
+
+    eng = _graph_engine(body, graph_hosts, dev)
+    per_step = 4 * eng.config.n_layer if body == "halves" else 1
+
+    def serve(enabled):
+        pool = InferencePool(eng.params, eng.tokenizer, max_streams=3, prefill_bucket=32,
+                             step_fn=eng._step_fn, prefill_fn=eng._prefill_impl,
+                             step_chunk=step_chunk)
+        pool._graphs.enabled = enabled
+        rids = [pool.submit(p, max_tokens=9 + 2 * i, temp=t, tau=u, seed=s, ban_tokens=b)
+                for i, (p, t, u, s, b) in enumerate(GRAPH_CALLS + GRAPH_CALLS[:3])]
+        before = _stack_counts()[body]
+        out = pool.run()
+        torch.cuda.synchronize()
+        programs = pool._graphs.replays + len(pool._graphs)
+        return [out[r] for r in rids], _stack_counts()[body] - before, programs, pool
+
+    texts, launches, programs, pool = serve(True)
+    assert len(pool._graphs) == 1 and pool._graphs.replays == programs - 1 > 0
+    assert launches == per_step * step_chunk * programs
+    want, _, _, _ = serve(False)
+    assert texts == want, (body, step_chunk)
+
+
+def test_typical_on_the_card_tensor_settings_and_graph(dev):
+    """On the card: tensor temp (float64) and tau draw the float path's ids,
+    and typical captured with its generator registered, then replayed after
+    reseeding, draws what it draws eagerly from that seed."""
+    from rwkv_tpu_torch.ops.sampling import typical
+    from rwkv_tpu_torch.runtime.graphs import Graphs
+
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy((rng.normal(size=(8, 50688)) * 3).astype(np.float32)).to(dev)
+    gens = [torch.Generator(device=dev) for _ in range(8)]
+    for temp in (0.5, 0.7, 1.0, 2.0):
+        for tau in (0.0, 0.8, 1.0):
+            for g, s in zip(gens, range(8)):
+                g.manual_seed(s)
+            floats = [int(typical(logits[b], gens[b], temp=temp, tau=tau)) for b in range(8)]
+            for g, s in zip(gens, range(8)):
+                g.manual_seed(s)
+            rows = typical(logits, gens, torch.full((8,), temp, dtype=torch.float64, device=dev),
+                           torch.full((8,), tau, device=dev)).tolist()
+            assert rows == floats, (temp, tau)
+    graphs = Graphs(generators=gens)
+    temp = torch.full((8,), 0.9, dtype=torch.float64, device=dev)
+    tau = torch.full((8,), 0.8, device=dev)
+    draw = lambda lg, t, u: typical(lg, gens, t, u)  # noqa: E731
+    for seed in (3, 4, 3):
+        for i, g in enumerate(gens):
+            g.manual_seed(seed * 10 + i)
+        got = [graphs(("t",), draw, logits, temp, tau).tolist() for _ in range(3)]
+        for i, g in enumerate(gens):
+            g.manual_seed(seed * 10 + i)
+        assert got == [draw(logits, temp, tau).tolist() for _ in range(3)], seed
+        temp = temp * 1.1
+    assert len(graphs) == 1 and graphs.replays == 8
