@@ -127,6 +127,22 @@ Phases, in order; any failure raises and exits non-zero:
               virtual model=2 mesh and an unsharded q4 engine fed the same
               4-bit params (block 512): the same greedy ids, on K7's q4
               instantiation.
+ 15. apps     the apps on the card, from the phase-4 .bin: one 512-token
+              chunk of forward_seq(parallel=True) in f32 and bf16
+              (compute_dtype), ms per chunk (median of 5), the bf16 logits'
+              scaled error against f32 and each chunk's device time by op
+              (tools/prefill_profile.py); the eval CLI (eval/cli.py) on
+              README.md, 2,047 tokens, f32 and --bf16, |NLL(bf16) - NLL(f32)|
+              < 0.05 and tokens/s; the HTTP server (apps/server.py
+              make_server: --bf16-prefill --pool 8 --pool-chunk 4) on
+              127.0.0.1:0 in a thread: /health, 8 concurrent /complete
+              (prompts of 12-300 tokens, 32 new each: the pool's counters say
+              8 x 32 tokens), a streaming /complete, a /tokenize round trip,
+              /metrics, tok/s over all streams and ms per pool step, K1 and K2
+              launched and no plain version called, then a drain; the same
+              engine behind a server without --pool (generate); storygen
+              (--stories 1 --max-tokens 32) and vectordb (--batch-index
+              --bf16-prefill) through their main(argv).
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1435,6 +1451,211 @@ def main() -> int:
     print(f"  q4 engine on a virtual model=2 mesh (block 512): 8 greedy ids equal the unsharded "
           f"q4 engine's {ids_u}; launches {c_q}")
     del eng_q, host_q4
+
+    # ------------------------------------------------------------------ 15
+    print("phase 15 the apps on the card: bf16 prefill, eval, the HTTP server, storygen, "
+          "vectordb, 430M .bin")
+    t15 = time.perf_counter()
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from rwkv_tpu_torch.apps import storygen as storygen_app
+    from rwkv_tpu_torch.apps import vectordb as vectordb_app
+    from rwkv_tpu_torch.apps.server import make_handler, make_server
+    from rwkv_tpu_torch.eval import cli as eval_cli
+    from rwkv_tpu_torch.tools.prefill_profile import prefill_report, print_report
+
+    # no plain version may run on the card: count any call of them
+    plain_calls = {"n": 0}
+
+    def counting(fn):
+        def spy(*a, **kw):
+            plain_calls["n"] += 1
+            return fn(*a, **kw)
+        return spy
+
+    plains = [(ds_mod, "decode_stack_plain"), (mm8_mod, "mm8_plain"), (mm4_mod, "mm4_plain")]
+    saved_plains = [getattr(m, n) for m, n in plains]
+    for m, n in plains:
+        setattr(m, n, counting(getattr(m, n)))
+
+    def run_main(main_fn, argv):
+        """main(argv) of an app or the eval CLI, its stdout captured: (rc, text)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(argv)
+        return rc, buf.getvalue()
+
+    # 1. prefill: one 512-token chunk in f32 and bf16, timed and traced by op
+    eng = RWKV(bin_path)
+    rep = prefill_report(eng.params, 512, 10, args.seed)
+    print_report(rep, 512, card)
+    require(rep["finite"], "prefill logits are not finite")
+
+    # 2. eval: the perplexity CLI on README.md, f32 and bf16
+    readme = os.path.join(HERE, "README.md")
+    nll = {}
+    for extra in ([], ["--bf16"]):
+        t0 = time.perf_counter()
+        rc, text = run_main(eval_cli.main, ["--model", bin_path, "--text", readme,
+                                            "--max-tokens", "2048"] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = json.loads(text.strip().splitlines()[-1])
+        require(rc == 0 and out["tokens"] == 2047, f"eval {extra}: rc {rc}, {out}")
+        name = "bf16" if extra else "f32"
+        nll[name] = out["quant_nll"]
+        print(f"  eval {name}: {out['tokens']} tokens, nll {out['quant_nll']:.6f}, ppl "
+              f"{out['quant_ppl']:.1f}, {out['tokens'] / wall:.1f} tok/s with the load "
+              f"({wall:.2f} s) {card}")
+    dnll = abs(nll["bf16"] - nll["f32"])
+    require(dnll < 0.05, f"eval: |NLL(bf16) - NLL(f32)| = {dnll:.3e} >= 0.05")
+    print(f"  eval |NLL(bf16) - NLL(f32)| = {dnll:.3e} (< 0.05, tests/test_ppl.py's pin)")
+    from rwkv_tpu_torch.eval.ppl import evaluate_nll
+    from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer
+
+    with open(readme, encoding="utf-8") as f:
+        ids_readme = BPETokenizer.load().encode(f.read())[:2048]
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        evaluate_nll(eng.params, ids_readme[:512], compute_dtype=dt)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = evaluate_nll(eng.params, ids_readme, compute_dtype=dt)
+        wall = time.perf_counter() - t0
+        print(f"  evaluate_nll {name} on the loaded params (the .bin engine's int8 codes): "
+              f"nll {r['nll']:.6f}, {r['tokens'] / wall:.1f} tok/s ({wall * 1e3:.1f} ms, "
+              f"chunks of 256) {card}")
+
+    # 3. the HTTP server: --bf16-prefill --pool 8 --pool-chunk 4 on 127.0.0.1:0
+    del eng
+    srv, eng, runner, _ = make_server(["--model", bin_path, "--bf16-prefill", "--pool", "8",
+                                       "--pool-chunk", "4", "--port", "0"])
+    require(eng.device.type == "cuda" and runner.pool.prefill_dtype == torch.bfloat16,
+            "the server's engine or pool is not on the card with bf16 prefill")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            return r.status, json.loads(r.read())
+
+    def post(base, path, obj, raw=False):
+        req = urllib.request.Request(base + path, json.dumps(obj).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = r.read().decode()
+            return r.status, (body if raw else json.loads(body))
+
+    code, health = get("/health")
+    require(code == 200 and health["model"]["vocab"] == 50277, f"/health: {code} {health}")
+    ids15 = eng.tokenizer.encode(" ".join(prompts) * 40)
+    spec15 = [12, 300, 40, 130, 25, 260, 77, 200]  # prompt tokens
+    reqs15 = [{"prompt": eng.tokenizer.decode(ids15[i * 7:i * 7 + n]), "max_tokens": 32,
+               "temp": 0.9, "tau": 0.8, "seed": args.seed + 100 + i}
+              for i, n in enumerate(spec15)]
+    _, m0 = get("/metrics")
+    admit_s = []  # host seconds in the pool's admissions (prefill + the first ids)
+    admit = runner.pool._admit
+
+    def timed_admit():
+        t = time.perf_counter()
+        try:
+            return admit()
+        finally:
+            admit_s.append(time.perf_counter() - t)
+
+    runner.pool._admit = timed_admit
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    plain_calls["n"] = 0
+    results = {}
+
+    def hit(i):
+        results[i] = post(url, "/complete", reqs15[i])
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(reqs15))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    c15 = {n: getattr(mod, a) for n, (mod, a) in zip(COUNTER_NAMES, counters)}
+    _, m1 = get("/metrics")
+    require(sorted(results) == list(range(8)) and all(c == 200 for c, _ in results.values()),
+            f"the pooled server did not answer every request: {results}")
+    dc = {k: m1["counters"].get(k, 0) - m0["counters"].get(k, 0)
+          for k in ("pool.tokens_decoded", "pool.requests_completed", "pool.steps")}
+    require(dc["pool.requests_completed"] == 8 and dc["pool.tokens_decoded"] == 8 * 32,
+            f"8 requests of 32 tokens each (no stop strings): counters moved by {dc}")
+    require(c15["K1"] > 0 and c15["K2"] > 0 and all(v == 0 for k, v in c15.items()
+                                                  if k not in ("K1", "K2")),
+            f"the pooled server did not decode on K1 + K2 alone: {c15}")
+    require(plain_calls["n"] == 0, f"a plain version ran {plain_calls['n']} times on the card")
+    apps_launches = dict(c15)
+    runner.pool._admit = admit
+    busy_admit = [t for t in admit_s if t > 1e-3]  # the calls that admitted a burst
+    print(f"  pooled server, 8 concurrent /complete (prompts {spec15} tokens, 32 new each): "
+          f"{8 * 32 / wall:.1f} tok/s over all streams, {wall:.3f} s, {dc['pool.steps']:.0f} "
+          f"pool steps of 4 tokens a slot, {wall / dc['pool.steps'] * 1e3:.2f} ms per step "
+          f"with admission, {(wall - sum(admit_s)) / dc['pool.steps'] * 1e3:.2f} without; "
+          f"admission {sum(admit_s) * 1e3:.1f} ms in {len(busy_admit)} bursts "
+          f"({', '.join(f'{t * 1e3:.1f}' for t in busy_admit)} ms) {card}; launches {c15}; "
+          f"plain calls 0")
+    print(f"  request 0 -> {results[0][1]['completion'][:40]!r}")
+    code, sse = post(url, "/complete", dict(reqs15[0], stream=True), raw=True)
+    lines = [ln for ln in sse.splitlines() if ln.startswith("data: ")]
+    require(code == 200 and lines and lines[-1] == "data: [DONE]"
+            and all("text" in json.loads(ln[6:]) for ln in lines[:-1]),
+            f"streaming /complete: {code} {sse[:200]!r}")
+    code, tk = post(url, "/tokenize", {"text": "Hello world, from the card."})
+    code2, dt = post(url, "/detokenize", {"ids": tk["ids"]})
+    require(code == code2 == 200 and dt["text"] == "Hello world, from the card.",
+            f"/tokenize round trip: {tk} {dt}")
+    _, m2 = get("/metrics")
+    require(m2["pool"]["slots"] == 8 and m2["counters"].get("pool.requests_completed", 0) >= 9,
+            f"/metrics: {m2.get('pool')}")
+    print(f"  streaming /complete: {len(lines) - 1} SSE pieces then [DONE]; /tokenize round "
+          f"trip of {len(tk['ids'])} ids; /metrics pool {m2['pool']}")
+    srv.shutdown()
+    srv.server_close()
+    require(runner.drain(timeout=60), "the pool did not drain")
+
+    # the same engine behind a server without --pool: the engine's own generate
+    srv2 = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(eng, threading.Lock()))
+    threading.Thread(target=srv2.serve_forever, daemon=True).start()
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    code, one = post(f"http://127.0.0.1:{srv2.server_port}", "/complete", reqs15[2])
+    c_one = {n: getattr(mod, a) for n, (mod, a) in zip(COUNTER_NAMES, counters)}
+    srv2.shutdown()
+    srv2.server_close()
+    require(code == 200 and one["completion"], f"the plain server: {code} {one}")
+    require(c_one["K1"] >= 31 and c_one["K2"] >= 31 and plain_calls["n"] == 0,
+            f"the plain server's generate did not decode on K1 + K2: {c_one}")
+    print(f"  server without --pool (generate, chunk 8): 200, launches {c_one}")
+    del eng, runner, srv, srv2
+
+    # 4. storygen and vectordb through their main(argv)
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    _, story = run_main(storygen_app.main, ["--model", bin_path, "--stories", "1",
+                                            "--max-tokens", "32"])
+    require("=== story 1 ===" in story and ds_mod.launches > 0 and mm8_mod.launches > 0,
+            f"storygen: {story[:200]!r}")
+    _, vdb = run_main(vectordb_app.main, ["--model", bin_path, "--batch-index",
+                                          "--bf16-prefill"])
+    ranked = [ln for ln in vdb.splitlines() if ln.startswith("  ")]
+    require(len(ranked) == 3, f"vectordb: {vdb!r}")
+    require(plain_calls["n"] == 0, f"a plain version ran {plain_calls['n']} times on the card")
+    print(f"  storygen: {story.split('===')[-1].strip()[:40]!r}; vectordb --batch-index "
+          f"--bf16-prefill top 3: {[ln.strip()[:30] for ln in ranked]}")
+    for (m, n), f in zip(plains, saved_plains):
+        setattr(m, n, f)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s")
     bin_dir.cleanup()
 
     kernels = [
@@ -1518,6 +1739,11 @@ def main() -> int:
                   f"1 launch per step ({4 * L} grid barriers); replayed from a CUDA graph "
                   f"{k7q4_row['graph_ms']:.4f} ms"},
     ]
+    counter_of = {"decode_stack": "K1", "mm8": "K2", "mm4": "K3", "decode_stack_q4": "K4",
+                  "mm8_a8": "K5 head", "decode_stack_a8": "K5 stack", "att_half": "K6 att",
+                  "ffn_half": "K6 ffn", "decode_stack_tp": "K7", "decode_stack_tp_q4": "K7 q4"}
+    for k in kernels:  # the pooled server's run (phase 15), counted from 0 as the main path's
+        k["launches_apps"] = apps_launches[counter_of[k["name"]]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

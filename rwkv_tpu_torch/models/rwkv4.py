@@ -12,6 +12,7 @@ stacked leading layer dim on every per-layer tensor. State is five tensors
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,6 +23,7 @@ from rwkv_tpu_torch.ops.layernorm import layer_norm
 from rwkv_tpu_torch.ops.quant import (
     Quant4Linear,
     QuantLinear,
+    dot_f32,
     q4matmul,
     qmatmul,
     quantize,
@@ -38,11 +40,16 @@ from rwkv_tpu_torch.ops.wkv import (
 Linear = QuantLinear | Quant4Linear | torch.Tensor  # dense: plain [in, out]
 
 
-def _matmul(x: torch.Tensor, w: Linear) -> torch.Tensor:
+def _matmul(x: torch.Tensor, w: Linear, compute_dtype=torch.float32) -> torch.Tensor:
+    """x @ w for any weight family. compute_dtype: the products' operand
+    type (bf16 prefill: both operands rounded to bf16, the sums in float32,
+    as the JAX package's _matmul)."""
     if isinstance(w, Quant4Linear):
-        return q4matmul(x, w)
+        return q4matmul(x, w, compute_dtype)
     if isinstance(w, QuantLinear):
-        return qmatmul(x, w)
+        return qmatmul(x, w, compute_dtype)
+    if compute_dtype != x.dtype:
+        return dot_f32(x.to(compute_dtype), w.to(compute_dtype))
     return x @ w
 
 
@@ -195,26 +202,28 @@ def _carry_valid(new: torch.Tensor, old: torch.Tensor, length) -> torch.Tensor:
 
 
 def _att_seq(x, att: AttParams, ln: LNParams, xy, chan, *, parallel, mask,
-             length):
+             length, compute_dtype=torch.float32):
     xx = layer_norm(x, ln.weight, ln.bias)
     prev = torch.cat([xy[None], xx[:-1]], dim=0)  # token shift
-    k = _matmul(att.mix_k * xx + (1 - att.mix_k) * prev, att.key)
-    v = _matmul(att.mix_v * xx + (1 - att.mix_v) * prev, att.value)
-    r = _matmul(att.mix_r * xx + (1 - att.mix_r) * prev, att.receptance)
+    mm = partial(_matmul, compute_dtype=compute_dtype)
+    k = mm(att.mix_k * xx + (1 - att.mix_k) * prev, att.key)
+    v = mm(att.mix_v * xx + (1 - att.mix_v) * prev, att.value)
+    r = mm(att.mix_r * xx + (1 - att.mix_r) * prev, att.receptance)
     wkv_fn = wkv_parallel if parallel else wkv_scan
     y, chan = wkv_fn(k, v, chan, att.decay, att.bonus, mask)
-    out = _matmul(torch.sigmoid(r) * y, att.output)
+    out = mm(torch.sigmoid(r) * y, att.output)
     return x + out, _carry_valid(_last_valid(xx, length), xy, length), chan
 
 
-def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length):
+def _ffn_seq(x, ffn: FFNParams, ln: LNParams, dd, *, length, compute_dtype=torch.float32):
     xx = layer_norm(x, ln.weight, ln.bias)
     prev = torch.cat([dd[None], xx[:-1]], dim=0)
     k_in = ffn.mix_k * xx + (1 - ffn.mix_k) * prev
     r_in = ffn.mix_r * xx + (1 - ffn.mix_r) * prev
-    gate = torch.sigmoid(_matmul(r_in, ffn.receptance))
-    kk = torch.square(torch.relu(_matmul(k_in, ffn.key)))
-    return x + gate * _matmul(kk, ffn.value), _carry_valid(_last_valid(xx, length), dd, length)
+    mm = partial(_matmul, compute_dtype=compute_dtype)
+    gate = torch.sigmoid(mm(r_in, ffn.receptance))
+    kk = torch.square(torch.relu(mm(k_in, ffn.key)))
+    return x + gate * mm(kk, ffn.value), _carry_valid(_last_valid(xx, length), dd, length)
 
 
 def _att_step(x, att: AttParams, ln: LNParams, xy, chan, mm=_matmul, mm_rows=_matmul):
@@ -240,9 +249,9 @@ def _ffn_step(x, ffn: FFNParams, ln: LNParams, dd, mm=_matmul, mm_rows=_matmul):
     return x + gate * mm_rows(kk, ffn.value), xx
 
 
-def _head(params: RWKVParams, x):
+def _head(params: RWKVParams, x, compute_dtype=torch.float32):
     x = layer_norm(x, params.ln_out.weight, params.ln_out.bias)
-    logits = _matmul(x, params.head)
+    logits = _matmul(x, params.head, compute_dtype)
     if params.logit_bias is not None:
         logits = logits + params.logit_bias
     return logits
@@ -250,13 +259,17 @@ def _head(params: RWKVParams, x):
 
 def forward_seq(params: RWKVParams, tokens: torch.Tensor, state: WKVState, *,
                 parallel: bool = False, return_all_logits: bool = False,
-                length: int | None = None) -> Tuple[torch.Tensor, WKVState]:
+                length: int | None = None,
+                compute_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, WKVState]:
     """Run a token sequence (GPT mode). tokens: [T] or [T, B].
 
     length: optional count of valid leading tokens; later positions are
     padding whose state updates are no-ops (bucketed prefill). A scalar, or
     with tokens [T, B] and parallel=True a [B] tensor of per-stream lengths
     (ragged batched prefill: a zero-length stream keeps its state).
+    compute_dtype: the operand type of every product, the head's included
+    (torch.bfloat16: bf16 prefill, the sums in float32, as the JAX package's
+    compute_dtype); WKV, LayerNorm and the masks stay in float32.
     Returns (logits for the last valid position, or [T, ..., V] with
     return_all_logits; new state). The input state is not modified."""
     x = layer_norm(params.emb[tokens].float(), params.ln0.weight, params.ln0.bias)
@@ -280,12 +293,12 @@ def forward_seq(params: RWKVParams, tokens: torch.Tensor, state: WKVState, *,
         x, xy, chan = _att_seq(
             x, att, ln1, state.xy[i],
             WKVChannelState(state.aa[i], state.bb[i], state.pp[i]),
-            parallel=parallel, mask=mask, length=length)
-        x, dd = _ffn_seq(x, ffn, ln2, state.dd[i], length=length)
+            parallel=parallel, mask=mask, length=length, compute_dtype=compute_dtype)
+        x, dd = _ffn_seq(x, ffn, ln2, state.dd[i], length=length, compute_dtype=compute_dtype)
         for f, val in zip(WKVState._fields, (xy, chan.aa, chan.bb, chan.pp, dd)):
             new[f].append(val)
     new_state = WKVState(*(torch.stack(new[f]) for f in WKVState._fields))
-    logits = _head(params, x if return_all_logits else _last_valid(x, length))
+    logits = _head(params, x if return_all_logits else _last_valid(x, length), compute_dtype)
     return logits, new_state
 
 

@@ -165,23 +165,47 @@ def dequantize4(q: Quant4Linear) -> torch.Tensor:
     return w * torch.as_tensor(q.scale)[..., None] + torch.as_tensor(q.offset)[..., None]
 
 
-def q4matmul(x: torch.Tensor, q: Quant4Linear) -> torch.Tensor:
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ b [K, O], accumulated and returned in float32 (the JAX
+    package's dot_general with preferred_element_type=float32).
+
+    float32 operands: torch.matmul. bf16 operands on CUDA: one cuBLAS call
+    with a float32 output (torch.mm's out_dtype), so the product is not
+    rounded to bf16 a second time, as torch.matmul of two bf16 tensors
+    would. On the CPU, where that op has no kernel, the operands widen to
+    float32 and multiply there: products of bf16 values are exact in
+    float32, so the result is the same accumulation of the same products."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def q4matmul(x: torch.Tensor, q: Quant4Linear, compute_dtype=torch.float32) -> torch.Tensor:
     """y = x @ dequant4(q) = (x * scale) @ unpack4(wp, block) + x . offset.
 
     The plain version (prefill and the CPU path): the codes are widened to
-    float32 and the product goes to torch.matmul, as the JAX package leaves
-    it to XLA."""
-    main = torch.matmul(x * q.scale, unpack4(q.wp, q.block).float())
+    compute_dtype and the product goes to dot_f32, as the JAX package leaves
+    it to XLA. compute_dtype=torch.bfloat16 (bf16 prefill) rounds x * scale
+    to bf16, the codes (-8..7) are exact there, and the product accumulates
+    in float32; the offset term stays in float32."""
+    xs = (x * q.scale).to(compute_dtype)
+    main = dot_f32(xs, unpack4(q.wp, q.block).to(compute_dtype))
     return main + (x * q.offset).sum(dim=-1, keepdim=True)
 
 
-def qmatmul(x: torch.Tensor, q: QuantLinear) -> torch.Tensor:
+def qmatmul(x: torch.Tensor, q: QuantLinear, compute_dtype=torch.float32) -> torch.Tensor:
     """y = x @ dequant(q) through the rank-1 offset split.
 
-    x: [..., in]; q.w: [in, out]. Returns [..., out] float32. The widened
-    weight goes to torch.matmul: this is the plain version (prefill and
-    the CPU path), as the JAX package leaves the same product to XLA."""
-    xs = x * q.scale
-    main = torch.matmul(xs, q.w.float())
+    x: [..., in]; q.w: [in, out]. Returns [..., out] float32. The weight
+    widened to compute_dtype goes to dot_f32: this is the plain version
+    (prefill and the CPU path), as the JAX package leaves the same product
+    to XLA. compute_dtype=torch.bfloat16 (bf16 prefill) rounds x * scale to
+    bf16, the int8 codes are exact there, and the product accumulates in
+    float32; the offset term stays in float32."""
+    xs = (x * q.scale).to(compute_dtype)
+    main = dot_f32(xs, q.w.to(compute_dtype))
     off = (x * q.offset).sum(dim=-1, keepdim=True)
     return main + off

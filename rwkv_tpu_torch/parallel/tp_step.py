@@ -344,12 +344,16 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
     return step
 
 
-def _tp_seq_local(sp: ShardedParams, tokens, states, length, comm: _Collectives):
+def _tp_seq_local(sp: ShardedParams, tokens, states, length, comm: _Collectives,
+                  compute_dtype=torch.float32):
     """The prefill body: [T, B] tokens through the parallel WKV scan on every
     shard, with the decode step's layouts and collectives (2 psums + 1 gather
     per block, + the embedding psum and the logits gather, per call).
-    length[d][j]: [B] valid tokens per stream, or None (every lane full)."""
+    length[d][j]: [B] valid tokens per stream, or None (every lane full).
+    compute_dtype: the layers' product operands (bf16 prefill); the head
+    stays in float32, as in the JAX body."""
     mesh = sp.mesh
+    mm = partial(_matmul, compute_dtype=compute_dtype)
     x = _embed_psum(sp, tokens, comm)  # [T, B, E]
     T = x[0][0].shape[0]
 
@@ -370,14 +374,14 @@ def _tp_seq_local(sp: ShardedParams, tokens, states, length, comm: _Collectives)
             st, n = states[d][j], lens[d][j]
             xx = layer_norm(x[d][j], ln1.weight, ln1.bias)
             prev = torch.cat([st.xy[i][None], xx[:-1]], dim=0)
-            k = _matmul(a.mix_k * xx + (1 - a.mix_k) * prev, a.key)
-            v = _matmul(a.mix_v * xx + (1 - a.mix_v) * prev, a.value)
-            r = _matmul(a.mix_r * xx + (1 - a.mix_r) * prev, a.receptance)
+            k = mm(a.mix_k * xx + (1 - a.mix_k) * prev, a.key)
+            v = mm(a.mix_v * xx + (1 - a.mix_v) * prev, a.value)
+            r = mm(a.mix_r * xx + (1 - a.mix_r) * prev, a.receptance)
             w, u = (s[i] for s in sp.local(d, j))
             y, chan = wkv_parallel(k, v, WKVChannelState(st.aa[i], st.bb[i], st.pp[i]), w, u,
                                    masks[d][j])
             att_out[d, j] = (_carry_valid(_last_valid(xx, n), st.xy[i], n), chan)
-            return _matmul(torch.sigmoid(r) * y, a.output)
+            return mm(torch.sigmoid(r) * y, a.output)
 
         s = comm.psum(_grid(mesh, att))
         x = _grid(mesh, lambda d, j: x[d][j] + s[d][j])
@@ -390,10 +394,10 @@ def _tp_seq_local(sp: ShardedParams, tokens, states, length, comm: _Collectives)
             prev = torch.cat([dd[None], xx2[:-1]], dim=0)
             fk = f.mix_k * xx2 + (1 - f.mix_k) * prev
             fr = f.mix_r * xx2 + (1 - f.mix_r) * prev
-            gate = torch.sigmoid(_matmul(fr, f.receptance))
-            h = torch.square(torch.relu(_matmul(fk, f.key)))
+            gate = torch.sigmoid(mm(fr, f.receptance))
+            h = torch.square(torch.relu(mm(fk, f.key)))
             ffn_out[d, j] = (_carry_valid(_last_valid(xx2, n), dd, n), gate)
-            return _matmul(h, f.value)
+            return mm(h, f.value)
 
         vfull = comm.psum(_grid(mesh, ffn))
         gate = comm.gather(_grid(mesh, lambda d, j: ffn_out[d, j][1]))
@@ -405,11 +409,13 @@ def _tp_seq_local(sp: ShardedParams, tokens, states, length, comm: _Collectives)
     return logits, _grid(mesh, lambda d, j: _stack(new[d][j]))
 
 
-def make_tp_prefill(mesh: Mesh, params, *, masked: bool = True):
+def make_tp_prefill(mesh: Mesh, params, *, masked: bool = True,
+                    compute_dtype: torch.dtype = torch.float32):
     """(params, tokens [T, B], state, length [B]) -> (logits [B, Vp], state):
     batched ragged prefill over `mesh` with the decode step's layouts and
     collective schedule. masked=False builds the full-chunk variant
-    (params, tokens, state), every lane full, with no mask."""
+    (params, tokens, state), every lane full, with no mask. compute_dtype:
+    the layers' product operands (torch.bfloat16: bf16 prefill)."""
     tp = mesh.shape["model"]
     p0, V, _ = _meta(params)
     if not isinstance(p0.att.key, (QuantLinear, Quant4Linear)):
@@ -426,7 +432,8 @@ def make_tp_prefill(mesh: Mesh, params, *, masked: bool = True):
         if masked:
             lens = _split_batch(mesh, torch.as_tensor(length, device=tokens.device), 0)
         logits, states = _tp_seq_local(sp, _split_batch(mesh, tokens, 1),
-                                       shard_state(state, mesh), lens, _Collectives(mesh))
+                                       shard_state(state, mesh), lens, _Collectives(mesh),
+                                       compute_dtype)
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
     if masked:
@@ -440,14 +447,14 @@ def _pad_streams(state: WKVState, B: int, Bp: int) -> WKVState:
     return WKVState(*(torch.nn.functional.pad(s, (0, 0, 0, Bp - B)) for s in state))
 
 
-def make_engine_prefill(mesh: Mesh, params):
+def make_engine_prefill(mesh: Mesh, params, *, compute_dtype: torch.dtype = torch.float32):
     """A forward_seq-shaped adapter over make_tp_prefill for the engine and
     the pool: tokens [T] or [T, B]; state leaves [L, E] or [L, B, E]; a
     scalar or [B] length, or None for a full chunk (every real lane holds T
     tokens); B padded up to the data rows (the padded lanes' results are
     dropped)."""
-    masked = make_tp_prefill(mesh, params)
-    full = make_tp_prefill(mesh, params, masked=False)
+    masked = make_tp_prefill(mesh, params, compute_dtype=compute_dtype)
+    full = make_tp_prefill(mesh, params, masked=False, compute_dtype=compute_dtype)
     nd = mesh.shape["data"]
 
     def prefill(sp, tokens, state, length=None):

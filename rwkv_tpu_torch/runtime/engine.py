@@ -12,8 +12,10 @@ hand-written kernels K1 (decode stack) and K2 (int8 head), or K4 and K3 for
 4-bit weights; after `load_params(params, a8=True)` the W8A8 step on K5, as
 the JAX engine's a8 option. On the CPU their plain PyTorch versions.
 Prompt ingest runs `forward_seq(parallel=True)` in plain PyTorch, padded to
-a few fixed buckets with a length mask. State stays on the device between
-calls; during generation only the sampled token ids reach the host.
+a few fixed buckets with a length mask; prefill_dtype=torch.bfloat16 gives
+its products bf16 operands (float32 sums), as the JAX engine's option. State
+stays on the device between calls; during generation only the sampled token
+ids reach the host.
 
 Decode and sampling are one device program, as the JAX engine's
 `_make_jits` makes them one jit: `_decode` is the step, the ban mask and
@@ -102,6 +104,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _jax_engine_vocab(params) -> int:
+    """The logits width the JAX engine holds after load_params(params) on its
+    accelerator, unsharded: it pads the vocab to a multiple of 512 only where
+    its fused decode step runs (quantized families, E and F multiples of 256)
+    and the head is not a multiple of 128 wide; otherwise it keeps the width
+    it was given (rwkv_tpu/runtime/engine.py, load_params)."""
+    V, E = params.head.out_features, params.n_embd
+    if E % 256 == 0 and V % 128:
+        return -(-V // 512) * 512
+    return V
+
+
 class RWKV:
     """Stateful engine over the functional model core."""
 
@@ -116,10 +130,18 @@ class RWKV:
         quant: str = "q8",
         sharding=None,
         tp_body: Optional[str] = None,
+        prefill_dtype: torch.dtype = torch.float32,
     ):
         """sharding: a parallel.mesh.Mesh or a parallel.sharding.ShardingContext
         for tensor-parallel serving, or None. tp_body: the sharded step's body,
-        "fused", "halves" or "plain" (parallel/tp_step.py; None picks it)."""
+        "fused", "halves" or "plain" (parallel/tp_step.py; None picks it).
+        prefill_dtype: the operand type of prompt ingest's products,
+        torch.float32 or torch.bfloat16 (bf16 operands, float32 sums, as the
+        JAX engine's prefill_dtype); decode is not affected."""
+        if prefill_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"prefill_dtype must be torch.float32 or torch.bfloat16, "
+                             f"got {prefill_dtype}")
+        self.prefill_dtype = prefill_dtype
         self._mesh = getattr(sharding, "mesh", sharding)
         if self._mesh is not None:
             first = self._mesh.first_device
@@ -233,6 +255,7 @@ class RWKV:
         if a8 and isinstance(params.att.key, Quant4Linear):
             raise ValueError("a8 and 4-bit weights are mutually exclusive")
         params = params_to(params, self.device)
+        self._session_vocab = _jax_engine_vocab(params)
         if params.head.out_features % 16:
             params = pad_vocab(params, multiple=512)
         params = signedize_params(params)
@@ -259,7 +282,9 @@ class RWKV:
                 params = pad_vocab(params, multiple=multiple)
             params = shard_params(signedize_params(params), mesh)
         self._step_fn = make_engine_step(mesh, params, body=self._tp_body)
-        self._prefill_impl = make_engine_prefill(mesh, params)
+        self._prefill_impl = make_engine_prefill(mesh, params, compute_dtype=self.prefill_dtype)
+        # the JAX engine pads a sharded load to the same multiple
+        self._session_vocab = params.config.vocab_size
         shard = params.rows[0][0]
         self.quant = "q4" if isinstance(shard.att.key, Quant4Linear) else "q8"
         self._loaded(params)
@@ -341,11 +366,16 @@ class RWKV:
         """Persist a stream's continuation point (snapshot) as a compressed
         .npz with the JAX engine's keys (state_xy .. state_dd, logits,
         pending), so that either package resumes a session the other saved.
-        The logits are written at the true vocab width."""
+        The logits are written at the width the JAX engine holds for the same
+        source (its generate masks them at that width): a .bin's 512-padded
+        vocab, a sharded load's tensor-parallel multiple, and for load_params
+        the rule of _jax_engine_vocab; padded columns carry the -1e9 bias."""
         snap = self.snapshot(stream)
         arrays = {f"state_{k}": v.cpu().numpy() for k, v in zip(WKVState._fields, snap["state"])}
         if snap.get("logits") is not None:
-            arrays["logits"] = snap["logits"][: self._true_vocab].cpu().numpy()
+            logits = snap["logits"][: self._session_vocab].cpu()
+            pad = self._session_vocab - logits.shape[0]
+            arrays["logits"] = torch.nn.functional.pad(logits, (0, pad), value=-1e9).numpy()
         if snap.get("pending") is not None:
             arrays["pending"] = np.asarray(snap["pending"], np.int64)
         np.savez_compressed(path, **arrays)
@@ -416,7 +446,8 @@ class RWKV:
                                                    length)
             else:
                 logits, state = forward_seq(self.params, padded.to(self.device), state,
-                                            parallel=True, length=length)
+                                            parallel=True, length=length,
+                                            compute_dtype=self.prefill_dtype)
         self.set_state(state, stream)
         self._last_logits[stream] = logits
         return logits[..., : self._true_vocab]

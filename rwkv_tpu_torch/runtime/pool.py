@@ -25,7 +25,8 @@ replayed (runtime/graphs.py); the slot generators are registered with it.
 Its inputs (tokens, temp, tau, active) are built from the host lists
 outside it and copied into its buffers; the state and the tokens are its
 carry. Admission (prefill and the burst's first tokens, JAX: _jit_admit)
-runs eagerly. On the CPU, and over a mesh of distinct GPUs, the program
+runs eagerly, in float32 or, with prefill_dtype=torch.bfloat16, with bf16
+product operands. On the CPU, and over a mesh of distinct GPUs, the program
 runs eagerly.
 """
 
@@ -82,6 +83,7 @@ class InferencePool:
         max_streams: int = 8,
         prefill_bucket: int = 128,
         step_fn: Optional[Callable] = None,
+        prefill_dtype: torch.dtype = torch.float32,
         step_chunk: int = 1,
         prefill_fn: Optional[Callable] = None,
     ):
@@ -93,6 +95,11 @@ class InferencePool:
         prefill_fn: batched prompt ingest (params, tokens [T, W], state,
         length [W] or None) -> (logits [W, V], state); defaults to
         forward_seq(parallel=True).
+
+        prefill_dtype: the operand type of the default prefill's products,
+        torch.float32 or torch.bfloat16 (float32 sums); a prefill_fn carries
+        its own (the engine's _prefill_impl is built with the engine's
+        prefill_dtype).
 
         step_chunk: decode this many tokens for the whole batch before one
         host read of their ids. The token streams do not depend on it;
@@ -106,6 +113,7 @@ class InferencePool:
         self.prefill_bucket = prefill_bucket
         self._step_impl = step_fn or forward_step_fused
         self._prefill_fn = prefill_fn
+        self.prefill_dtype = prefill_dtype
         # admission width buckets: prefill work scales with the padded lane
         # count, so a burst of n prompts is padded to the next power of two
         # up to B (at most twice the live lanes), never always to B
@@ -179,7 +187,8 @@ class InferencePool:
         per-stream lengths, or None when every lane is full."""
         if self._prefill_fn is not None:
             return self._prefill_fn(params, tokens, slot_state, length)
-        return forward_seq(params, tokens, slot_state, parallel=True, length=length)
+        return forward_seq(params, tokens, slot_state, parallel=True, length=length,
+                           compute_dtype=self.prefill_dtype)
 
     # -- public API ---------------------------------------------------------------
 

@@ -143,9 +143,7 @@ class BPETokenizer:
         return ids
 
     def decode(self, ids: Iterable[int]) -> str:
-        text = "".join(self.decoder.get(int(i), "") for i in ids)
-        data = bytes(self.byte_decoder[c] for c in text)
-        return data.decode("utf-8", errors="replace")
+        return self.decode_bytes(ids).decode("utf-8", errors="replace")
 
     def tokenize(self, text: str) -> list[str]:
         """BPE piece strings for `text`, in byte-unicode form (parity with
@@ -157,9 +155,17 @@ class BPETokenizer:
         return pieces
 
     def decode_bytes(self, ids: Iterable[int]) -> bytes:
-        """Raw bytes — lets streaming callers hold partial UTF-8 sequences."""
+        """Raw bytes — lets streaming callers hold partial UTF-8 sequences.
+
+        A vocab entry is byte-level text, but the 20B vocab's 23 added tokens
+        (ids 50254..50276, runs of 2 to 24 spaces) hold plain characters: a
+        character outside the byte alphabet stands for its own UTF-8 bytes."""
         text = "".join(self.decoder.get(int(i), "") for i in ids)
-        return bytes(self.byte_decoder[c] for c in text)
+        out = bytearray()
+        for c in text:
+            b = self.byte_decoder.get(c)
+            out += c.encode("utf-8") if b is None else bytes((b,))
+        return bytes(out)
 
     @property
     def vocab_size(self) -> int:

@@ -1114,3 +1114,70 @@ def test_typical_on_the_card_tensor_settings_and_graph(dev):
         assert got == [draw(logits, temp, tau).tolist() for _ in range(3)], seed
         temp = temp * 1.1
     assert len(graphs) == 1 and graphs.replays == 8
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+def test_bf16_forward_seq_on_the_card_matches_cpu(dev, quant):
+    """bf16 prefill on the card (cuBLAS bf16 products with float32 outputs)
+    against its plain version on the CPU (the operands widened to float32):
+    the same bf16 operands, float32 sums in another order, so within the bf16
+    pin of tests/test_torch_prefill.py; the float32 prefill beside it."""
+    from rwkv_tpu_torch.models.rwkv4 import forward_seq
+
+    cfg = RWKVConfig(n_layer=2, n_embd=256, vocab_size=1000)
+    host = signedize_params(random_quantized_params_np(cfg, seed=5, pad_multiple=128,
+                                                       q4=quant == "q4", q4_block=128))
+    cpu, gpu = params_to(host, "cpu"), params_to(host, dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 1000, size=(37, 3)))
+    lens = torch.tensor([37, 20, 0])
+    for dtype in (torch.bfloat16, torch.float32):
+        lc, sc = forward_seq(cpu, toks, init_state(cfg, (3,)), parallel=True, length=lens,
+                             compute_dtype=dtype)
+        lg, sg = forward_seq(gpu, toks.to(dev), init_state(cfg, (3,), device=dev), parallel=True,
+                             length=lens.to(dev), compute_dtype=dtype)
+        assert lg.dtype == torch.float32 and bool(torch.isfinite(lg).all())
+        tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+        assert _scaled(lg.cpu(), lc) <= tol, (dtype, _scaled(lg.cpu(), lc))
+        for a, b in zip(sg, sc):
+            assert _scaled(a.cpu(), b) <= tol
+
+
+def test_mock_pooled_server_on_the_card(dev):
+    """The --mock server with --pool 2 --bf16-prefill on the card answers 4
+    concurrent requests, its decode on kernels K1 and K2 (the launch
+    counters advance)."""
+    import json
+    import threading
+    import urllib.request
+
+    from rwkv_tpu_torch.apps.server import make_server
+
+    srv, eng, runner, _ = make_server(["--mock", "--pool", "2", "--pool-chunk", "2",
+                                       "--bf16-prefill", "--port", "0"])
+    assert eng.device.type == "cuda" and runner.pool.prefill_dtype == torch.bfloat16
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_port}/complete"
+    before = (ds_mod.launches, mm8_mod.launches)
+    results = {}
+
+    def hit(i):
+        req = urllib.request.Request(url, json.dumps({"prompt": f"Request {i} " * (i + 1),
+                                                      "max_tokens": 6, "seed": i}).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            results[i] = (r.status, json.loads(r.read()))
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        assert runner.drain(timeout=60)
+    assert sorted(results) == [0, 1, 2, 3]
+    assert all(code == 200 and body["tokens"] >= 1 for code, body in results.values())
+    assert ds_mod.launches > before[0] and mm8_mod.launches > before[1]

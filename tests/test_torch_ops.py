@@ -177,6 +177,28 @@ def test_tokenizer_reproduces_golden(port_tok):
             assert out == case["decoded"]
 
 
+def test_tokenizer_decodes_every_id(port_tok):
+    """Every id of the 50,277-entry vocab decodes, the 23 added tokens (ids
+    50254..50276) to their runs of spaces, which the JAX tokenizer's decode
+    does not map (KeyError); the other ids as the JAX tokenizer decodes them,
+    one by one and streamed."""
+    from rwkv_tpu.tokenizer.bpe import BPETokenizer as JTokenizer
+    from rwkv_tpu_torch.tokenizer.bpe import StreamDecoder
+
+    jt = JTokenizer.load()
+    added = range(50254, 50277)
+    assert [port_tok.decode([i]) for i in added] == [" " * n for n in range(24, 1, -1)]
+    with pytest.raises(KeyError):
+        jt.decode([50254])
+    rest = list(range(0, 50254, 7))
+    assert [port_tok.decode([i]) for i in rest] == [jt.decode([i]) for i in rest]
+    ids = [510, 50260, 4062, 50276, 253]
+    dec = StreamDecoder(port_tok)
+    streamed = "".join(dec.feed([i]) for i in ids) + dec.flush()
+    want = jt.decode([510]) + " " * 18 + jt.decode([4062]) + "  " + jt.decode([253])
+    assert streamed == port_tok.decode(ids) == want
+
+
 def test_tokenizer_asset_is_its_own_identical_copy():
     from rwkv_tpu_torch.tokenizer import assets
 
@@ -215,7 +237,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     for module in ("runtime/pool.py", "utils/metrics.py", "ops/cuda/mm8.py",
                    "ops/cuda/decode_stack.py", "tools/decode_profile.py", "parallel/mesh.py",
-                   "parallel/sharding.py", "parallel/tp_step.py", "ops/cuda/tp_halves.py"):
+                   "parallel/sharding.py", "parallel/tp_step.py", "ops/cuda/tp_halves.py",
+                   "apps/_common.py", "apps/server.py", "apps/chat.py", "apps/storygen.py",
+                   "apps/vectordb.py", "eval/ppl.py", "eval/cli.py"):
         assert any(f.endswith(os.path.join(*module.split("/"))) for f in files), module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "rwkv_tpu")]

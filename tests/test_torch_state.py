@@ -110,3 +110,32 @@ def test_session_crosses_packages(tmp_path, jparams, params, direction):
     a = np.asarray(dst.forward(want[1]))[:50277]
     b = np.asarray(src.forward(want[1]))[:50277]
     np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3)
+
+
+def test_session_from_a_bin_resumes_in_the_jax_bin_engine(tmp_path):
+    """A session the port saves right after forward on a .bin resumes in the
+    JAX engine loaded from the same .bin, whose logits are 512-padded
+    (50,688 wide): its generate("") runs (it masks at that width) and its
+    greedy ids equal the port's own continuation. The file's logits are
+    that wide, the padded columns at the -1e9 bias."""
+    from rwkv_tpu.io.binfmt import write_bin as j_write_bin
+    from rwkv_tpu.models.rwkv4 import random_quantized_params_np as j_random_params
+
+    path = str(tmp_path / "l2-e64.bin")
+    j_write_bin(path, j_random_params(RWKVConfig(n_layer=2, n_embd=64), seed=0,
+                                      pad_multiple=None))
+    teng = RWKV(path, device="cpu")
+    teng.forward([510, 4062, 8516, 30013, 27287, 689, 253])
+    sess = str(tmp_path / "sess.npz")
+    teng.save_state(sess)
+    with np.load(sess) as z:
+        assert z["logits"].shape == (50688,)
+        assert (z["logits"][50277:] < -1e8).all()
+    want = _greedy(teng, 6, lambda t: t.numpy())
+
+    jeng = JRWKV(path)
+    jeng.load_tokenizer()
+    jeng.load_state(sess)
+    assert _greedy(jeng, 6, np.asarray) == want
+    jeng.load_state(sess)
+    assert isinstance(jeng.generate("", max_tokens=4, seed=1), str)
