@@ -144,6 +144,25 @@ Phases, in order; any failure raises and exits non-zero:
               (--stories 1 --max-tokens 32) and vectordb (--batch-index
               --bf16-prefill) through their main(argv).
 
+ 16. convert  a dense RWKV-4 430M checkpoint (BlinkDL names, bf16, from the
+              port's init_params on a seeded generator) written as .pth and
+              converted by `python -m rwkv_tpu_torch.io.convert` (its main) in
+              a child process, to a q8 .bin and to a q4 artifact: seconds,
+              input MB/s and the child's peak RSS (wait4, and sampled from
+              /proc every 10 ms) beside the .pth's size and beside a child
+              that only imports the converter; read_bin of the .bin equal to load_checkpoint_quantized of
+              the .pth, leaf for leaf; RWKV on each answers 3 requests graphed
+              (K1 + K2, then K4 + K3, one stack launch per decoded step; no
+              plain version called) with its logits against the plain model;
+              TorchRWKV over the .bin: 16 forward calls on K1 + K2 against the
+              plain model, the state passed in unchanged, forward_batch (B=4)
+              against single streams, its state in RWKV.set_state giving the
+              engine's greedy ids; sample_logits (top_p 0.9, temp 0.7) over
+              [8, 50688] engine logits: the CPU's kept set, the same draws
+              from the same seed; the native tokenizer built with g++ (build
+              seconds), README.md's ids and every id's bytes equal to the
+              Python BPE's, encode tokens/s of both (host figures).
+
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs CUDA: with no GPU, or outside a checkout of the repo, it exits
@@ -1658,6 +1677,287 @@ def main() -> int:
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s")
     bin_dir.cleanup()
 
+    # ------------------------------------------------------------------ 16
+    print("phase 16 convert: a 430M bf16 .pth -> q8 .bin and q4 artifact, both served; "
+          "TorchRWKV, the native tokenizer, sample_logits")
+    t16 = time.perf_counter()
+    import shutil
+
+    from rwkv_tpu_torch.interop.torch import TorchRWKV
+    from rwkv_tpu_torch.io.binfmt import read_bin
+    from rwkv_tpu_torch.io.convert import load_checkpoint_quantized
+    from rwkv_tpu_torch.models.rwkv4 import init_params
+    from rwkv_tpu_torch.ops.sampling import nucleus_logits, sample_logits
+    from rwkv_tpu_torch.tokenizer import assets as tok_assets
+    from rwkv_tpu_torch.tokenizer import native as tok_native
+    from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer
+
+    conv_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    pth = os.path.join(conv_dir.name, "rwkv4-430m-random-bf16.pth")
+    conv_bin = os.path.join(conv_dir.name, "rwkv4-430m-random.bin")
+    conv_q4 = os.path.join(conv_dir.name, "rwkv4-430m-random.q4.safetensors")
+
+    # 1. a dense bf16 checkpoint with BlinkDL names, as RWKV-4 checkpoints ship
+    t0 = time.perf_counter()
+    dense = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), torch.bfloat16)
+
+    def host(t):  # one storage a tensor, [out, in] weights contiguous
+        return t.contiguous().cpu()
+
+    sd = {"emb.weight": host(dense.emb), "head.weight": host(dense.head.t()),
+          "ln_out.weight": host(dense.ln_out.weight), "ln_out.bias": host(dense.ln_out.bias),
+          "blocks.0.ln0.weight": host(dense.ln0.weight),
+          "blocks.0.ln0.bias": host(dense.ln0.bias)}
+    for i in range(L):
+        b = f"blocks.{i}."
+        for n in ("ln1", "ln2"):
+            sd[b + n + ".weight"] = host(getattr(dense, n).weight[i])
+            sd[b + n + ".bias"] = host(getattr(dense, n).bias[i])
+        for half, mixes in (("att", "kvr"), ("ffn", "kr")):
+            for m in mixes:
+                sd[b + f"{half}.time_mix_{m}"] = host(
+                    getattr(getattr(dense, half), f"mix_{m}")[i].reshape(1, 1, E))
+        sd[b + "att.time_decay"] = host(torch.log(-dense.att.decay[i].float()).bfloat16())
+        sd[b + "att.time_first"] = host(dense.att.bonus[i])
+        for m in ("key", "value", "receptance", "output"):
+            sd[b + f"att.{m}.weight"] = host(getattr(dense.att, m)[i].t())
+        for m in ("key", "value", "receptance"):
+            sd[b + f"ffn.{m}.weight"] = host(getattr(dense.ffn, m)[i].t())
+    del dense
+    torch.save(sd, pth)
+    del sd
+    pth_mb = os.path.getsize(pth) / 1e6
+    print(f"  wrote {pth_mb:.0f} MB bf16 .pth (init_params on a seeded generator, L={L} E={E} "
+          f"F={F} V={cfg.vocab_size}) in {time.perf_counter() - t0:.1f} s")
+
+    def child(argv):
+        """python argv in a child process: (seconds, the child's peak RSS in MB
+        from wait4, its largest RSS in MB sampled every 10 ms from /proc)."""
+        import threading
+
+        log = os.path.join(conv_dir.name, "child.log")
+        sampled, stop = [0], threading.Event()
+
+        def sample(pid):
+            while not stop.is_set():
+                try:
+                    with open(f"/proc/{pid}/status") as f:
+                        for line in f:
+                            if line.startswith("VmRSS:"):
+                                sampled[0] = max(sampled[0], int(line.split()[1]))
+                except OSError:
+                    pass
+                stop.wait(0.01)
+
+        t0 = time.perf_counter()
+        with open(log, "w") as out:
+            proc = subprocess.Popen([sys.executable, *argv], cwd=HERE, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            poller = threading.Thread(target=sample, args=(proc.pid,))
+            poller.start()
+            _, status, ru = os.wait4(proc.pid, 0)
+            stop.set()
+            poller.join()
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        secs = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        require(proc.returncode == 0, f"python {argv}: exit {proc.returncode}\n{text[-2000:]}")
+        return secs, ru.ru_maxrss / 1024, sampled[0] / 1024
+
+    def convert_cli(argv):  # the converter's main(argv), as its command line runs it
+        return child(["-m", "rwkv_tpu_torch.io.convert", *argv])
+
+    import_s, import_rss, import_seen = child(["-c", "import rwkv_tpu_torch.io.convert"])
+
+    # 2. convert to q8, and read the .bin back against the checkpoint quantized in memory
+    secs, rss, seen = convert_cli([pth, "-o", conv_bin])
+    print(f"  convert .pth -> q8 .bin ({os.path.getsize(conv_bin) / 1e6:.0f} MB): {secs:.1f} s "
+          f"in a child process, {pth_mb / secs:.0f} MB/s of input; peak RSS (wait4) {rss:.0f} "
+          f"MB, the largest sampled every 10 ms {seen:.0f} MB, beside the .pth's {pth_mb:.0f} "
+          f"MB; a child that only imports the converter: {import_s:.1f} s, {import_rss:.0f} MB "
+          f"(wait4), {import_seen:.0f} MB sampled (host figures) {card}")
+    t0 = time.perf_counter()
+    got = read_bin(conv_bin, "cpu", signed=True)
+    want = signedize_params(load_checkpoint_quantized(pth, 8))
+    got_l, want_l = [], []
+    map_params(got, got_l.append)
+    map_params(want, want_l.append)
+    require(len(got_l) == len(want_l) == 40, f"{len(got_l)} vs {len(want_l)} leaves")
+    for a, w_ in zip(got_l, want_l):
+        w_ = torch.as_tensor(np.asarray(w_))
+        require(a.dtype == w_.dtype and torch.equal(a, w_),
+                f"read_bin(.bin) != load_checkpoint_quantized(.pth, 8) on a {tuple(a.shape)} "
+                f"{a.dtype} leaf")
+    del got, want, got_l, want_l
+    print(f"  read_bin(.bin, signed) == load_checkpoint_quantized(.pth, 8) signed: every code, "
+          f"scale, offset and vector, 40 leaves ({time.perf_counter() - t0:.1f} s)")
+
+    for m, n in plains:  # no plain kernel version may run on the main path
+        setattr(m, n, counting(getattr(m, n)))
+    plain_calls["n"] = 0
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    c16 = {}
+
+    def counts16():
+        now = {n: getattr(mod, a) for n, (mod, a) in zip(COUNTER_NAMES, counters)}
+        delta = {n: now[n] - c16.get(n, 0) for n in now}
+        c16.update(now)
+        return delta
+
+    # 3. serve the q8 .bin
+    t0 = time.perf_counter()
+    eng16 = RWKV(conv_bin)
+    eng16.load_tokenizer()
+    require(eng16.device.type == "cuda" and eng16.quant == "q8", "the .bin did not load as q8")
+    require(isinstance(eng16.tokenizer, tok_native.NativeBPETokenizer),
+            f"RWKV.load_tokenizer() gave {type(eng16.tokenizer).__name__}, not the native one")
+    texts = answer(eng16, 32, show=True)
+    d = counts16()
+    steps16 = len(prompts) * 31
+    require(d["K1"] == per_step * steps16 and d["K2"] > 0 and d["K3"] == d["K4"] == 0,
+            f"the converted .bin's requests: launches {d}")
+    print(f"  RWKV(.bin) served 3 requests (32 new tokens each, graphed) in "
+          f"{time.perf_counter() - t0:.1f} s with the load: launches K1 {d['K1']} (one per "
+          f"decoded step), K2 {d['K2']}; {texts[0][:40]!r}")
+    check_engine_logits(eng16, cfg.vocab_size)
+    counts16()
+
+    # 4. convert to q4 and serve the artifact
+    secs4, rss4, seen4 = convert_cli([pth, "--quant", "q4", "-o", conv_q4])
+    print(f"  convert .pth --quant q4 -> {os.path.getsize(conv_q4) / 1e6:.0f} MB artifact: "
+          f"{secs4:.1f} s, {pth_mb / secs4:.0f} MB/s of input; peak RSS (wait4) {rss4:.0f} MB, "
+          f"sampled {seen4:.0f} MB (host figures) {card}")
+    eng4 = RWKV(conv_q4)
+    eng4.load_tokenizer()
+    require(eng4.quant == "q4" and isinstance(eng4.params.att.key, Quant4Linear),
+            "the q4 artifact did not load as q4")
+    texts4 = answer(eng4, 32)
+    d = counts16()
+    require(d["K4"] == per_step * steps16 and d["K3"] > 0 and d["K1"] == d["K2"] == 0,
+            f"the converted q4 artifact's requests: launches {d}")
+    print(f"  RWKV(q4 artifact) served 3 requests: launches K4 {d['K4']}, K3 {d['K3']}; "
+          f"{texts4[0][:40]!r}")
+    check_engine_logits(eng4, cfg.vocab_size)
+    counts16()
+    del eng4
+
+    # 5. TorchRWKV over the converted .bin
+    wrap = TorchRWKV(conv_bin)
+    toks16 = eng16.tokenizer.encode(prompts[0] + " " + prompts[1])[:16]
+    require(len(toks16) == 16, f"{len(toks16)} prompt tokens")
+    state = wrap.empty_state()
+    worst = 0.0
+    for tok in toks16:
+        kept = [s.clone() for s in state]
+        logits_w, new = wrap.forward(tok, state)
+        ref, _ = forward_step(wrap._eng.params, torch.tensor(tok, device=dev), WKVState(*state))
+        torch.cuda.synchronize()
+        require(logits_w.shape == (Vp,) and logits_w.device.type == "cuda",
+                f"TorchRWKV logits {tuple(logits_w.shape)} on {logits_w.device}")
+        require(all(torch.equal(a, b) for a, b in zip(state, kept)),
+                "TorchRWKV.forward wrote the state passed in")
+        serr = scaled_err(logits_w[:cfg.vocab_size], ref[:cfg.vocab_size])[1]
+        require(serr <= DECODE_TOL, f"TorchRWKV logits vs plain: scaled error {serr:.3e}")
+        worst = max(worst, serr)
+        state = new
+    d = counts16()
+    require(d["K1"] == 16 and d["K2"] == 16, f"TorchRWKV's 16 forward calls: launches {d}")
+    fwd_ms = cuda_ms(lambda: wrap.forward(toks16[0], state), 16)
+    counts16()
+    batch_toks = torch.tensor(toks16[:4], device=dev)
+    lb, sb = wrap.forward_batch(batch_toks, [torch.stack([s] * 4, dim=1) for s in state])
+    berr = 0.0
+    for b in range(4):
+        lr, sr = wrap.forward(toks16[b], state)
+        berr = max([berr, scaled_err(lb[b], lr)[1]]
+                   + [scaled_err(x[:, b], y)[1] for x, y in zip(sb, sr)])
+    require(berr <= DECODE_TOL, f"forward_batch(B=4) vs four single streams: {berr:.3e}")
+    # the state it returns, in an engine, decodes as an engine fed the same tokens
+    nxt = int(logits_w[:cfg.vocab_size].argmax())
+
+    def greedy16(first):
+        ids = [first]
+        for _ in range(15):
+            ids.append(int(eng16.forward(ids[-1])[:cfg.vocab_size].argmax()))
+        return ids
+
+    eng16.reset_state()
+    eng16.set_state(WKVState(*state))
+    ids_w = greedy16(nxt)
+    eng16.reset_state()
+    for tok in toks16:
+        lg = eng16.forward(tok)
+    ids_e = greedy16(int(lg.argmax()))
+    require(ids_w == ids_e, f"greedy ids from TorchRWKV's state {ids_w} != the engine's {ids_e}")
+    d = counts16()
+    print(f"  TorchRWKV(.bin): 16 forward calls on K1 + K2 (16 launches each), logits within "
+          f"{worst:.1e} scaled of the plain model, the input state unchanged, {fwd_ms:.3f} ms "
+          f"a call back to back {card}; forward_batch(B=4) "
+          f"within {berr:.1e} of four single streams; its state in RWKV.set_state gives the "
+          f"engine's 16 greedy ids")
+
+    # 6. sample_logits on the card over [8, Vp] engine logits
+    lg8, _ = wrap.forward_batch(torch.tensor(toks16[:8], device=dev),
+                                [torch.stack([s] * 8, dim=1) for s in state])
+    counts16()
+    require(lg8.shape == (8, Vp), f"engine logits {tuple(lg8.shape)}")
+    kept_dev = torch.isfinite(nucleus_logits(lg8, temp=0.7, top_p=0.9)).cpu()
+    kept_cpu = torch.isfinite(nucleus_logits(lg8.cpu(), temp=0.7, top_p=0.9))
+    require(torch.equal(kept_dev, kept_cpu), "sample_logits' kept set on the card != on the CPU")
+    draws = [sample_logits(lg8, torch.Generator(device=dev).manual_seed(args.seed),
+                           temp=0.7, top_p=0.9).cpu() for _ in range(2)]
+    require(torch.equal(draws[0], draws[1]), "the same seed drew different ids")
+    require(bool(kept_cpu[torch.arange(8), draws[0]].all()), "a draw outside the kept set")
+    gen_s = torch.Generator(device=dev).manual_seed(args.seed)
+    s_ms = cuda_ms(lambda: sample_logits(lg8, gen_s, temp=0.7, top_p=0.9), 20)
+    print(f"  sample_logits(top_p 0.9, temp 0.7) over [8, {Vp}] engine logits: kept "
+          f"{kept_cpu.sum(-1).tolist()} tokens a row, as on the CPU; the same seed draws the "
+          f"same ids {draws[0].tolist()}; {s_ms:.4f} ms a call, eager {card}")
+    require(plain_calls["n"] == 0, f"a plain version ran {plain_calls['n']} times on the card")
+    for (m, n), f in zip(plains, saved_plains):
+        setattr(m, n, f)
+    convert_launches = {n: v for n, v in c16.items()}
+    del wrap, eng16
+
+    # 7. the native tokenizer, built here from csrc/tokenizer.cpp into a fresh directory
+    build_dir = tok_native.BUILD_DIR
+    tok_native.BUILD_DIR = _build.BUILD_DIR / "tok16"
+    shutil.rmtree(tok_native.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    so = tok_native.build()
+    build_s = time.perf_counter() - t0
+    tok_native.BUILD_DIR = build_dir
+    vocab16 = tok_assets.ensure_files(os.path.join(conv_dir.name, "vocab"))
+    ntok = tok_native.NativeBPETokenizer(so, os.path.join(vocab16, "vocab.json"),
+                                         os.path.join(vocab16, "merges.txt"))
+    ptok = BPETokenizer.load()
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        readme_text = f.read()
+    ids_n = ntok.encode(readme_text)
+    require(ids_n == ptok.encode(readme_text), "native and Python encode differ on README.md")
+    bad = [i for i in range(cfg.vocab_size) if ntok.decode_bytes([i]) != ptok.decode_bytes([i])]
+    require(not bad, f"native decode differs from the Python one on ids {bad[:10]}")
+    rates = {}  # README.md's tokens/s on a fresh tokenizer: the first pass, then 3 more
+    for name, tk in (("native", tok_native.NativeBPETokenizer(
+            so, os.path.join(vocab16, "vocab.json"), os.path.join(vocab16, "merges.txt"))),
+            ("Python", BPETokenizer.load())):
+        t0 = time.perf_counter()
+        tk.encode(readme_text)
+        t1 = time.perf_counter()
+        for _ in range(3):
+            tk.encode(readme_text)
+        rates[name] = (len(ids_n) / (t1 - t0), 3 * len(ids_n) / (time.perf_counter() - t1))
+    print(f"  native tokenizer: g++ build {build_s:.1f} s; README.md {len(ids_n)} ids equal to "
+          f"the Python BPE's; all {cfg.vocab_size} ids decode to its bytes; encode tokens/s "
+          f"(first pass, then with the merge cache filled): "
+          + ", ".join(f"{n} {a:.0f}, {b:.0f}" for n, (a, b) in rates.items())
+          + " (host figures); RWKV.load_tokenizer() gave the native one")
+    conv_dir.cleanup()
+    print(f"  phase 16: {time.perf_counter() - t16:.1f} s; launches on its main path (q8 and "
+          f"q4 serving, TorchRWKV) {convert_launches}")
+
     kernels = [
         {"name": "decode_stack", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k1_launches,
@@ -1742,8 +2042,9 @@ def main() -> int:
     counter_of = {"decode_stack": "K1", "mm8": "K2", "mm4": "K3", "decode_stack_q4": "K4",
                   "mm8_a8": "K5 head", "decode_stack_a8": "K5 stack", "att_half": "K6 att",
                   "ffn_half": "K6 ffn", "decode_stack_tp": "K7", "decode_stack_tp_q4": "K7 q4"}
-    for k in kernels:  # the pooled server's run (phase 15), counted from 0 as the main path's
+    for k in kernels:  # phases 15 and 16's runs, each counted from 0 as the main path's
         k["launches_apps"] = apps_launches[counter_of[k["name"]]]
+        k["launches_convert"] = convert_launches[counter_of[k["name"]]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,6 +7,8 @@ device="cpu"; on the CPU every hand-written kernel's wrapper takes the
 kernel's plain PyTorch version.
 """
 
+from rwkv_tpu_torch.version import __version__
+
 from rwkv_tpu_torch.models.config import RWKVConfig
 from rwkv_tpu_torch.models.rwkv4 import (
     RWKVParams,
@@ -17,6 +19,7 @@ from rwkv_tpu_torch.models.rwkv4 import (
 )
 
 __all__ = [
+    "__version__",
     "RWKVConfig",
     "RWKVParams",
     "WKVState",

@@ -4,7 +4,9 @@ Format: two little-endian int64 (n_layer, n_embd), then the 46 registry
 tensors raw, in order (io/registry.py). Reading streams: each tensor is
 memory-mapped, copied out once, its mapping closed, and the copy moved to
 the device before the next tensor is touched, so host memory holds about
-one tensor at a time.
+one tensor at a time. Writing: `write_bin` from params in memory,
+`write_bin_streaming` from a provider of one tensor at a time (the
+converter, io/convert.py).
 """
 
 from __future__ import annotations
@@ -210,3 +212,22 @@ def write_bin(path: str, params: RWKVParams) -> None:
             if tuple(arr.shape) != tuple(expected):
                 raise ValueError(f"{spec.name}: shape {arr.shape} != {expected}")
             f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def write_bin_streaming(path: str, n_layer: int, n_embd: int, get) -> None:
+    """Write a .bin one tensor at a time: `get(spec)` returns the array for
+    each REGISTRY entry in file order (io/registry.py), which is checked
+    against the spec's shape and cast to its dtype, written, and dropped
+    before the next is asked for: the writer holds one tensor at a time,
+    beside whatever the provider keeps."""
+    a, b = n_layer, n_embd
+    with open(path, "wb") as f:
+        f.write(np.asarray([a, b], dtype="<i8").tobytes())
+        for spec in REGISTRY:
+            dt = "u1" if spec.dtype == "u1" else "<" + spec.dtype
+            arr = np.ascontiguousarray(np.asarray(get(spec)), dtype=dt)
+            expected = spec.shape(a, b)
+            if tuple(arr.shape) != tuple(expected):
+                raise ValueError(f"{spec.name}: shape {arr.shape} != {expected}")
+            f.write(arr.tobytes())
+            del arr

@@ -444,6 +444,52 @@ def quantize_params_q4(params: RWKVParams, tile: int | None = None) -> RWKVParam
     return _map_families(params, q)
 
 
+def init_params(config: RWKVConfig, generator: torch.Generator,
+                dtype=torch.float32) -> RWKVParams:
+    """Random dense params (tests, benches, a stand-in checkpoint): the JAX
+    init_params' shapes, scales and ranges (weights N(0, 1/sqrt(in)), emb
+    N(0, 0.1), mixes U(0.1, 0.9), decay -exp(N(0, 1)), bonus N(0, 0.5),
+    unit layer norms), drawn from `generator` on its device in that order.
+    The draws are not jax.random's: tests carry JAX params over with
+    tests/_torch_port.py::to_port."""
+    E, L, V, F = config.n_embd, config.n_layer, config.vocab_size, config.n_ffn
+    dev = generator.device
+
+    def mat(shape, scale):
+        return (torch.randn(shape, generator=generator, device=dev) * scale).to(dtype)
+
+    def mix(shape):
+        u = torch.rand(shape, generator=generator, device=dev)
+        return (0.1 + 0.8 * u).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return RWKVParams(
+        emb=mat((V, E), 0.1),
+        ln0=LNParams(ones(E), zeros(E)),
+        ln1=LNParams(ones(L, E), zeros(L, E)),
+        ln2=LNParams(ones(L, E), zeros(L, E)),
+        att=AttParams(
+            mix_k=mix((L, E)), mix_v=mix((L, E)), mix_r=mix((L, E)),
+            key=mat((L, E, E), E ** -0.5), value=mat((L, E, E), E ** -0.5),
+            receptance=mat((L, E, E), E ** -0.5), output=mat((L, E, E), E ** -0.5),
+            decay=-torch.exp(mat((L, E), 1.0)),
+            bonus=mat((L, E), 0.5),
+        ),
+        ffn=FFNParams(
+            mix_k=mix((L, E)), mix_r=mix((L, E)),
+            key=mat((L, E, F), E ** -0.5), value=mat((L, F, E), F ** -0.5),
+            receptance=mat((L, E, E), E ** -0.5),
+        ),
+        ln_out=LNParams(ones(E), zeros(E)),
+        head=mat((E, V), E ** -0.5),
+    )
+
+
 def random_quantized_params_np(cfg: RWKVConfig, seed: int = 0,
                                pad_multiple: int | None = 512, *,
                                q4: bool = False, q4_block: int | None = None) -> RWKVParams:

@@ -87,6 +87,17 @@ def quantize(w) -> QuantLinear:
     return QuantLinear(w=qu8, scale=r.astype(np.float32), offset=o.astype(np.float32))
 
 
+def dequantize(q: QuantLinear, dtype=torch.float32) -> torch.Tensor:
+    """The dense weight Q * scale + offset (tests and debugging; numpy or
+    tensor leaves). On u8 codes it is the JAX dequantize bit for bit; on
+    int8 codes, (Q - 128) * scale + (offset + 128 * scale), the same weight
+    up to the float32 rounding of the folded offset."""
+    w = torch.as_tensor(q.w)
+    scale, offset = torch.as_tensor(q.scale), torch.as_tensor(q.offset)
+    return (w.to(dtype) * scale[..., None].to(dtype)
+            + offset[..., None].to(dtype))
+
+
 @dataclasses.dataclass
 class Quant4Linear:
     """y = x @ dequant4(wp), 4-bit codes, two per byte.

@@ -21,6 +21,9 @@ buffers at every replay (runtime/graphs.py); and it draws the ids the float
 path draws: tau is compared in float32 as a float is, and a float64 temp
 gives the exponent 1 / temp that torch.pow takes from a Python float,
 special cases included (_temper).
+
+`sample_logits` is the JAX package's nucleus and temperature sampler, its
+draw taken the same way from an explicit generator.
 """
 
 from __future__ import annotations
@@ -65,9 +68,51 @@ def typical(logits: torch.Tensor, generator: torch.Generator | Sequence[torch.Ge
     elif temp != 1.0:
         kept = torch.pow(kept, 1.0 / temp)
 
-    # categorical draw by the Gumbel-max trick over log-weights
     logw = torch.where(kept > 0, torch.log(kept),
                        torch.full_like(kept, float("-inf")))
+    return _draw(logw, generator)
+
+
+def nucleus_logits(logits: torch.Tensor, *, temp: float = 1.0,
+                   top_p: float = 1.0) -> torch.Tensor:
+    """The float32 log-weights sample_logits draws from: -inf outside the
+    nucleus, the rest divided by the temperature (clamped at 1e-6).
+
+    top_p < 1 keeps the tokens whose probability is at least the smallest
+    one inside the nucleus: sorted descending, a token is inside while the
+    mass before it (cum - p) is below top_p, so the most likely token is
+    always kept and ties at the edge are all kept. The rule runs in float64
+    (the JAX function: float32): over a 50,688-token vocab a float32 cumsum
+    is off by far more than one token's mass near the edge, in an order
+    that differs between the card and the CPU, so the kept set would depend
+    on the device; in float64 it does not."""
+    logits = logits.float()
+    if top_p < 1.0:
+        probs = torch.softmax(logits.double(), dim=-1)
+        sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+        cum = torch.cumsum(sorted_probs, dim=-1)
+        inside = cum - sorted_probs < top_p
+        pmin = torch.where(inside, sorted_probs, torch.full_like(sorted_probs, float("inf"))
+                           ).amin(dim=-1, keepdim=True)
+        logits = torch.where(probs >= pmin, logits, torch.full_like(logits, float("-inf")))
+    if temp != 1.0:
+        logits = logits / max(temp, 1e-6)
+    return logits
+
+
+def sample_logits(logits: torch.Tensor,
+                  generator: torch.Generator | Sequence[torch.Generator], *,
+                  temp: float = 1.0, top_p: float = 1.0) -> torch.Tensor:
+    """Nucleus (top-p) and temperature sampling, the JAX sample_logits: a
+    draw from nucleus_logits. logits: [..., V]; generator as for typical.
+    Returns int64 ids [...]."""
+    return _draw(nucleus_logits(logits, temp=temp, top_p=top_p), generator)
+
+
+def _draw(logw: torch.Tensor, generator) -> torch.Tensor:
+    """A categorical draw over unnormalized log-weights [..., V] (-inf: never
+    drawn) by the Gumbel-max trick, its noise from `generator` (or one
+    generator per row of a [B, V] batch)."""
     if isinstance(generator, torch.Generator):
         u = torch.rand(logw.shape, generator=generator, device=logw.device)
     else:

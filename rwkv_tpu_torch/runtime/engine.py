@@ -81,6 +81,7 @@ from rwkv_tpu_torch.parallel.sharding import (
 )
 from rwkv_tpu_torch.parallel.tp_step import make_engine_prefill, make_engine_step
 from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
+from rwkv_tpu_torch.tokenizer import native as native_tok
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
 from rwkv_tpu_torch.utils.text import StopScanner
@@ -159,7 +160,7 @@ class RWKV:
         self.quant = quant
         self.params: Optional[RWKVParams] = None
         self.config: Optional[RWKVConfig] = None
-        self.tokenizer: Optional[BPETokenizer] = None
+        self.tokenizer = None  # BPETokenizer or NativeBPETokenizer
         self.max_streams = max_streams
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self._state: Optional[WKVState] = None  # leaves [L, max_streams, E]
@@ -302,9 +303,19 @@ class RWKV:
             self._true_vocab = self.config.vocab_size
         self.reset_state()
 
-    def load_tokenizer(self, vocab_dir: Optional[str] = None) -> None:
-        """The BPE tokenizer; vocab_dir=None uses the bundled 50,277-entry vocab."""
-        self.tokenizer = BPETokenizer.load(vocab_dir)
+    def load_tokenizer(self, vocab_dir: Optional[str] = None,
+                       native: Optional[bool] = None) -> None:
+        """The BPE tokenizer; vocab_dir=None uses the bundled 50,277-entry
+        vocab. native=None prefers the C++ tokenizer (tokenizer/native.py,
+        built at first use) and takes the Python one if it cannot be built or
+        loaded; False takes the Python one; True the C++ one, raising if it
+        cannot be built or loaded. Both give the same ids and bytes."""
+        if native is False:
+            self.tokenizer = BPETokenizer.load(vocab_dir)
+        elif native is None:
+            self.tokenizer = native_tok.load_best(vocab_dir)
+        else:
+            self.tokenizer = native_tok.NativeBPETokenizer.load(vocab_dir)
 
     loadTokenizer = load_tokenizer
 

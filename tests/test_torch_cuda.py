@@ -1181,3 +1181,73 @@ def test_mock_pooled_server_on_the_card(dev):
     assert sorted(results) == [0, 1, 2, 3]
     assert all(code == 200 and body["tokens"] >= 1 for code, body in results.values())
     assert ds_mod.launches > before[0] and mm8_mod.launches > before[1]
+
+
+def test_torch_rwkv_on_the_card_matches_plain(dev):
+    """TorchRWKV on the card: each forward one launch of K1 and one of K2,
+    the logits against the plain model on the loaded weights; the state
+    passed in left as it was; forward_batch rows equal to single streams."""
+    from rwkv_tpu_torch.interop.torch import TorchRWKV
+
+    cfg = RWKVConfig(n_layer=2, n_embd=256, vocab_size=1000)
+    w = TorchRWKV(params=random_quantized_params_np(cfg, seed=8, pad_multiple=None))
+    assert w.device.type == "cuda"
+    params = w._eng.params
+    state = w.empty_state()
+    for tok in (5, 999, 0, 17):
+        kept = [s.clone() for s in state]
+        before = (ds_mod.launches, mm8_mod.launches)
+        logits, new = w.forward(tok, state)
+        assert (ds_mod.launches, mm8_mod.launches) == (before[0] + 1, before[1] + 1)
+        ref, ref_state = forward_step(params, torch.tensor(tok, device=dev), WKVState(*state))
+        assert logits.shape == (1024,) and logits.device.type == "cuda"
+        assert _scaled(logits, ref[:1024]) <= 1e-4
+        for a, b in zip(new, ref_state):
+            assert _scaled(a, b) <= 1e-4
+        assert all(torch.equal(a, b) for a, b in zip(state, kept))
+        state = new
+    toks = torch.tensor([3, 500, 999])
+    batch = [torch.stack([s] * 3, dim=1) for s in state]
+    lb, sb = w.forward_batch(toks, batch)
+    for b in range(3):
+        lr, sr = w.forward(int(toks[b]), state)
+        assert _scaled(lb[b], lr) <= 1e-4
+        for a, c in zip(sb, sr):
+            assert _scaled(a[:, b], c) <= 1e-4
+
+
+def test_sample_logits_on_the_card(dev):
+    """sample_logits on the card: the kept set of its CPU plain computation
+    on the same logits, the same draws from the same seed, every draw kept."""
+    from rwkv_tpu_torch.ops.sampling import nucleus_logits, sample_logits
+
+    rng = np.random.default_rng(6)
+    host = torch.from_numpy((rng.normal(size=(8, 50688)) * 3).astype(np.float32))
+    logits = host.to(dev)
+    for temp, top_p in ((0.7, 0.9), (1.0, 0.5), (2.0, 1.0)):
+        kept = torch.isfinite(nucleus_logits(logits, temp=temp, top_p=top_p)).cpu()
+        assert torch.equal(kept, torch.isfinite(nucleus_logits(host, temp=temp, top_p=top_p)))
+        draws = [sample_logits(logits, torch.Generator(device=dev).manual_seed(9),
+                               temp=temp, top_p=top_p).cpu() for _ in range(2)]
+        assert torch.equal(draws[0], draws[1])
+        assert bool(kept[torch.arange(8), draws[0]].all())
+
+
+def test_native_tokenizer_builds_on_the_card_machine(dev, tmp_path, monkeypatch):
+    """The C++ tokenizer compiles on the GPU machine and matches the Python
+    one: README.md's ids, the added tokens' bytes."""
+    import os
+
+    from rwkv_tpu_torch.tokenizer import assets, native
+    from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    tok = native.NativeBPETokenizer.load(assets.ensure_files(str(tmp_path / "vocab")))
+    py = BPETokenizer.load()
+    readme = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "README.md")
+    with open(readme, encoding="utf-8") as f:
+        text = f.read()
+    assert tok.encode(text) == py.encode(text)
+    assert [tok.decode_bytes([i]) for i in range(50254, 50277)] == \
+        [py.decode_bytes([i]) for i in range(50254, 50277)]
