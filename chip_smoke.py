@@ -162,6 +162,24 @@ Phases, in order; any failure raises and exits non-zero:
               from the same seed; the native tokenizer built with g++ (build
               seconds), README.md's ids and every id's bytes equal to the
               Python BPE's, encode tokens/s of both (host figures).
+ 17. pod      multi-process serving (parallel/multihost.py) on the one card:
+              the single-process unsharded step (K1 + K2) gives the logits of
+              4 streams of the phase-4 .bin from init_state, then of 3 steps
+              fed its greedy ids; two child processes
+              (rwkv_tpu_torch/tools/pod_worker.py, gloo: NCCL refuses two
+              ranks on one device) join through initialize(), build
+              pod_mesh(model=1) = {"data": 2, "model": 1}, read the .bin
+              through make_put, check a psum over data (1 + 2 = 3), run the
+              tensor-parallel step on their 2 of the 4 streams with body
+              "fused" (K7) and "halves" (K6 + K2, replayed from its graph),
+              fed the reference's ids (scaled error <= 3e-4 each step), 3
+              sampled steps fed per process (a CUDA generator per stream),
+              the ids joined and a checksum process_allgather'ed; their
+              launches counted from 0, ms/step of each body with both
+              processes timing at once and with each alone while the other
+              waits at a barrier (a correctness run, not a scaling figure);
+              then one process on NCCL at world
+              size 1 (psum, allgather of CUDA tensors, the fused step).
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1675,7 +1693,6 @@ def main() -> int:
     for (m, n), f in zip(plains, saved_plains):
         setattr(m, n, f)
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s")
-    bin_dir.cleanup()
 
     # ------------------------------------------------------------------ 16
     print("phase 16 convert: a 430M bf16 .pth -> q8 .bin and q4 artifact, both served; "
@@ -1958,6 +1975,123 @@ def main() -> int:
     print(f"  phase 16: {time.perf_counter() - t16:.1f} s; launches on its main path (q8 and "
           f"q4 serving, TorchRWKV) {convert_launches}")
 
+    # ------------------------------------------------------------------ 17
+    print("phase 17 multi-process serving: two gloo processes on the one card, "
+          "pod_mesh(model=1) with the data axis across them, bodies fused (K7) and halves "
+          "(K6 + K2) on the phase-4 .bin; then an NCCL process at world size 1")
+    t17 = time.perf_counter()
+    from rwkv_tpu_torch.tools import pod_worker
+
+    pod_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    ref_npz = os.path.join(pod_dir.name, "ref.npz")
+    # the reference: the single-process unsharded step (K1 + K2) on 4 streams
+    # from init_state, then 3 steps fed its greedy ids
+    pod_steps = pod_worker.write_reference(bin_path, ref_npz, dev).shape[0] + 3  # + 3 sampled
+    torch.cuda.empty_cache()
+
+    def pod_children(n, backend, bodies):
+        """n pod_worker processes (tools/pod_worker.py) on cuda:0 joined over
+        `backend` at a free port; returns each one's JSON record once all
+        exited 0 with their OK lines."""
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE",
+                                                                 "RANK")}
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rwkv_tpu_torch.tools.pod_worker", "--params", bin_path,
+             "--ref", ref_npz, "--coordinator", f"127.0.0.1:{port}", "--processes", str(n),
+             "--process-id", str(i), "--backend", backend, "--devices", "cuda:0",
+             "--model", "1", "--bodies", *bodies, "--time-steps", "20", "--timeout", "60"],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        recs = []
+        for i, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0 and f"POD_WORKER_OK {i}" in out,
+                    f"{backend} pod worker {i} of {n} exited {p.returncode}:\n{out[-4000:]}")
+            recs.append(json.loads(next(ln for ln in out.splitlines() if ln.startswith("{"))))
+        return recs
+
+    # the workers name each counter by its module and attribute
+    worker_key = {cn: f"{m.__name__.rsplit('.', 1)[1]}.{a}"
+                  for cn, (m, a) in zip(COUNTER_NAMES, counters)}
+    per_body = {"fused": {"K7": pod_steps},
+                "halves": {"K6 att": 2 * L * pod_steps, "K6 ffn": 2 * L * pod_steps,
+                           "K2": pod_steps}}
+
+    def check_pod(rec, n, bodies):
+        require(rec["mesh"] == {"data": n, "model": 1} and rec["local_rows"] == 1
+                and rec["first_row"] == rec["process"],
+                f"pod worker {rec['process']}: mesh {rec['mesh']}, local rows "
+                f"{rec['local_rows']}, first row {rec['first_row']}")
+        require(rec["psum"] == [n * (n + 1) / 2],
+                f"pod worker {rec['process']}: psum over data {rec['psum']}")
+        for body in bodies:  # each worker held its logits to pod_worker.TOL itself
+            got = rec["bodies"][body]
+            counts = {cn: got["launches"][worker_key[cn]] for cn in COUNTER_NAMES}
+            want = {cn: per_body[body].get(cn, 0) for cn in COUNTER_NAMES}
+            require(counts == want, f"pod worker {rec['process']} body {body}: launches "
+                    f"{counts}, want {want} ({pod_steps} steps)")
+            require(len(got["checksums"]) == n, f"checksums {got['checksums']}")
+
+    t0 = time.perf_counter()
+    gloo = pod_children(2, "gloo", ["fused", "halves"])
+    gloo_s = time.perf_counter() - t0
+    for rec in gloo:
+        check_pod(rec, 2, ["fused", "halves"])
+    for body in ("fused", "halves"):
+        a, b = (rec["bodies"][body] for rec in gloo)
+        require(a["sampled"] == b["sampled"] and a["checksums"] == b["checksums"],
+                f"body {body}: the two processes gathered different ids or checksums")
+    t0 = time.perf_counter()
+    nccl = pod_children(1, "nccl", ["fused"])
+    nccl_s = time.perf_counter() - t0
+    check_pod(nccl[0], 1, ["fused"])
+    require(nccl[0]["backend"] == "nccl", f"the NCCL worker ran on {nccl[0]['backend']}")
+    pod_launches = {cn: sum(rec["bodies"][b]["launches"][worker_key[cn]] for rec in gloo
+                            for b in ("fused", "halves")) for cn in COUNTER_NAMES}
+    nccl_launches = {cn: nccl[0]["bodies"]["fused"]["launches"][worker_key[cn]]
+                     for cn in COUNTER_NAMES}
+    pod_err = max(rec["bodies"][b]["max_scaled_err"] for rec in gloo + nccl
+                  for b in rec["bodies"])
+    for rec in gloo:
+        print(f"  gloo process {rec['process']} of 2 ({rec['device']}): mesh {rec['mesh']}, "
+              f"row {rec['first_row']}, psum {rec['psum']}, load {rec['load_s']:.1f} s; "
+              + "; ".join(f"{b} max abs err {r['max_abs_err']:.2e} (scaled "
+                          f"{r['max_scaled_err']:.2e}), {r['ms_per_step']:.3f} ms/step "
+                          f"with both timing, {r['ms_per_step_alone']:.3f} alone"
+                          for b, r in rec["bodies"].items())
+              + f" {card}")
+    print(f"  sampled ids of both processes, by body: "
+          f"{ {b: gloo[0]['bodies'][b]['sampled'] for b in ('fused', 'halves')} }; "
+          f"checksums gathered {gloo[0]['bodies']['fused']['checksums']}")
+    r = nccl[0]["bodies"]["fused"]
+    print(f"  nccl process at world size 1: psum {nccl[0]['psum']}, fused max abs err "
+          f"{r['max_abs_err']:.2e} (scaled {r['max_scaled_err']:.2e}), "
+          f"{r['ms_per_step']:.3f} ms/step, checksums "
+          f"{r['checksums']} {card}")
+    print(f"  launches over both gloo processes ({pod_steps} steps a body each): "
+          f"{ {k: v for k, v in pod_launches.items() if v} }; nccl "
+          f"{ {k: v for k, v in nccl_launches.items() if v} }; largest scaled error "
+          f"{pod_err:.2e} <= {pod_worker.TOL}; two processes on one card are a correctness run, not "
+          f"a scaling figure")
+    print(f"  phase 17: {time.perf_counter() - t17:.1f} s (gloo pair {gloo_s:.1f} s, nccl "
+          f"{nccl_s:.1f} s)")
+    pod_dir.cleanup()
+    bin_dir.cleanup()
+
     kernels = [
         {"name": "decode_stack", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k1_launches,
@@ -2042,9 +2176,11 @@ def main() -> int:
     counter_of = {"decode_stack": "K1", "mm8": "K2", "mm4": "K3", "decode_stack_q4": "K4",
                   "mm8_a8": "K5 head", "decode_stack_a8": "K5 stack", "att_half": "K6 att",
                   "ffn_half": "K6 ffn", "decode_stack_tp": "K7", "decode_stack_tp_q4": "K7 q4"}
-    for k in kernels:  # phases 15 and 16's runs, each counted from 0 as the main path's
+    for k in kernels:  # phases 15-17's runs, each counted from 0 as the main path's
         k["launches_apps"] = apps_launches[counter_of[k["name"]]]
         k["launches_convert"] = convert_launches[counter_of[k["name"]]]
+        k["launches_pod"] = pod_launches[counter_of[k["name"]]]
+        k["launches_pod_nccl"] = nccl_launches[counter_of[k["name"]]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

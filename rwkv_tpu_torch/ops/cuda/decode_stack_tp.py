@@ -308,7 +308,7 @@ def _row_device(shards) -> torch.device:
         raise ValueError(
             f"decode_stack_tp runs the shards of a data row on one CUDA device; these lie on "
             f"{[str(dev)] + others}: the exchange across distinct devices waits for a machine "
-            "with two or more GPUs (ROADMAP.md, 'The queue now', item 5)")
+            "with two or more GPUs (ROADMAP.md, queue 1, 'Modules to port', item 5)")
     return dev
 
 

@@ -12,10 +12,10 @@ a virtual mesh: one card runs the four shards' real sharded shapes in turn,
 as the JAX tests run their meshes on virtual CPU devices. On the CPU the tests
 use [torch.device("cpu")] * n.
 
-The design is single-controller, as JAX's shard_map is: one process drives
-every shard, and the mesh owns the two collectives of the tensor-parallel
-schedule (parallel/tp_step.py), each over the model shards of every data row
-at once:
+Within a process the design is single-controller, as JAX's shard_map is:
+the process drives every shard of its rows, and the mesh owns the two
+collectives of the tensor-parallel schedule (parallel/tp_step.py), each over
+the model shards of every local data row at once:
 
   psum(parts)        parts[d][j] summed over j in the fixed order 0..tp-1 on
                      shard 0's device, then placed on each shard's device;
@@ -23,9 +23,18 @@ at once:
 
 It counts them in `collectives`, so tests can pin the 3L + 2 schedule. On
 distinct GPUs these collectives are device-to-device copies issued by the one
-controlling process: correct, but not fast. NCCL collectives, and measuring
-how decode scales across cards, wait for a machine with two or more GPUs
-(ROADMAP.md).
+controlling process: correct, but not fast.
+
+Across processes (parallel/multihost.py: pod_mesh) only the data axis spans
+the process boundary, as in the JAX pod mesh: `shape` is the global
+{"data": rows of every process, "model": tp}, while `devices` holds this
+process's `local_rows` rows, global rows first_row .. first_row +
+local_rows - 1 (which process this is, torch.distributed says:
+multihost.process_index()). A model axis never crosses a process. A mesh
+of one process has local_rows == shape["data"] and first_row == 0. NCCL
+collectives between cards, and measuring how decode scales across cards,
+wait for a machine with two or more GPUs (ROADMAP.md, queue 1, "Modules to
+port", item 5).
 """
 
 from __future__ import annotations
@@ -46,14 +55,25 @@ def canonical(device) -> torch.device:
 
 
 class Mesh:
-    """A [data, model] grid of devices, and its collectives."""
+    """A [data, model] grid of devices, and its collectives.
 
-    def __init__(self, devices: Sequence[Sequence]):
+    devices: this process's [data][model] rows. data: the data rows of every
+    process (default: this process's, a one-process mesh); first_row: the
+    global index of this process's first row."""
+
+    def __init__(self, devices: Sequence[Sequence], *, data: Optional[int] = None,
+                 first_row: int = 0):
         grid = [[canonical(d) for d in row] for row in devices]
         if not grid or not grid[0] or any(len(row) != len(grid[0]) for row in grid):
             raise ValueError("a mesh needs a non-empty rectangular [data][model] grid of devices")
+        data = len(grid) if data is None else data
+        if first_row < 0 or first_row + len(grid) > data:
+            raise ValueError(f"local rows {first_row}..{first_row + len(grid) - 1} lie outside "
+                             f"the mesh's {data} data rows")
         self.devices = grid
-        self.shape = {"data": len(grid), "model": len(grid[0])}
+        self.shape = {"data": data, "model": len(grid[0])}
+        self.local_rows = len(grid)
+        self.first_row = first_row
         self.collectives = {"psum": 0, "all_gather": 0}
 
     @property

@@ -232,9 +232,9 @@ def state_pspecs(n_model: int = 0) -> WKVState:
 
 def shard_state(state: WKVState, mesh: Mesh):
     """A full state ([L, B, E] leaves) cut into a [data][model] grid of
-    WKVStates, each leaf contiguous on its shard's device. B must split
-    evenly over the data rows."""
-    nd, tp = mesh.shape["data"], mesh.shape["model"]
+    WKVStates over this process's rows, each leaf contiguous on its shard's
+    device. B (this process's streams) must split evenly over its data rows."""
+    nd, tp = mesh.local_rows, mesh.shape["model"]
     specs = state_pspecs(n_model=tp)
     cells = [[{} for _ in range(tp)] for _ in range(nd)]
     for name, t, (ddim, mdim) in zip(WKVState._fields, state, specs):

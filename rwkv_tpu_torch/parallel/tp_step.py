@@ -43,6 +43,14 @@ first device): it cuts it into per-shard contiguous pieces for each call and
 joins them after (sharding.shard_state / unshard_state), so the engine and
 the pool keep one state of full tensors.
 
+On a pod mesh (parallel/multihost.py: pod_mesh), whose data axis spans
+processes, the step, the prefill and the engine adapters take and return this
+process's streams only (multihost.local_batch cuts a global batch to them),
+as the JAX pod is fed host-local arrays: B splits over the mesh's local data
+rows. Every collective of the step stays inside the process, on the model
+axis; nothing crosses the process boundary inside a step, so a captured
+CUDA graph never holds a cross-process call.
+
 The "halves" body on a mesh whose every shard names one CUDA device replays
 a CUDA graph of the whole step (runtime/graphs.py): eagerly, the host's work
 a layer (wrapper checks, outputs, collectives) takes longer than the
@@ -86,7 +94,7 @@ BODIES = ("plain", "halves", "fused")
 
 def _grid(mesh: Mesh, fn: Callable):
     """[[fn(d, j) for each model shard j] for each data row d]."""
-    return [[fn(d, j) for j in range(mesh.shape["model"])] for d in range(mesh.shape["data"])]
+    return [[fn(d, j) for j in range(mesh.shape["model"])] for d in range(mesh.local_rows)]
 
 
 class _Collectives:
@@ -104,8 +112,9 @@ class _Collectives:
 
 
 def _split_batch(mesh: Mesh, t: torch.Tensor, dim: int):
-    """t split over the data rows along dim, placed on every shard's device."""
-    rows = torch.chunk(t, mesh.shape["data"], dim)
+    """t split over this process's data rows along dim, placed on every
+    shard's device."""
+    rows = torch.chunk(t, mesh.local_rows, dim)
     return _grid(mesh, lambda d, j: rows[d].to(mesh.devices[d][j]))
 
 
@@ -243,7 +252,7 @@ def _tp_step_local_fused(sp: ShardedParams, tokens, states, comm: _Collectives):
     fuse = tokens[0][0].shape[0] <= FUSE_EMBED_MAX_B
     x = None if fuse else _embed_psum(sp, tokens, comm)
     logits, new = [], []
-    for d in range(mesh.shape["data"]):
+    for d in range(mesh.local_rows):
         lg, st = decode_stack_tp(sp.rows[d], states[d], [sp.local(d, j) for j in range(tp)],
                                  x=None if fuse else x[d][0],
                                  token=tokens[d][0] if fuse else None)
@@ -270,8 +279,9 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
     over `mesh` with its body's collectives per token (3L + 2 for "plain"
     and "halves", at most 2 for "fused": the module docstring); params is the
     ShardedParams the step will be given (or the whole params, for the
-    checks); state leaves [L, B, E], B divisible by the data rows; the
-    results lie on the mesh's first device.
+    checks); state leaves [L, B, E], B divisible by this process's data rows
+    (on a pod mesh the process's own streams); the results lie on the mesh's
+    first device.
 
     body: "plain", "halves" (kernel K6; signed int8 weights and E / tp a
     multiple of 128), "fused" (kernel K7; signed int8 or 4-bit weights, E /
@@ -309,7 +319,8 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
                 "body='fused' runs every shard of a data row on one device (kernel K7's "
                 "exchanges read the shards' partials from one device's memory); a row over "
                 "distinct GPUs needs the cross-card exchange, which waits for a machine with "
-                "two or more GPUs (ROADMAP.md, 'The queue now', item 5): use body='halves'")
+                "two or more GPUs (ROADMAP.md, queue 1, 'Modules to port', item 5): use "
+                "body='halves'")
     eligible = (not q4 and p0.att.key.w.dtype == torch.int8 and E % tp == 0
                 and (E // tp) % 128 == 0)
     if body is None:
@@ -320,7 +331,7 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
             f"E/tp a multiple of 128 (got dtype={p0.att.key.w.dtype}, E={E}, tp={tp})")
     local = {"plain": _tp_step_local, "halves": _tp_step_local_halves,
              "fused": _tp_step_local_fused}[body]
-    nd = mesh.shape["data"]
+    nd = mesh.local_rows
 
     def eager(sp: ShardedParams, token: torch.Tensor, state: WKVState):
         logits, states = local(sp, _split_batch(mesh, token, 0), shard_state(state, mesh),
@@ -331,8 +342,8 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
 
     def step(sp: ShardedParams, token: torch.Tensor, state: WKVState):
         if token.dim() != 1 or token.shape[0] % nd:
-            raise ValueError(f"tp_step: token must be [B] with B divisible by data={nd}, got "
-                             f"{tuple(token.shape)}")
+            raise ValueError(f"tp_step: token must be [B] with B divisible by this process's "
+                             f"data rows ({nd}), got {tuple(token.shape)}")
         if graphs is None:
             return eager(sp, token, state)
         # the graph holds sp (through the partial), so its id names it
@@ -422,12 +433,12 @@ def make_tp_prefill(mesh: Mesh, params, *, masked: bool = True,
         raise TypeError("tp prefill requires quantized params")
     if V % tp:
         raise ValueError(f"padded vocab {V} not divisible by model={tp}")
-    nd = mesh.shape["data"]
+    nd = mesh.local_rows
 
     def prefill(sp: ShardedParams, tokens, state, length=None):
         if tokens.dim() != 2 or tokens.shape[1] % nd:
-            raise ValueError(f"tp prefill: tokens must be [T, B] with B divisible by "
-                             f"data={nd}, got {tuple(tokens.shape)}")
+            raise ValueError(f"tp prefill: tokens must be [T, B] with B divisible by this "
+                             f"process's data rows ({nd}), got {tuple(tokens.shape)}")
         lens = None
         if masked:
             lens = _split_batch(mesh, torch.as_tensor(length, device=tokens.device), 0)
@@ -455,7 +466,7 @@ def make_engine_prefill(mesh: Mesh, params, *, compute_dtype: torch.dtype = torc
     dropped)."""
     masked = make_tp_prefill(mesh, params, compute_dtype=compute_dtype)
     full = make_tp_prefill(mesh, params, masked=False, compute_dtype=compute_dtype)
-    nd = mesh.shape["data"]
+    nd = mesh.local_rows
 
     def prefill(sp, tokens, state, length=None):
         unb = tokens.dim() == 1
@@ -490,7 +501,7 @@ def make_engine_step(mesh: Mesh, params, **kw):
     to the data rows (the padded streams compute on zero state and are
     dropped)."""
     step = make_tp_step(mesh, params, **kw)
-    nd = mesh.shape["data"]
+    nd = mesh.local_rows
 
     def engine_step(sp, token, state):
         unb = token.dim() == 0

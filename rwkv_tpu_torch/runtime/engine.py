@@ -30,7 +30,8 @@ eagerly.
 
     RWKV("model.bin", sharding=make_mesh(model=tp))   tensor-parallel serving
 
-With a mesh (parallel/mesh.py) the params are cut over it
+With a mesh (parallel/mesh.py; across processes parallel/multihost.py's
+pod_mesh, whose data axis spans them) the params are cut over it
 (parallel/sharding.py) and decode and prefill run the tensor-parallel step of
 parallel/tp_step.py (tp_body: "fused", kernel K7, the whole step of a data
 row's shards from one host call; "halves", kernel K6 per shard and layer
