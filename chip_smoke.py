@@ -180,6 +180,15 @@ Phases, in order; any failure raises and exits non-zero:
               waits at a barrier (a correctness run, not a scaling figure);
               then one process on NCCL at world
               size 1 (psum, allgather of CUDA tensors, the fused step).
+ 18. cards    tensor parallelism across distinct cards
+              (rwkv_tpu_torch/tools/tp_cards.py, whose docstring lists what
+              it checks): K7 across cards against its plain version, the
+              fused, halves and plain steps at 14B widths over the cards
+              against tp = 1 on card 0, the engine and the pool over the
+              cards, pods with NCCL between processes of several cards, and
+              the timings. On a machine with one card it prints that it did
+              not run, and why; the kernels line's "launches_cards" is then
+              null. With two or more cards any failure in it fails the run.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2090,6 +2099,24 @@ def main() -> int:
     print(f"  phase 17: {time.perf_counter() - t17:.1f} s (gloo pair {gloo_s:.1f} s, nccl "
           f"{nccl_s:.1f} s)")
     pod_dir.cleanup()
+
+    n_cards = torch.cuda.device_count()
+    print(f"phase 18 tensor parallelism across cards (rwkv_tpu_torch/tools/tp_cards.py) on "
+          f"{n_cards} card(s)")
+    cards_launches = None
+    if n_cards < 2:
+        print(f"  phase 18 did not run: this machine has {n_cards} CUDA device; K7 across "
+              f"cards, the step, the engine, the pool and pods over distinct cards need two or "
+              f"more (python -m rwkv_tpu_torch.tools.tp_cards on such a machine)")
+    else:
+        t18 = time.perf_counter()
+        from rwkv_tpu_torch.tools import tp_cards
+
+        rec18 = tp_cards.run(args.seed, bin_path)  # raises on any failure
+        cards_launches = {cn: rec18["launches"][worker_key[cn]] for cn in COUNTER_NAMES}
+        print(f"  launches over the cards' step, engine and pool: "
+              f"{ {k: v for k, v in cards_launches.items() if v} }")
+        print(f"  phase 18: {time.perf_counter() - t18:.1f} s")
     bin_dir.cleanup()
 
     kernels = [
@@ -2181,6 +2208,8 @@ def main() -> int:
         k["launches_convert"] = convert_launches[counter_of[k["name"]]]
         k["launches_pod"] = pod_launches[counter_of[k["name"]]]
         k["launches_pod_nccl"] = nccl_launches[counter_of[k["name"]]]
+        k["launches_cards"] = (None if cards_launches is None
+                               else cards_launches[counter_of[k["name"]]])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -317,6 +317,7 @@ struct StackPlan {
     if (fold()) prefetch_fold(s);
   }
   __device__ __forceinline__ void stamp() { stamps(); }
+  __device__ __forceinline__ void after_barrier() { stamps(); }
 };
 
 // One block a SM: the whole matvec path is inlined (qmv.cuh's INL) and holds

@@ -66,10 +66,48 @@
 // what K1 + K2 read, and runs K1's phases (its gate with the key, and the
 // head in the launch).
 //
-// Left for a machine with two or more GPUs: the shards of a data row on
-// distinct cards. The exchanges then cross cards: peer stores from the
-// producing epilogues with a flag per shard in place of the grid barrier.
-// The wrapper refuses such a row.
+// Across cards (`cards`): the shards of a data row on distinct GPUs, as the
+// TPU kernel runs them on distinct chips; this replaces its remote DMAs
+// (decode_stack_tp.py:136-210: _rs_dma/_red_finish, _gate_start/_gate_wait
+// and the barrier semaphore at t == 0). Each card runs one cooperative launch
+// of its own shard (nloc = 1, `me` its index), all of them enqueued back to
+// back from one host thread. The exchanges are peer stores over NVLink (peer
+// access enabled between every pair of the row's cards): the epilogue that
+// produces a shard's B partial, D partial or gate stores each element into
+// its own receive slot `me` on every card (QmvArgs::peer), and at B <= 8 a
+// prologue stores the shard's gathered embedding rows the same way, so every
+// card holds all tp partials in its own memory and sums them in the fold in
+// shard order 0..tp-1, with the same code as on one card. A direct
+// all-exchange of [B, E] partials was taken over the TPU kernel's
+// reduce-scatter + all-gather: at B <= 8 and E = 5120 a partial is at most
+// 160 KB, pushed once to each peer, and it needs one flag hop instead of two
+// (the reduce-scatter's second round trip is the latency it would add, and
+// latency, not NVLink bandwidth, is what an exchange costs at decode batch).
+// A flag per exchange and shard replaces the one-device grid barrier: after
+// the producing phase's local grid barrier (every block's peer stores fenced
+// at system scope before it arrives), block 0 stores the epoch into the flag
+// of its shard on every card with st.release.sys; every block of the
+// consuming phase waits, with ld.acquire.sys, until the flags of all the other
+// shards reach that epoch. Epochs grow with a step counter that each card
+// keeps in its flag words (the last block to finish adds one), so the flags
+// are never reset and a CUDA graph could replay the launch. The two things the
+// TPU kernel guards with its t == 0 barrier hold here by the flags' order: a
+// slot of shard j on card k is rewritten only after j waited on a flag that k
+// set after its last read of that slot (the apart slots are read in C(l) and
+// next written in B(l + 1), after A(l + 1) waited on k's D(l) flag; the vpart
+// and gate slots are read in A(l + 1) or H and next written in D(l + 1) or
+// the next step's D(0), after C waited on k's B flag of that layer; the
+// embedding slots are read in A(0) and next written by the next step, after
+// C(0) waited on k's B(0) flag); and the receive slots are persistent device
+// memory, so a store may land before its target's launch has begun. A wait
+// of more than 20 s traps. Bound per card: that card's weight bytes over
+// device memory bandwidth (14B q8 at tp = 4: about 3.5 GB, 1.04 ms at 3.35
+// TB/s), plus 3 L + 1 exchange latencies: the design keeps the latency to
+// one flag hop per exchange and overlaps the next phase's weight loads with
+// the barrier before it, as on one card. With stamps, block 0 also stamps
+// the end of each wait (4 L + 2 onwards: the embedding exchange, then the
+// att and ffn exchanges of each layer).
+//
 #include "stack.cuh"
 
 namespace rwkv {
@@ -90,9 +128,24 @@ enum SharedPtr : int {
   S_LOGITS,     // [tp, B, V_loc]
   S_PARTIAL,    // tp times partial_cap floats
   S_COUNTERS,   // tp times counter_cap ints, then the barrier's kBarrierWords
-  S_STAMPS,     // [4 L + 2] u64 %globaltimer stamps, or null
+  S_STAMPS,     // [4 L + 2] u64 %globaltimer stamps ([6 L + 3] across cards), or null
+  // across cards, else null:
+  S_EMB_SLOTS,  // [tp, B, E] each shard's gathered embedding rows
+  S_FLAGS,      // [kFlagWords] u64: the step counter, then the exchanges' flags
+  S_PEERS,      // [K_COUNT, kMaxShards] pointers: on card c, this shard's slot
+                // (apart, vpart, gate, emb) and card c's flag words
   S_COUNT
 };
+
+// The receive slots and flags that S_PEERS points at, per card.
+// (rwkv_tpu_torch/ops/cuda/decode_stack_tp.py's _PEER_KINDS lists the same names.)
+enum PeerKind : int { K_APART, K_VPART, K_GATE, K_EMB, K_FLAGS, K_COUNT };
+// The exchanges: the embedding rows, the att partials, the ffn partials and gates.
+enum Exchange : int { X_EMB, X_ATT, X_FFN };
+constexpr int kFlagStep = 0;    // the card's step counter
+constexpr int kFlagBase = 16;   // flag (x, shard j) at kFlagBase + x * kMaxShards + j
+constexpr int kFlagWords = 64;
+constexpr unsigned long long kWaitNs = 20000000000ull;  // a wait this long traps
 
 enum ShardPtr : int {
   D_EMB, D_LN0_W, D_LN0_B, D_LN1_W, D_LN1_B, D_LN2_W, D_LN2_B,
@@ -114,9 +167,11 @@ constexpr int kTpPhases = 4;  // per layer: A, B, C, D; then H
 constexpr int kHead = 4;      // the kind of phase H
 constexpr int kMaxFams = 2;   // matrix families of one phase (D: value and gate)
 
+// tp: the row's shards; nloc: the shards this launch runs (tp on one device,
+// 1 across cards), the first of them shard `me`; cards: across cards.
 struct TpArgs {
   void* p[S_COUNT + kMaxShards * D_COUNT];
-  int tp, L, B, E, El, Fl, Vl, n_emb;
+  int tp, nloc, me, cards, L, B, E, El, Fl, Vl, n_emb;
   int halves[H_COUNT];
   long long partial_cap;  // floats of split-K partials a shard
   int counter_cap;        // split-K counters a shard
@@ -130,9 +185,20 @@ __device__ __forceinline__ double* tp_d(const TpArgs& a, int i) {
   return static_cast<double*>(a.p[i]);
 }
 
-// shard j's pointer i
+// local shard j's pointer i
 __device__ __forceinline__ void* tp_shard(const TpArgs& a, int j, int i) {
   return a.p[S_COUNT + j * D_COUNT + i];
+}
+
+// Across cards: the peer stores of exchange kind k (K_APART, K_VPART, K_GATE)
+// into q.peer, every card's but this one's.
+__device__ __forceinline__ void tp_peers(QmvArgs& q, const TpArgs& a, int k) {
+  if (!a.cards) return;
+  void* const* t = static_cast<void* const*>(a.p[S_PEERS]) + k * kMaxShards;
+  int n = 0;
+  for (int c = 0; c < a.tp; ++c)
+    if (c != a.me) q.peer[n++] = static_cast<float*>(t[c]);
+  q.n_peer = n;
 }
 
 // The matvec of family f, shard j, in phase `kind` (0..3: A..D, kHead: H)
@@ -141,7 +207,7 @@ __device__ __forceinline__ void* tp_shard(const TpArgs& a, int j, int i) {
 template <int FMT>
 __device__ void tp_phase_args(QmvArgs& q, const TpArgs& a, int l, int kind, int f, int j,
                               double* offs_sm) {
-  const int B = a.B, E = a.E, El = a.El, Fl = a.Fl;
+  const int B = a.B, E = a.E, El = a.El, Fl = a.Fl, g = a.me + j;  // g: the shard
   const bool q4 = FMT == kQ4;
   auto sf = [&](int i) { return static_cast<float*>(tp_shard(a, j, i)); };
   auto sw = [&](int i, size_t K, size_t O) {  // layer l of a [L, K, O] weight
@@ -193,7 +259,8 @@ __device__ void tp_phase_args(QmvArgs& q, const TpArgs& a, int l, int kind, int 
         sw(D_ATT_O_W, El, E), El, H_O);
     q.O = E;
     q.epi = EPI_STORE;
-    q.out = tp_f(a, S_APART) + (size_t)j * B * E;
+    q.out = tp_f(a, S_APART) + (size_t)g * B * E;
+    tp_peers(q, a, K_APART);
   } else if (kind == 2) {  // C: relu(key)^2 of the folded ln2 mix
     mat(q.m[0], nullptr, sf(D_FFN_K_S) + lE, offs_sm, 1, sw(D_FFN_K_W, E, Fl), E, H_FK);
     q.O = Fl;
@@ -206,13 +273,15 @@ __device__ void tp_phase_args(QmvArgs& q, const TpArgs& a, int l, int kind, int 
         sw(D_FFN_R_W, E, El), E, H_FR);
     q.O = El;
     q.epi = EPI_SIGMOID;
-    q.out = tp_f(a, S_GATE) + (size_t)j * B * El;
+    q.out = tp_f(a, S_GATE) + (size_t)g * B * El;
+    tp_peers(q, a, K_GATE);
   } else if (kind == 3) {  // D: the shard's value partial
     mat(q.m[0], tp_f(a, S_KK) + (size_t)j * B * Fl, sf(D_FFN_V_S) + lFl, val_parts, tiles_fl,
         sw(D_FFN_V_W, Fl, E), Fl, H_FV);
     q.O = E;
     q.epi = EPI_STORE;
-    q.out = tp_f(a, S_VPART) + (size_t)j * B * E;
+    q.out = tp_f(a, S_VPART) + (size_t)g * B * E;
+    tp_peers(q, a, K_VPART);
   } else {  // H: the shard's head columns of ln_out(x), its rank-1 term folded
     mat(q.m[0], nullptr, sf(D_HEAD_S), offs_sm, 1, static_cast<const int8_t*>(tp_shard(a, j, D_HEAD_W)),
         E, H_HEAD);
@@ -224,7 +293,7 @@ __device__ void tp_phase_args(QmvArgs& q, const TpArgs& a, int l, int kind, int 
 
 // The fold source of phase A (kind 0), C (2) or H (kHead) of layer l,
 // written into src (shared memory, by one thread). The replicated vectors
-// (norms, mixes, the column families' offsets) are shard 0's.
+// (norms, mixes, the column families' offsets) are local shard 0's.
 template <int BT>
 __device__ void tp_fold_src(FoldSrc<BT, false, true>& src, const TpArgs& a, int l, int kind) {
   auto s0 = [&](int i) { return static_cast<const float*>(tp_shard(a, 0, i)); };
@@ -241,7 +310,8 @@ __device__ void tp_fold_src(FoldSrc<BT, false, true>& src, const TpArgs& a, int 
   src.nmix = att ? 3 : (head ? 1 : 2);
   src.tokens = first ? static_cast<const int*>(a.p[S_TOKENS]) : nullptr;
   src.emb = nullptr;
-  for (int p = 0; p < a.tp; ++p) src.embs[p] = static_cast<const float*>(tp_shard(a, p, D_EMB));
+  for (int p = 0; p < a.nloc; ++p) src.embs[p] = static_cast<const float*>(tp_shard(a, p, D_EMB));
+  src.emb_slots = a.cards ? tp_f(a, S_EMB_SLOTS) : nullptr;
   src.ln0_w = s0(D_LN0_W);
   src.ln0_b = s0(D_LN0_B);
   src.resid = tp_f(a, first ? S_X_IN : (kind == 2 ? S_X_MID : S_X));
@@ -278,14 +348,15 @@ __device__ void tp_fold_src(FoldSrc<BT, false, true>& src, const TpArgs& a, int 
 }
 
 // The plan of decode_stack_tp_kernel's phase loop (stack.cuh's
-// stack_phases): threads 0 .. nfam * tp - 1 describe one (family, shard)
+// stack_phases): threads 0 .. nfam * nloc - 1 describe one (family, shard)
 // matvec each, thread 32 the fold source, at once; then every thread
-// deals the items: family 0's, then family 1's, each shard-major.
+// deals the items: family 0's, then family 1's, each shard-major. Across
+// cards, after_barrier completes the exchange of the phase that ended.
 template <int BT, int FMT>
 struct TpPlan {
   using Fold = FoldSrc<BT, false, true>;
   const TpArgs& a;
-  QmvArgs* qs;  // shared: [kMaxFams * tp], family-major
+  QmvArgs* qs;  // shared: [kMaxFams * nloc], family-major
   Fold& s;      // shared
   float* xx;
   double* offs;
@@ -293,15 +364,17 @@ struct TpPlan {
   float* ascratch;
   float* fscratch;
   Stamps stamps;
+  unsigned long long step;  // across cards: the card's step counter at the launch
+  int done;                 // barriers passed
   // the families' column tiles, splits and items (scalars: an array indexed
   // by the family would live in local memory)
   int kind, nfam, tiles0, tiles1, S0, S1, n0, n1;
 
   __device__ __forceinline__ void describe(int ph) {
-    const int tid = threadIdx.x, tp = a.tp, l = ph / kTpPhases;
+    const int tid = threadIdx.x, nloc = a.nloc, l = ph / kTpPhases;
     kind = l < a.L ? ph % kTpPhases : kHead;
     nfam = kind == 3 ? 2 : 1;
-    if (tid < nfam * tp) tp_phase_args<FMT>(qs[tid], a, l, kind, tid / tp, tid % tp, offs);
+    if (tid < nfam * nloc) tp_phase_args<FMT>(qs[tid], a, l, kind, tid / nloc, tid % nloc, offs);
     if (tid == 32 && fold()) {
       tp_fold_src<BT>(s, a, l, kind);
       s.xx = xx;
@@ -317,18 +390,18 @@ struct TpPlan {
     auto bytes = [](const QmvArgs& q) { return (long long)qmv_kmax<FMT>(q) * q.O; };
     const int g0 = nfam == 1 ? G
                              : max(1, min(G - 1, (int)(G * bytes(qs[0]) /
-                                                       (bytes(qs[0]) + bytes(qs[tp])))));
+                                                       (bytes(qs[0]) + bytes(qs[nloc])))));
     const long long cap = nfam == 1 ? a.partial_cap : a.partial_cap / 2;
     const int cc = nfam == 1 ? a.counter_cap : a.counter_cap / 2;
     auto split = [&](const QmvArgs& q, int g, int& tiles, int& S, int& n) {
       tiles = (q.O + kTileO - 1) / kTileO;
-      S = stack_split(tp * tiles, qmv_kmax<FMT>(q), q.nmat, a.B, q.O, cap, tp * cc, g);
-      n = tp * tiles * S;
+      S = stack_split(nloc * tiles, qmv_kmax<FMT>(q), q.nmat, a.B, q.O, cap, nloc * cc, g);
+      n = nloc * tiles * S;
     };
     split(qs[0], g0, tiles0, S0, n0);
     tiles1 = S1 = 1;
     n1 = 0;
-    if (nfam == 2) split(qs[tp], G - g0, tiles1, S1, n1);
+    if (nfam == 2) split(qs[nloc], G - g0, tiles1, S1, n1);
   }
   __device__ __forceinline__ int items() const { return n0 + n1; }
   __device__ __forceinline__ bool fold() const { return kind == 0 || kind == 2 || kind == kHead; }
@@ -339,7 +412,7 @@ struct TpPlan {
     tile = rt / S;
     sp = rt % S;
     Sp = S;
-    return qs[(f ? a.tp : 0) + j];
+    return qs[(f ? a.nloc : 0) + j];
   }
   // the first item writes this block's share of the rows' outputs, block 0
   // the receptance mix's rank-1 term
@@ -355,11 +428,60 @@ struct TpPlan {
   }
   __device__ __forceinline__ const Fold& src() const { return s; }
   __device__ __forceinline__ void prefetch() const {
-    for (int i = 0; i < nfam * a.tp; ++i) prefetch_qmv(qs[i]);
+    for (int i = 0; i < nfam * a.nloc; ++i) prefetch_qmv(qs[i]);
     if (fold()) prefetch_fold(s);
   }
   __device__ __forceinline__ void stamp() { stamps(); }
+
+  // Across cards: block 0 sets this shard's flag of exchange x to `epoch` on
+  // every card; then every block waits until the other shards' flags reach
+  // it, and block 0 stamps the wait's end at entry `at`.
+  __device__ __forceinline__ void exchange(int x, unsigned long long epoch, int at) {
+    void* const* t = static_cast<void* const*>(a.p[S_PEERS]) + K_FLAGS * kMaxShards;
+    const int slot = kFlagBase + x * kMaxShards;
+    if (threadIdx.x == 0) {
+      if (blockIdx.x == 0)
+        for (int c = 0; c < a.tp; ++c)
+          st_release_sys(static_cast<unsigned long long*>(t[c]) + slot + a.me, epoch);
+      const unsigned long long* mine = static_cast<const unsigned long long*>(a.p[S_FLAGS]) + slot;
+      const unsigned long long t0 = globaltimer();
+      for (int c = 0; c < a.tp; ++c)
+        while (c != a.me && ld_acquire_sys(mine + c) < epoch)
+          if (globaltimer() - t0 > kWaitNs) __trap();
+    }
+    __syncthreads();
+    stamps.at(at);
+  }
+
+  // After the barrier that ends phase `done`: across cards, phases B and D
+  // complete their exchanges (the att partials; the ffn partials and gates).
+  __device__ __forceinline__ void after_barrier() {
+    stamps();
+    const int ph = done++, l = ph / kTpPhases, k = ph % kTpPhases;
+    if (!a.cards || l >= a.L || (k != 1 && k != 3)) return;
+    exchange(k == 1 ? X_ATT : X_FFN, step * a.L + l + 1, 4 * a.L + 3 + 2 * l + (k == 3));
+  }
 };
+
+// Across cards, at B <= 8: this shard's embedding rows of the batch's tokens
+// (zero for a token outside its vocab) into its slot on every card, then the
+// exchange, so that phase A of layer 0 sums the tp slots in shard order.
+template <int BT, int FMT>
+__device__ void push_embedding(const TpArgs& a, GridBarrier& bar, TpPlan<BT, FMT>& plan) {
+  const int E4 = a.E / 4, total = a.B * E4;
+  const float4* emb = static_cast<const float4*>(tp_shard(a, 0, D_EMB));
+  const int* tokens = static_cast<const int*>(a.p[S_TOKENS]);
+  void* const* t = static_cast<void* const*>(a.p[S_PEERS]) + K_EMB * kMaxShards;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
+    const int b = i / E4, k4 = i - b * E4, rel = tokens[b] - a.me * a.n_emb;
+    const float4 e = rel >= 0 && rel < a.n_emb ? emb[(size_t)rel * E4 + k4]
+                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < a.tp; ++c) static_cast<float4*>(t[c])[i] = e;
+  }
+  __threadfence_system();
+  bar.sync();
+  plan.exchange(X_EMB, plan.step + 1, 4 * a.L + 2);
+}
 
 // One block a SM, as the unsharded stack (decode_stack.cu says why).
 template <int BT, int FMT>
@@ -372,12 +494,15 @@ __global__ void __launch_bounds__(kThreads, 1) decode_stack_tp_kernel(const __gr
   StackSmem<BT, FMT> m;
   m.carve(smem, a.E, a.B);
   GridBarrier bar;
-  bar.init(static_cast<unsigned*>(a.p[S_COUNTERS]) + (size_t)a.tp * a.counter_cap, gridDim.x);
+  bar.init(static_cast<unsigned*>(a.p[S_COUNTERS]) + (size_t)a.nloc * a.counter_cap, gridDim.x);
+  unsigned long long* flags = static_cast<unsigned long long*>(a.p[S_FLAGS]);
   TpPlan<BT, FMT> plan{a, qs, src, m.xx, m.offs, m.amax, ascratch, fscratch,
-                       Stamps{static_cast<unsigned long long*>(a.p[S_STAMPS]), 0}};
+                       Stamps{static_cast<unsigned long long*>(a.p[S_STAMPS]), 0},
+                       a.cards ? __ldcg(flags + kFlagStep) : 0ull, 0};
   plan.stamp();
+  if (a.cards && a.p[S_TOKENS]) push_embedding<BT, FMT>(a, bar, plan);
   stack_phases<BT, FMT>(plan, kTpPhases * a.L + 1, false, bar, *m.sm, m.wsm);
-  bar.finish();
+  if (bar.finish() && a.cards) flags[kFlagStep] = plan.step + 1;  // read by the next launch
   plan.stamp();
 }
 
@@ -404,6 +529,22 @@ extern "C" int rwkv_decode_stack_tp_shared_count() { return S_COUNT; }
 extern "C" int rwkv_decode_stack_tp_shard_count() { return D_COUNT; }
 extern "C" int rwkv_decode_stack_tp_max_shards() { return kMaxShards; }
 extern "C" int rwkv_decode_stack_tp_barrier_words() { return kBarrierWords; }
+extern "C" int rwkv_decode_stack_tp_flag_words() { return kFlagWords; }
+extern "C" int rwkv_decode_stack_tp_peer_kinds() { return K_COUNT; }
+
+// Lets device `dev` read and write device `peer`'s memory (K7 across cards:
+// its peer stores); already enabled is no error. The current device is kept.
+extern "C" int rwkv_enable_peer(int dev, int peer) {
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = cudaSetDevice(dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) e = cudaSuccess;
+  cudaGetLastError();  // nothing left behind for the next launch's check
+  const cudaError_t back = cudaSetDevice(cur);
+  return (int)(e != cudaSuccess ? e : back);
+}
 
 // Blocks of the step's launch at batch B and width E, in *grid: q4 selects
 // the instantiation. Returns the first CUDA error (0 if none).
@@ -421,27 +562,35 @@ extern "C" int rwkv_decode_stack_tp_grid(int B, int E, int q4, int* grid) {
 }
 
 // Enqueues one decode step of the tp shards of a data row on `stream` as one
-// cooperative launch. With tokens (S_TOKENS not null) layer 0 gathers the
-// embedding rows; else x_in [B, E] is x after ln0. q4: the weights are
-// nibble-packed and halves[8] gives half the pairing block of each family
-// (enum Fam), in rows. partial_cap and counter_cap are each shard's share of
-// the split-K scratch (S_COUNTERS holds tp * counter_cap + kBarrierWords
-// ints, zero before the first call). Returns the first CUDA error (0 if
-// none), the number of kernels launched in *n_launched (1, or 0 on an error)
-// and the launch's blocks in *grid.
-extern "C" int rwkv_decode_stack_tp(void* const* p, int n_ptrs, int tp, int L, int B, int E,
-                                    int El, int Fl, int Vl, int n_emb, int q4,
+// cooperative launch of the current device; across cards (cards != 0), the
+// step of shard `me` alone, whose peers' launches the caller enqueues on
+// theirs. With tokens (S_TOKENS not null) layer 0 gathers the embedding rows;
+// else x_in [B, E] is x after ln0. q4: the weights are nibble-packed and
+// halves[8] gives half the pairing block of each family (enum Fam), in rows.
+// partial_cap and counter_cap are each local shard's share of the split-K
+// scratch (S_COUNTERS holds nloc * counter_cap + kBarrierWords ints, zero
+// before the first call; across cards S_FLAGS holds kFlagWords u64, zero
+// before the first call on every card of the row). Returns the first CUDA
+// error (0 if none), the number of kernels launched in *n_launched (1, or 0
+// on an error) and the launch's blocks in *grid.
+extern "C" int rwkv_decode_stack_tp(void* const* p, int n_ptrs, int tp, int me, int cards, int L,
+                                    int B, int E, int El, int Fl, int Vl, int n_emb, int q4,
                                     const int* halves, long long partial_cap, int counter_cap,
                                     void* stream, int* n_launched, int* grid) {
   *n_launched = 0;
   *grid = 0;
-  if (tp < 1 || tp > kMaxShards || n_ptrs != S_COUNT + tp * D_COUNT || B < 1 || L < 1 ||
+  const int nloc = cards ? 1 : tp;
+  if (tp < 1 || tp > kMaxShards || n_ptrs != S_COUNT + nloc * D_COUNT || B < 1 || L < 1 ||
       E % 16 || El % 16 || Fl % 16 || Vl % 16 || El * tp != E || counter_cap < 2 ||
-      partial_cap < 2)
+      partial_cap < 2 || me < 0 || me >= tp || (!cards && me) ||
+      (cards && (!p[S_FLAGS] || !p[S_PEERS] || (p[S_TOKENS] && !p[S_EMB_SLOTS]))))
     return (int)cudaErrorInvalidValue;
   TpArgs a = {};
   for (int i = 0; i < n_ptrs; ++i) a.p[i] = p[i];
   a.tp = tp;
+  a.nloc = nloc;
+  a.me = me;
+  a.cards = cards ? 1 : 0;
   a.L = L;
   a.B = B;
   a.E = E;

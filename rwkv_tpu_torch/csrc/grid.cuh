@@ -71,12 +71,15 @@ struct GridBarrier {
   }
 
   // After the block's last wait: the last block of the launch resets both
-  // words for the next launch.
-  __device__ __forceinline__ void finish() {
+  // words for the next launch. Returns, in thread 0, whether this block was
+  // the last.
+  __device__ __forceinline__ bool finish() {
     if (threadIdx.x == 0 && atom_add_acq_rel_gpu(word + kBarrierDone, 1u) == nblocks - 1) {
       st_relaxed_gpu(word, 0u);
       st_relaxed_gpu(word + kBarrierDone, 0u);
+      return true;
     }
+    return false;
   }
 };
 

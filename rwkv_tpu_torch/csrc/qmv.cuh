@@ -101,6 +101,18 @@ __device__ __forceinline__ void red_release_gpu(unsigned* p, unsigned v) {
   asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+// Memory-order primitives at system scope: kernel K7's flags between cards
+// (decode_stack_tp.cu), written by a peer over NVLink.
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kColsPerThread = 16;                       // one 16-byte load
@@ -112,6 +124,8 @@ constexpr int kGroupRows = kKSlices * kUnroll;           // 128 rows: 4 loads a 
 constexpr int kChunkK = 512;                             // staged rows, long path
 constexpr int kMaxMats = 3;
 constexpr int kMaxSplit = 32;
+// Model shards of one tensor-parallel data row (kernel K7, decode_stack_tp.cu).
+constexpr int kMaxShards = 8;
 
 // Weight formats: int8 rows (q8), nibble-packed rows (q4), int8 rows times
 // int8 activation codes (a8).
@@ -175,6 +189,10 @@ struct QmvArgs {
   float* next_amax;             // [tiles, B]: per-tile max_c |out[b, c] * next_scale[c]|
   float* partial;               // [S, nmat, B, O] when S > 1
   int* counters;                // [tiles], zero between launches (and phases)
+  // K7 across cards: the same [B, O] output on n_peer other cards (peer
+  // stores over NVLink), each thread's stores then fenced at system scope
+  float* peer[kMaxShards - 1];
+  int n_peer;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -1017,6 +1035,7 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S
         }
       }
       a.out[idx] = o;
+      for (int p = 0; p < a.n_peer; ++p) a.peer[p][idx] = o;
       if (a.next_offset) sm.contrib[bi][c] = (double)o * (double)a.next_offset[gc];  // exact
       if (a.next_amax) sm.amaxc[bi][c] = fabsf(o * a.next_scale[gc]);
     }
@@ -1039,6 +1058,8 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S
     }
     __syncthreads();  // res/offs/contrib are rewritten by the next batch group
   }
+  // the peer stores complete before the caller's barrier arrival releases them
+  if (a.n_peer) __threadfence_system();
 }
 
 template <int BT, int FMT>
@@ -1046,9 +1067,6 @@ __global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
   __shared__ QmvSmem<BT, FMT> sm;
   qmv_run<BT, FMT>(a, blockIdx.x, blockIdx.y, gridDim.y, sm);
 }
-
-// Model shards of one tensor-parallel data row (kernel K7, decode_stack_tp.cu).
-constexpr int kMaxShards = 8;
 
 // Split of the contraction dim: enough blocks to fill the card, and at least
 // enough splits that a block's share is one 128-row group (the short path),

@@ -122,6 +122,7 @@ struct FoldSrc {
   int tp, El, cached;
   bool head;
   const float* embs[kMaxShards];  // shard p's vocab rows [p * n_emb, (p + 1) * n_emb)
+  const float* emb_slots;         // or, across cards: [tp, B, E] each shard's gathered rows
   const float* add;               // [tp, B, E] partials, or null
   const float* gate;              // [tp, B, El], or null
   float* resid_out;               // [B, E] the exchanged x, or null
@@ -153,9 +154,12 @@ struct FoldSrc {
         const int tk = tokens[b0 + bi];
         for (int p = 0; p < tp; ++p) {
           const int rel = tk - p * n_emb;
-          const float4 e = rel >= 0 && rel < n_emb
-                               ? reinterpret_cast<const float4*>(embs[p] + (size_t)rel * E)[k4]
-                               : z;
+          float4 e = z;
+          if (emb_slots)  // the row shard p gathered, zero outside its vocab
+            e = __ldcg(reinterpret_cast<const float4*>(emb_slots) +
+                       ((size_t)p * B + b0 + bi) * E4 + k4);
+          else if (rel >= 0 && rel < n_emb)
+            e = reinterpret_cast<const float4*>(embs[p] + (size_t)rel * E)[k4];
           t[u] = p == 0 ? e : add4(t[u], e);
         }
       }
@@ -394,8 +398,12 @@ struct Stamps {
   int n;
 
   __device__ __forceinline__ void operator()() {
-    if (t && blockIdx.x == 0 && threadIdx.x == 0) t[n] = globaltimer();
+    at(n);
     ++n;
+  }
+  // a stamp at entry i of its own (K7 across cards: the end of each wait)
+  __device__ __forceinline__ void at(int i) const {
+    if (t && blockIdx.x == 0 && threadIdx.x == 0) t[i] = globaltimer();
   }
 };
 
@@ -405,7 +413,8 @@ struct Stamps {
 // deals its items (items; item: the matvec, column tile, split and splits
 // of item it), says whether it is folded (fold; fold_item prepares the fold
 // source for the block's r-th item of the phase; src), prefetches its
-// vectors into L2 (prefetch) and stamps the time (stamp).
+// vectors into L2 (prefetch) and runs what follows each barrier
+// (after_barrier: the time stamp; K7 across cards, the exchange's flags).
 template <int BT, int FMT, class P>
 __device__ __forceinline__ void stack_phases(P& p, int n, bool last_barrier, GridBarrier& bar,
                                              QmvSmem<BT, FMT>& sm, int4* wsm) {
@@ -443,7 +452,7 @@ __device__ __forceinline__ void stack_phases(P& p, int n, bool last_barrier, Gri
       }
     }
     bar.wait();
-    p.stamp();
+    p.after_barrier();
   }
 }
 

@@ -50,8 +50,11 @@ def read_bin(path: str, device, *, put=None, pad_vocab_to: int | None = None,
 
     put(name, host_array) places each tensor instead of a plain copy to
     `device` (parallel/sharding.py::make_put cuts it into its tensor-parallel
-    shards); names are the registry's (io/registry.py), plus "logit_bias",
-    "ln0.w", "ln0.b", "ln1.w", ..., "ln_out.b"."""
+    shards and sends each piece from the host to its own device, on every
+    data row: on a mesh over distinct cards each card receives only its
+    pieces, and the host holds about one tensor at a time); names are the
+    registry's (io/registry.py), plus "logit_bias", "ln0.w", "ln0.b",
+    "ln1.w", ..., "ln_out.b"."""
     cfg = read_header(path)
     a, b = cfg.n_layer, cfg.n_embd
     layout = {name: (off, spec.shape(a, b), spec.dtype)

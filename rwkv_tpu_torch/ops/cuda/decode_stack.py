@@ -347,10 +347,11 @@ def _decode(params, token, state, a8, a8_block, stamps=None):
     arr = (ctypes.c_void_p * len(table))(*table)
     halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
     n, grid = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
-                                block, partial.numel(), counters.numel(),
-                                torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n),
-                                ctypes.byref(grid))
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
+                                    block, partial.numel(), counters.numel(),
+                                    torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n),
+                                    ctypes.byref(grid))
     if block:
         launches_a8 += n.value
     elif prep.q4:

@@ -18,22 +18,31 @@ logits carry no logit bias (as in the JAX kernel): the caller adds each
 shard's slice and gathers them. The replicated xy/dd of the new states are
 the same tensors for every shard.
 
-On CUDA tensors the wrapper launches csrc/decode_stack_tp.cu: the whole step
-of all the shards is one persistent, cooperative launch (4 * L + 1 phases
-behind 4 * L grid barriers, the grid the occupancy API's blocks per SM times
-the SMs: `stack_grid_tp`), and the exchanges are sums of the shards' partials
-in shard order 0..tp-1 folded into the phases that read them; every shard of
-the row must lie on that one device. A launch the card refuses raises; there
-is no other route. `stamps=` takes an int64 CUDA tensor of at least 4 * L + 2
-entries, into which the kernel writes %globaltimer at its start, after each
-barrier and at its end (tools/decode_profile.py reads the time of each
-phase). On CPU tensors it runs `decode_stack_tp_reference`, which does the
+On CUDA tensors the wrapper launches csrc/decode_stack_tp.cu. Where every
+shard of the row lies on one device, the whole step of all the shards is one
+persistent, cooperative launch (4 * L + 1 phases behind 4 * L grid barriers,
+the grid the occupancy API's blocks per SM times the SMs: `stack_grid_tp`),
+and the exchanges are sums of the shards' partials in shard order 0..tp-1
+folded into the phases that read them. Where each shard lies on its own
+card (`row_devices`), each card runs one cooperative launch of its own shard,
+all enqueued from this thread, and the exchanges are peer stores over NVLink
+into receive slots on every card, ordered by a flag per exchange and shard
+(the source's note says how); the sums stay in shard order 0..tp-1, so the
+step holds against the same plain version. Peer access between every pair of
+the row's cards is checked once and enabled; a pair without it raises, naming
+the pair. A launch a card refuses raises; there is no other route. `stamps=`
+takes an int64 CUDA tensor of at least 4 * L + 2 entries (6 * L + 3 across
+cards: one tensor per card, a list), into which the kernel writes
+%globaltimer at its start, after each barrier and at its end, and across
+cards at the end of each exchange's wait (tools/decode_profile.py reads the
+time of each phase and the exchanges' share). On CPU tensors it runs `decode_stack_tp_reference`, which does the
 exchanges as the same explicit sums. Weights: signed int8
 (models.rwkv4.signedize_params) or, in q4, every family Quant4Linear, with
 att.output and ffn.value packed in blocks that divide E / tp and F / tp.
 Bound on the card: the weight bytes of
 all shards per step over device memory bandwidth (379 MB in q8, 189.5 MB in
-q4 at 430M: 0.113 and 0.057 ms at 3.35 TB/s).
+q4 at 430M: 0.113 and 0.057 ms at 3.35 TB/s); across cards, each card's own
+shard's bytes over that bandwidth, plus 3 L + 1 exchange latencies.
 
 Not ported: the JAX module's pick_tp_fused_tile and pick_tp_head_tile, models
 of the TPU's VMEM, and its 4-D pretiled weight layout.
@@ -55,13 +64,14 @@ from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear, unpack4
 from rwkv_tpu_torch.ops.wkv import WKVChannelState, wkv_step
 
 # kernel launches, for showing that a path ran on the kernel: q8, q4; one
-# per step
+# per step, across cards one per card a step
 launches = 0
 launches_q4 = 0
 
 MAX_SHARDS = 8    # csrc/qmv.cuh's kMaxShards: one launch's shards
 FUSE_EMBED_MAX_B = 8  # the embedding gather rides in the step up to this batch
 _BARRIER_WORDS = 64   # csrc/grid.cuh's kBarrierWords, after the shards' counters
+_FLAG_WORDS = 64      # csrc/decode_stack_tp.cu's kFlagWords (across cards)
 _COUNTERS = 4096      # split-K counters a shard (phase D's two families: half each)
 
 _lib = None
@@ -73,8 +83,12 @@ _lib = None
 _SHARED = (
     "tokens", "x_in", "x", "x_mid", "xy_in", "dd_in", "xy_out", "dd_out", "apart", "vpart",
     "gate", "rwkv", "kk", "fr", "fr_off", "off_parts", "logits", "partial", "counters",
-    "stamps",
+    "stamps", "emb_slots", "flags", "peers",
 )
+# Across cards, the table at "peers" holds, per kind and card c, the address
+# on card c of this shard's receive slot (or card c's flag words), in the
+# order of `enum PeerKind`.
+_PEER_KINDS = ("apart", "vpart", "gate", "emb", "flags")
 _SHARD = (
     "emb", "ln0.weight", "ln0.bias", "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
     "att.mix_k", "att.mix_v", "att.mix_r", "ffn.mix_k", "ffn.mix_r",
@@ -103,17 +117,22 @@ def _kernel():
         lib = _build.load("decode_stack_tp")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rwkv_decode_stack_tp.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I, I, I, I, I,
-                                             ctypes.POINTER(I), ctypes.c_longlong, I, P,
+                                             I, I, ctypes.POINTER(I), ctypes.c_longlong, I, P,
                                              ctypes.POINTER(I), ctypes.POINTER(I)]
         lib.rwkv_decode_stack_tp_grid.argtypes = [I, I, I, ctypes.POINTER(I)]
+        lib.rwkv_enable_peer.argtypes = [I, I]
         for fn in (lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_grid,
                    lib.rwkv_decode_stack_tp_shared_count, lib.rwkv_decode_stack_tp_shard_count,
-                   lib.rwkv_decode_stack_tp_max_shards, lib.rwkv_decode_stack_tp_barrier_words):
+                   lib.rwkv_decode_stack_tp_max_shards, lib.rwkv_decode_stack_tp_barrier_words,
+                   lib.rwkv_decode_stack_tp_flag_words, lib.rwkv_decode_stack_tp_peer_kinds,
+                   lib.rwkv_enable_peer):
             fn.restype = I
         if (lib.rwkv_decode_stack_tp_shared_count() != len(_SHARED)
                 or lib.rwkv_decode_stack_tp_shard_count() != len(_SHARD)
                 or lib.rwkv_decode_stack_tp_max_shards() != MAX_SHARDS
-                or lib.rwkv_decode_stack_tp_barrier_words() != _BARRIER_WORDS):
+                or lib.rwkv_decode_stack_tp_barrier_words() != _BARRIER_WORDS
+                or lib.rwkv_decode_stack_tp_flag_words() != _FLAG_WORDS
+                or lib.rwkv_decode_stack_tp_peer_kinds() != len(_PEER_KINDS)):
             raise RuntimeError("decode_stack_tp.cu's pointer tables do not match this module's")
         _lib = lib
     return _lib
@@ -300,32 +319,62 @@ def _param_shapes(L, E, El, Fl, Vl, n_emb, q4) -> dict:
     return sh
 
 
-def _row_device(shards) -> torch.device:
-    """The one CUDA device of a data row's shards; raises otherwise."""
-    dev = shards[0].emb.device
-    others = sorted({str(p.emb.device) for p in shards if p.emb.device != dev})
-    if dev.type != "cuda" or others:
-        raise ValueError(
-            f"decode_stack_tp runs the shards of a data row on one CUDA device; these lie on "
-            f"{[str(dev)] + others}: the exchange across distinct devices waits for a machine "
-            "with two or more GPUs (ROADMAP.md, queue 1, 'Modules to port', item 5)")
-    return dev
+def row_devices(devices) -> tuple[list, bool]:
+    """(the CUDA devices a data row's shards run on, across cards): one
+    device for the whole row, or, across cards, each shard's own card, with
+    peer access between every pair. Raises for a row on the CPU, a row that
+    repeats a card but not on one card only, and a pair of cards without peer
+    access (named)."""
+    devs = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"decode_stack_tp runs on CUDA devices; the row lies on "
+                         f"{[str(d) for d in devs]}")
+    if len(set(devs)) == 1:
+        return devs[:1], False
+    if len(set(devs)) != len(devs):
+        raise ValueError(f"decode_stack_tp runs a data row's shards on one device or each on "
+                         f"its own card; this row names {[str(d) for d in devs]}")
+    for a in devs:
+        for b in devs:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"decode_stack_tp across cards needs peer access between every pair of "
+                    f"the row's cards; {a} cannot access {b} (cudaDeviceCanAccessPeer)")
+    return devs, True
+
+
+_peers_enabled: set = set()
+
+
+def _enable_peers(devs) -> None:
+    """Peer access from every card of the row to every other, once."""
+    lib = _kernel()
+    for a in devs:
+        for b in devs:
+            if a != b and (a.index, b.index) not in _peers_enabled:
+                _build.check(lib, lib.rwkv_enable_peer(a.index, b.index),
+                             f"decode_stack_tp: peer access {a} -> {b}")
+                _peers_enabled.add((a.index, b.index))
 
 
 class _Prepared:
     """A data row's checked parameter pointers, scratch and pointer tables by
-    batch size. A table's parameter and scratch slots are filled once; a call
+    batch size: one table for a row on one device, one per card across
+    cards. A table's parameter and scratch slots are filled once; a call
     fills the slots of its inputs and outputs and passes the same array."""
 
     def __init__(self, shards):
         self.shards = shards
         tp = len(shards)
-        dev = _row_device(shards)
+        devs, self.cards = row_devices([p.emb.device for p in shards])
+        if self.cards:
+            _enable_peers(devs)
         L, E, El, Fl, Vl, q4 = _meta(shards)
         n_emb = shards[0].emb.shape[0]
         shapes = _param_shapes(L, E, El, Fl, Vl, n_emb, q4)
         ptrs = []
         for j, p in enumerate(shards):
+            dev = devs[j] if self.cards else devs[0]
             for name in _SHARD_PARAMS:
                 t = _get(p, name[:-2] + ".wp" if q4 and name.endswith(".w") else name)
                 dtype = torch.int8 if name.endswith(".w") else torch.float32
@@ -337,42 +386,74 @@ class _Prepared:
                   for f, K in zip(_FAMILIES, (E, E, E, El, E, Fl, E, E))]
         self.halves = (ctypes.c_int * len(halves))(*halves)
         self.param_ptrs = ptrs
-        self.device, self.tp, self.q4 = dev, tp, q4
+        self.devices, self.tp, self.q4 = devs, tp, q4
+        self.device = devs[0]
         self.dims = (L, E, El, Fl, Vl, n_emb)
         self.tables: dict = {}
 
+    def shard_device(self, j: int) -> torch.device:
+        return self.devices[j] if self.cards else self.devices[0]
+
     def table(self, B: int):
-        """(pointer array, split-K partial floats a shard) for batch size B,
-        its scratch kept beside it. Each shard's partials hold a phase's
-        splits when the grid holds one item a block (csrc/stack.cuh's
-        stack_split): at most 3 matrices x B rows x 128 columns a block."""
+        """[(pointer array, split-K partial floats a shard, its buffers) per
+        launch] for batch size B, the scratch kept beside it. Each shard's
+        partials hold a phase's splits when the grid holds one item a block
+        (csrc/stack.cuh's stack_split): at most 3 matrices x B rows x 128
+        columns a block. Across cards every card's table is made, and its
+        grid asked for (which loads the kernel there), before any launch: a
+        card's launch then spins on its peers' flags for microseconds, not
+        for a peer's first-use set-up."""
         got = self.tables.get(B)
-        if got is None:
-            L, E, El, Fl, Vl, _ = self.dims
-            tp, dev = self.tp, self.device
+        if got is not None:
+            return got
+        L, E, El, Fl, Vl, _ = self.dims
+        tp = self.tp
+        nloc = 1 if self.cards else tp
+        m = len(_SHARD_PARAMS)
+        launches_ = []
+        for c, dev in enumerate(self.devices):
             with torch.cuda.device(dev):
                 grid = stack_grid_tp(B, E, q4=self.q4)
             z = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
             tiles = -(-El // 128) + -(-Fl // 128)  # column tiles of 128 (csrc/qmv.cuh)
             cap = min(3 * B * 128 * grid, _build.SPLIT_FLOATS)
             buf = {"x": z(B, E), "x_mid": z(B, E), "apart": z(tp, B, E), "vpart": z(tp, B, E),
-                   "gate": z(tp, B, El), "rwkv": z(tp, B, El), "kk": z(tp, B, Fl),
+                   "gate": z(tp, B, El), "rwkv": z(nloc, B, El), "kk": z(nloc, B, Fl),
                    "fr": z(B, E),
                    # the rank-1 offset terms are summed in double
-                   "fr_off": z(B).double(), "off_parts": z(tp, tiles, B).double(),
-                   "partial": z(tp, cap),
+                   "fr_off": z(B).double(), "off_parts": z(nloc, tiles, B).double(),
+                   "partial": z(nloc, cap),
                    # zero before the first launch; every launch leaves them so
-                   "counters": torch.zeros(tp * _COUNTERS + _BARRIER_WORDS, dtype=torch.int32,
+                   "counters": torch.zeros(nloc * _COUNTERS + _BARRIER_WORDS, dtype=torch.int32,
                                            device=dev)}
+            if self.cards:
+                buf["emb_slots"] = z(tp, B, E)
+                # the step counter and the flags: zero on every card at once
+                buf["flags"] = torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev)
+            launches_.append((dev, cap, buf))
+        if self.cards:  # each card's table of its peers' slots for its shard
+            for c, (dev, _, buf) in enumerate(launches_):
+                addr = [[0] * MAX_SHARDS for _ in _PEER_KINDS]
+                for k, kind in enumerate(_PEER_KINDS):
+                    for d, (_, _, other) in enumerate(launches_):
+                        t = other[kind if kind != "emb" else "emb_slots"]
+                        addr[k][d] = t.data_ptr() + (0 if kind == "flags"
+                                                     else c * t[0].numel() * t.element_size())
+                buf["peers"] = torch.tensor(addr, dtype=torch.int64).to(dev)
+            for dev, _, _ in launches_:
+                torch.cuda.synchronize(dev)  # every card's zeros and tables in place
+        got = []
+        for c, (dev, cap, buf) in enumerate(launches_):
             fixed = {n: t.data_ptr() for n, t in buf.items()}
-            arr = (ctypes.c_void_p * (len(_SHARED) + tp * len(_SHARD)))(
+            arr = (ctypes.c_void_p * (len(_SHARED) + nloc * len(_SHARD)))(
                 *(fixed.get(n) for n in _SHARED))
-            m = len(_SHARD_PARAMS)
-            for j in range(tp):
+            for j in range(nloc):
                 base = len(_SHARED) + j * len(_SHARD)
-                arr[base:base + m] = self.param_ptrs[j * m:(j + 1) * m]
-            got = self.tables[B] = (arr, cap, buf)
-        return got[:2]
+                src = (c if self.cards else j) * m
+                arr[base:base + m] = self.param_ptrs[src:src + m]
+            got.append((arr, cap, buf))
+        self.tables[B] = got
+        return got
 
 
 def stack_grid_tp(B: int, E: int, *, q4: bool = False) -> int:
@@ -404,26 +485,29 @@ _D = {n: i for i, n in enumerate(_SHARD)}
 
 def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], local, *,
                     x: Optional[torch.Tensor] = None, token: Optional[torch.Tensor] = None,
-                    stamps: Optional[torch.Tensor] = None):
+                    stamps=None):
     """One decode step of the shards of a data row; returns (logits_loc, new
-    states) as decode_stack_tp_reference. token [B] (B <= 8) or x [B, E].
-    stamps: see the module docstring (CUDA only)."""
+    states) as decode_stack_tp_reference, each shard's on its device. token
+    [B] (B <= 8) or x [B, E], on any of the row's devices. stamps: see the
+    module docstring (CUDA only)."""
     given = token if x is None else x
     if shards[0].emb.device.type == "cpu" and given is not None and given.device.type == "cpu":
         return decode_stack_tp_reference(shards, states, local, x=x, token=token)
     global launches, launches_q4
     prep = _prepare(shards)
-    dev, tp = prep.device, prep.tp
+    tp = prep.tp
     L, E, El, Fl, Vl, n_emb = prep.dims
     if (x is None) == (token is None):
         raise ValueError("decode_stack_tp takes exactly one of x and token")
     if len(states) != tp or len(local) != tp:
         raise ValueError(f"decode_stack_tp: {len(states)} states and {len(local)} (decay, "
                          f"bonus) pairs for {tp} shards")
+    row = set(prep.devices)
     if token is not None:
-        if token.dim() != 1 or token.device != dev:
-            raise ValueError(f"decode_stack_tp: token must be [B] on {dev}, got "
-                             f"{tuple(token.shape)} on {token.device}")
+        if token.dim() != 1 or token.device not in row:
+            raise ValueError(f"decode_stack_tp: token must be [B] on one of "
+                             f"{sorted(map(str, row))}, got {tuple(token.shape)} on "
+                             f"{token.device}")
         B = token.shape[0]
         if B > FUSE_EMBED_MAX_B:
             raise ValueError(f"decode_stack_tp's embedding gather takes B <= "
@@ -431,46 +515,74 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
         tok = token.to(torch.int32).contiguous()
     else:
         B = x.shape[0]
-        _io(x, "x", dev, (B, E))
+        if x.device not in row:
+            _check(x, "x", torch.float32, prep.device, (B, E))
     be, bl = (L, B, E), (L, B, El)
     for j, st in enumerate(states):
+        dev = prep.shard_device(j)
         for name, t in zip(WKVState._fields, st):
-            if j == 0 or name in ("aa", "bb", "pp"):
+            if j == 0 or prep.cards or name in ("aa", "bb", "pp"):
                 _io(t, f"shard {j} state.{name}", dev, be if name in ("xy", "dd") else bl)
+    n_stamps = 6 * L + 3 if prep.cards else 4 * L + 2
+    stamps_ = [None] * len(prep.devices)
     if stamps is not None:
-        _check(stamps, "stamps", torch.int64, dev, (stamps.numel(),))
-        if stamps.numel() < 4 * L + 2:
-            raise ValueError(f"decode_stack_tp: stamps needs {4 * L + 2} entries")
-    arr, cap = prep.table(B)
-    f32 = torch.float32
-    xy_out, dd_out = torch.empty(be, dtype=f32, device=dev), torch.empty(be, dtype=f32, device=dev)
-    logits = torch.empty((tp, B, Vl), dtype=f32, device=dev)
-    outs = [[torch.empty(bl, dtype=f32, device=dev) for _ in range(3)] for _ in range(tp)]
-    arr[_S["tokens"]] = tok.data_ptr() if token is not None else None
-    arr[_S["x_in"]] = x.data_ptr() if token is None else None
-    arr[_S["xy_in"]], arr[_S["dd_in"]] = states[0].xy.data_ptr(), states[0].dd.data_ptr()
-    arr[_S["xy_out"]], arr[_S["dd_out"]] = xy_out.data_ptr(), dd_out.data_ptr()
-    arr[_S["logits"]] = logits.data_ptr()
-    arr[_S["stamps"]] = None if stamps is None else stamps.data_ptr()
-    k, n = len(_SHARED), len(_SHARD)
+        stamps_ = list(stamps) if prep.cards else [stamps]
+        if len(stamps_) != len(prep.devices):
+            raise ValueError(f"decode_stack_tp: {len(prep.devices)} stamp tensors, one a card")
+        for t, dev in zip(stamps_, prep.devices):
+            _check(t, "stamps", torch.int64, dev, (t.numel(),))
+            if t.numel() < n_stamps:
+                raise ValueError(f"decode_stack_tp: stamps needs {n_stamps} entries")
     for j in range(tp):
         decay, bonus = local[j]
-        _io(decay, f"shard {j} decay", dev, (L, El))
-        _io(bonus, f"shard {j} bonus", dev, (L, El))
-        st = states[j]
-        base = k + j * n
-        for name, t in zip(_SHARD_IO, (decay, bonus, st.aa, st.bb, st.pp, *outs[j])):
-            arr[base + _D[name]] = t.data_ptr()
+        _io(decay, f"shard {j} decay", prep.shard_device(j), (L, El))
+        _io(bonus, f"shard {j} bonus", prep.shard_device(j), (L, El))
+    tables = prep.table(B)
+    f32 = torch.float32
+    k, n = len(_SHARED), len(_SHARD)
+    # every input on its card and every output made before the first launch
+    calls, logits, outs, xy_dd = [], [], [[] for _ in range(tp)], []
+    for c, ((arr, cap, _), dev) in enumerate(zip(tables, prep.devices)):
+        shard_ids = [c] if prep.cards else list(range(tp))
+        xy_out = torch.empty(be, dtype=f32, device=dev)
+        dd_out = torch.empty(be, dtype=f32, device=dev)
+        lg = torch.empty((len(shard_ids), B, Vl), dtype=f32, device=dev)
+        t_in = tok.to(dev) if token is not None else None
+        x_in = x.to(dev).contiguous() if token is None else None
+        if x_in is not None:
+            _io(x_in, "x", dev, (B, E))
+        st0 = states[shard_ids[0]]
+        arr[_S["tokens"]] = t_in.data_ptr() if t_in is not None else None
+        arr[_S["x_in"]] = x_in.data_ptr() if x_in is not None else None
+        arr[_S["xy_in"]], arr[_S["dd_in"]] = st0.xy.data_ptr(), st0.dd.data_ptr()
+        arr[_S["xy_out"]], arr[_S["dd_out"]] = xy_out.data_ptr(), dd_out.data_ptr()
+        arr[_S["logits"]] = lg.data_ptr()
+        arr[_S["stamps"]] = None if stamps_[c] is None else stamps_[c].data_ptr()
+        for i, j in enumerate(shard_ids):
+            decay, bonus = local[j]
+            st = states[j]
+            outs[j] = [torch.empty(bl, dtype=f32, device=dev) for _ in range(3)]
+            base = k + i * n
+            for name, t in zip(_SHARD_IO, (decay, bonus, st.aa, st.bb, st.pp, *outs[j])):
+                arr[base + _D[name]] = t.data_ptr()
+        calls.append((arr, cap, dev, (t_in, x_in)))
+        logits.extend(lg.unbind(0))
+        xy_dd.append((xy_out, dd_out))
     lib = _kernel()
-    launched, grid = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, L, B, E, El, Fl, Vl, n_emb, int(prep.q4),
-                                   prep.halves, cap, _COUNTERS,
-                                   torch.cuda.current_stream(dev).cuda_stream,
-                                   ctypes.byref(launched), ctypes.byref(grid))
-    if prep.q4:
-        launches_q4 += launched.value
-    else:
-        launches += launched.value
-    _build.check(lib, err, "decode_stack_tp")
-    return (list(logits.unbind(0)),
-            [WKVState(xy_out, *outs[j], dd_out) for j in range(tp)])
+    for c, (arr, cap, dev, _) in enumerate(calls):
+        launched, grid = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, c if prep.cards else 0,
+                                           int(prep.cards), L, B, E, El, Fl, Vl, n_emb,
+                                           int(prep.q4), prep.halves, cap, _COUNTERS,
+                                           torch.cuda.current_stream(dev).cuda_stream,
+                                           ctypes.byref(launched), ctypes.byref(grid))
+        if prep.q4:
+            launches_q4 += launched.value
+        else:
+            launches += launched.value
+        _build.check(lib, err, f"decode_stack_tp on {dev}")
+    if prep.cards:
+        return logits, [WKVState(xy_dd[j][0], *outs[j], xy_dd[j][1]) for j in range(tp)]
+    xy_out, dd_out = xy_dd[0]
+    return logits, [WKVState(xy_out, *outs[j], dd_out) for j in range(tp)]

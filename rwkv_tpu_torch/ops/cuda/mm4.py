@@ -109,8 +109,9 @@ def mm4(xs: torch.Tensor, wp: torch.Tensor, *, block: int | None = None,
         return out
     lib = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.rwkv_mm4(ptr(xs), ptr(wp), ptr(out), ptr(row_add), ptr(col_add), B, K, O, half,
-                       torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = lib.rwkv_mm4(ptr(xs), ptr(wp), ptr(out), ptr(row_add), ptr(col_add), B, K, O,
+                           half, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mm4")
     launches += 1
     return out

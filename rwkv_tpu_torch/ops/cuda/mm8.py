@@ -163,9 +163,10 @@ def mm8(xs: torch.Tensor, w: torch.Tensor, *, row_add: torch.Tensor | None = Non
     partial, counters, target = _build.split_scratch(dev, "mm8")
     lib = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.rwkv_mm8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add), B, K, O,
-                       ptr(partial), partial.numel(), ptr(counters), counters.numel(), target,
-                       torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = lib.rwkv_mm8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add), B, K, O,
+                           ptr(partial), partial.numel(), ptr(counters), counters.numel(),
+                           target, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mm8")
     launches += 1
     return out
@@ -209,10 +210,11 @@ def mm8_a8(xs: torch.Tensor, w: torch.Tensor, *, row_add: torch.Tensor | None = 
         partial, counters, target = _build.split_scratch(dev, "mm8_a8")
         lib = _kernel_a8()
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        err = lib.rwkv_mm8_a8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add),
-                              ptr(amax), ptr(row_max), ptr(codes), B, K, O, ptr(partial),
-                              partial.numel(), ptr(counters), counters.numel(), target,
-                              torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            err = lib.rwkv_mm8_a8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add),
+                                  ptr(amax), ptr(row_max), ptr(codes), B, K, O, ptr(partial),
+                                  partial.numel(), ptr(counters), counters.numel(), target,
+                                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, "mm8_a8")
         launches_a8 += 1
     if return_codes:

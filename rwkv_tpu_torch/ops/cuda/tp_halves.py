@@ -256,8 +256,9 @@ def ffn_half_plain(p: RWKVParams, l: int, x, dd):
 
 def _launch(fn, table: _Table, tensors, dims, what: str, device) -> int:
     lib = _kernel()
-    err = fn(lib)(table.fill(tensors), table.n, *dims,
-                  torch.cuda.current_stream(device).cuda_stream, ctypes.byref(table.launched))
+    with torch.cuda.device(device):  # the launch goes to the current device
+        err = fn(lib)(table.fill(tensors), table.n, *dims,
+                      torch.cuda.current_stream(device).cuda_stream, ctypes.byref(table.launched))
     _build.check(lib, err, what)
     return table.launched.value
 

@@ -21,20 +21,27 @@ the model shards of every local data row at once:
                      shard 0's device, then placed on each shard's device;
   all_gather(parts)  parts[d][j] concatenated over j along `dim`.
 
-It counts them in `collectives`, so tests can pin the 3L + 2 schedule. On
-distinct GPUs these collectives are device-to-device copies issued by the one
-controlling process: correct, but not fast.
+It counts them in `collectives`, so tests can pin the 3L + 2 schedule.
+
+A data row whose shards each lie on their own GPU (`row_on_cards`: four
+H100s of one host at tp = 4) runs its collectives between the cards as
+NCCL's single-process collectives (torch.cuda.nccl, one communicator per
+row's cards). NCCL's sum order is its own, so the bodies over cards hold the
+TP pin (3e-4), not the one-device bits. On four H100s one psum of [1, 5120]
+took 0.040-0.065 ms by NCCL and 0.136-0.206 ms by device copies summed in
+shard order on shard 0's card (PERF.md, section 5, tools/tp_cards.py), so
+the copies are not kept as a choice. On one device, or on the CPU, the
+collectives are the plain sums above.
 
 Across processes (parallel/multihost.py: pod_mesh) only the data axis spans
 the process boundary, as in the JAX pod mesh: `shape` is the global
 {"data": rows of every process, "model": tp}, while `devices` holds this
 process's `local_rows` rows, global rows first_row .. first_row +
 local_rows - 1 (which process this is, torch.distributed says:
-multihost.process_index()). A model axis never crosses a process. A mesh
-of one process has local_rows == shape["data"] and first_row == 0. NCCL
-collectives between cards, and measuring how decode scales across cards,
-wait for a machine with two or more GPUs (ROADMAP.md, queue 1, "Modules to
-port", item 5).
+multihost.process_index()). A model axis never crosses a process (the JAX
+doctrine: tensor parallelism stays inside a host); a process holding several
+cards runs its rows' model axis across them. A mesh of one process has
+local_rows == shape["data"] and first_row == 0.
 """
 
 from __future__ import annotations
@@ -76,6 +83,17 @@ class Mesh:
         self.first_row = first_row
         self.collectives = {"psum": 0, "all_gather": 0}
 
+    def row_on_cards(self, d: int) -> bool:
+        """Whether data row d's shards each lie on their own CUDA device."""
+        row = self.devices[d]
+        return (len(row) > 1 and len(set(row)) == len(row)
+                and all(dev.type == "cuda" for dev in row))
+
+    @property
+    def spans_cards(self) -> bool:
+        """Whether any data row runs its model axis across distinct cards."""
+        return any(self.row_on_cards(d) for d in range(self.local_rows))
+
     @property
     def first_device(self) -> torch.device:
         return self.devices[0][0]
@@ -86,24 +104,46 @@ class Mesh:
 
     def psum(self, parts):
         """[data][model] grid of tensors -> the grid of their sums over the
-        model shards of each data row, in the fixed order 0..tp-1."""
+        model shards of each data row: in the fixed order 0..tp-1, or, for a
+        row across cards, NCCL's all-reduce."""
         self.collectives["psum"] += 1
         out = []
-        for row, devs in zip(parts, self.devices):
+        for d, (row, devs) in enumerate(zip(parts, self.devices)):
+            if self.row_on_cards(d):
+                from torch.cuda import nccl
+
+                ins = [p.contiguous() for p in row]
+                outs = [torch.empty_like(p) for p in ins]
+                nccl.all_reduce(ins, outs)
+                out.append(outs)
+                continue
             s = row[0]
             for p in row[1:]:
                 s = s + p.to(devs[0])
             out.append([s.to(dev) for dev in devs])
         return out
 
-    def all_gather(self, parts, dim: int = -1):
+    def all_gather(self, parts, dim: int = -1, first_only: bool = False):
         """[data][model] grid of tensors -> the grid of their concatenations
-        over the model shards of each data row, along `dim`."""
+        over the model shards of each data row, along `dim`. first_only: the
+        concatenation is made on each row's shard 0 only (the others'
+        entries are that tensor too), for a caller that reads only shard
+        0's."""
         self.collectives["all_gather"] += 1
         out = []
-        for row, devs in zip(parts, self.devices):
+        for d, (row, devs) in enumerate(zip(parts, self.devices)):
+            if self.row_on_cards(d):
+                from torch.cuda import nccl
+
+                ins = [p.contiguous() for p in row]
+                outs = [torch.empty((len(ins),) + tuple(p.shape), dtype=p.dtype,
+                                    device=p.device) for p in ins]
+                nccl.all_gather(ins, outs)
+                got = [torch.cat(o.unbind(0), dim=dim) for o in outs[:1 if first_only else None]]
+                out.append(got * len(devs) if first_only else got)
+                continue
             g = torch.cat([p.to(devs[0]) for p in row], dim=dim)
-            out.append([g.to(dev) for dev in devs])
+            out.append([g] * len(devs) if first_only else [g.to(dev) for dev in devs])
         return out
 
 

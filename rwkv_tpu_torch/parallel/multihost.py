@@ -22,12 +22,20 @@ process_index, process_count, psum_data (a psum over 'data'),
 process_allgather, local_batch and global_batch. None of them runs inside a
 decode step, so none sits in a captured CUDA graph.
 
+A process may hold several cards (pod_mesh(model="slice") over them): its
+rows' model axis then runs across those cards (kernel K7's peer stores, or
+the mesh's collectives), and only the data axis crosses processes. Under a
+launcher, a process of k cards takes cuda:k*LOCAL_RANK .. cuda:k*LOCAL_RANK
++ k - 1 (local_devices).
+
 Backends: "nccl" where CUDA is available, else "gloo", or the caller's
-choice. Processes that share one card use "gloo": NCCL refuses two
-ranks on one device. Gloo's all_gather takes CPU tensors only, so on gloo
-these helpers copy a CUDA tensor to the host for the exchange and the result
-back to its device; such results are small (per-stream ids, logits,
-checksums), and decode itself stays on the card.
+choice. Between processes on distinct cards psum_data and process_allgather
+run on NCCL with CUDA tensors, on the process's first card. Processes that
+share one card use "gloo": NCCL refuses two ranks on one device. Gloo's
+all_gather takes CPU tensors only, so on gloo these helpers copy a CUDA
+tensor to the host for the exchange and the result back to its device; such
+results are small (per-stream ids, logits, checksums), and decode itself
+stays on the card.
 """
 
 from __future__ import annotations
@@ -131,12 +139,19 @@ def pod_mesh(model: "int | str" = "slice", devices: Optional[Sequence] = None) -
     if n_local % tp:
         raise ValueError(
             f"model={tp} is wider than, or does not divide, this process's {n_local} "
-            f"devices: a model axis across processes needs cross-process tensor-parallel "
-            f"collectives, which wait for a machine with two or more GPUs (ROADMAP.md, "
-            f"queue 1, 'Modules to port', item 5)")
+            f"devices: the model axis stays inside a process (the JAX doctrine keeps tensor "
+            f"parallelism inside a host); a model axis across processes is not built "
+            f"(ROADMAP.md, queue 1): give each process the cards of its model shards")
     rows = n_local // tp
     return Mesh([local[d * tp:(d + 1) * tp] for d in range(rows)], data=n_total // tp,
                 first_row=process_index() * rows)
+
+
+def local_devices(cards: int = 1) -> list:
+    """This process's cards under a launcher: cards per process from
+    cuda:cards*LOCAL_RANK on (LOCAL_RANK 0 without a launcher)."""
+    rank = int(os.environ.get("LOCAL_RANK", "0"))
+    return [torch.device("cuda", cards * rank + k) for k in range(cards)]
 
 
 def local_batch(x, mesh: Mesh, dim: int = 0):

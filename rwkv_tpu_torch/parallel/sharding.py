@@ -27,6 +27,15 @@ A layout is a tree shaped like the params whose leaves say which dim of the
 leaf splits over the model shards (None: replicated). shard_params() cuts
 every leaf once, into contiguous tensors on each shard's device: a column
 slice of [L, E, O] is a strided view, and the kernels read contiguous rows.
+make_put() does the same cut per tensor while a .bin is read, each piece
+sent from the host straight to its device, for every data row.
+
+The state of a batch of streams stays resident per shard between calls
+(ShardedState): cells[d][j] is model shard j of data row d's WKVState on
+its device, aa/bb/pp cut on E, xy/dd replicated (state_pspecs). The engine
+and the pool keep one and step it in place; it is joined into whole
+tensors (unshard_state) or cut from them (shard_state) only where a caller
+reads or writes a whole state. `counts` counts those cuts and joins.
 
 Not ported: the JAX package's 4-D pretiled layout (the port has none).
 """
@@ -47,15 +56,18 @@ from rwkv_tpu_torch.models.rwkv4 import (
     LNParams,
     RWKVParams,
     WKVState,
-    params_to,
 )
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.parallel.mesh import Mesh
 
 
-class Shards(tuple):
-    """One leaf already cut over the model shards (make_put): element j lives
-    on model shard j's device."""
+class MeshShards(tuple):
+    """One leaf already cut over a mesh (make_put): element [d][j] lives on
+    mesh.devices[d][j]."""
+
+
+# whole-state cuts (shard_state) and joins (unshard_state) made so far
+counts = {"shard_state": 0, "unshard_state": 0}
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -79,7 +91,7 @@ def _zip_map(fn, tree, spec):
 
 def _vocab(params: RWKVParams) -> int:
     emb = params.emb
-    return sum(p.shape[0] for p in emb) if isinstance(emb, Shards) else emb.shape[0]
+    return sum(p.shape[0] for p in emb[0]) if isinstance(emb, MeshShards) else emb.shape[0]
 
 
 def param_pspecs(params: RWKVParams, n_model: Optional[int] = None) -> RWKVParams:
@@ -124,18 +136,30 @@ def param_pspecs(params: RWKVParams, n_model: Optional[int] = None) -> RWKVParam
     )
 
 
-def _cut(t, dim: Optional[int], devices) -> list:
-    """t cut into len(devices) contiguous pieces along dim, piece j on
-    devices[j] (dim None: t itself on every device)."""
-    if isinstance(t, Shards):
-        return list(t)
+def _cut_mesh(t, dim: Optional[int], mesh: Mesh) -> MeshShards:
+    """t cut into tp contiguous pieces along dim (dim None: t whole), piece j
+    on mesh.devices[d][j] for every data row d; a device named twice gets one
+    copy. A MeshShards is taken as it is."""
+    if isinstance(t, MeshShards):
+        return t
+    tp = mesh.shape["model"]
     t = _as_tensor(t)
     if dim is None:
-        return [t.to(dev) for dev in devices]
-    n = len(devices)
-    if t.shape[dim] % n:
-        raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split over {n} shards")
-    return [c.contiguous().to(dev) for c, dev in zip(torch.chunk(t, n, dim), devices)]
+        pieces = [t] * tp
+    else:
+        if t.shape[dim] % tp:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split over "
+                             f"{tp} shards")
+        pieces = list(torch.chunk(t, tp, dim))
+    placed: dict = {}
+
+    def on(j, dev):
+        key = (id(pieces[j]), dev)
+        if key not in placed:
+            placed[key] = pieces[j].contiguous().to(dev)
+        return placed[key]
+
+    return MeshShards(tuple(on(j, dev) for j, dev in enumerate(row)) for row in mesh.devices)
 
 
 class ShardedParams:
@@ -192,7 +216,7 @@ def _check_q4_blocks(params: RWKVParams, tp: int) -> None:
     """A 4-bit row-parallel family is cut on its packed rows: each shard must
     hold whole pairing blocks, or a block would straddle two shards."""
     for name, lin in (("att.output", params.att.output), ("ffn.value", params.ffn.value)):
-        if not isinstance(lin, Quant4Linear) or isinstance(lin.wp, Shards):
+        if not isinstance(lin, Quant4Linear) or isinstance(lin.wp, MeshShards):
             continue
         K = lin.in_features
         b = lin.block or K
@@ -204,19 +228,16 @@ def _check_q4_blocks(params: RWKVParams, tp: int) -> None:
 
 
 def shard_params(params: RWKVParams, mesh: Mesh) -> ShardedParams:
-    """Cut `params` (numpy or torch leaves, or Shards leaves from make_put)
+    """Cut `params` (numpy or torch leaves, or MeshShards leaves from make_put)
     over `mesh` by param_pspecs. A 4-bit row-parallel family's pairing block
     must divide its rows per shard (ValueError otherwise)."""
     tp = mesh.shape["model"]
     _check_q4_blocks(params, tp)
     vocab = _vocab(params)
     specs = param_pspecs(params, n_model=tp)
-    cut = _zip_map(lambda leaf, dim: Shards(_cut(leaf, dim, mesh.devices[0])), params, specs)
-    row0 = [_zip_map(lambda pieces, _: pieces[j], cut, specs) for j in range(tp)]
-    rows = [row0]
-    for devs in mesh.devices[1:]:
-        rows.append([p if dev == p.emb.device else params_to(p, dev)
-                     for p, dev in zip(row0, devs)])
+    cut = _zip_map(lambda leaf, dim: _cut_mesh(leaf, dim, mesh), params, specs)
+    rows = [[_zip_map(lambda grid, _: grid[d][j], cut, specs) for j in range(tp)]
+            for d in range(mesh.local_rows)]
     return ShardedParams(rows, mesh, vocab)
 
 
@@ -234,6 +255,7 @@ def shard_state(state: WKVState, mesh: Mesh):
     """A full state ([L, B, E] leaves) cut into a [data][model] grid of
     WKVStates over this process's rows, each leaf contiguous on its shard's
     device. B (this process's streams) must split evenly over its data rows."""
+    counts["shard_state"] += 1
     nd, tp = mesh.local_rows, mesh.shape["model"]
     specs = state_pspecs(n_model=tp)
     cells = [[{} for _ in range(tp)] for _ in range(nd)]
@@ -250,6 +272,7 @@ def shard_state(state: WKVState, mesh: Mesh):
 
 def unshard_state(grid, mesh: Mesh) -> WKVState:
     """The inverse of shard_state: full leaves on the mesh's first device."""
+    counts["unshard_state"] += 1
     specs = state_pspecs(n_model=mesh.shape["model"])
     first = mesh.first_device
     out = []
@@ -262,6 +285,124 @@ def unshard_state(grid, mesh: Mesh) -> WKVState:
                 rows.append(torch.cat([cell[i].to(first) for cell in row], dim=mdim))
         out.append(torch.cat(rows, dim=ddim) if len(rows) > 1 else rows[0])
     return WKVState(*out)
+
+
+class ShardedState:
+    """The state of B streams resident per shard (the module docstring).
+
+    cells[d][j]: model shard j of data row d, on mesh.devices[d][j]: xy/dd
+    [L, per, E], the same values on every shard of the row, aa/bb/pp [L,
+    per, E / tp]. Row d holds lanes d * per .. (d + 1) * per - 1 of the
+    batch, per = ceil(B / data rows); the lanes from B on are padding, which
+    the steps compute on and never return. Iterating gives every leaf
+    tensor (cells row-major, WKVState's field order), so code that carries
+    a state in place (`s.copy_(n)` over two states' leaves) takes it as it
+    takes a WKVState."""
+
+    def __init__(self, cells, mesh: Mesh, B: int):
+        self.cells = cells
+        self.mesh = mesh
+        self.B = B
+        self.per = cells[0][0].xy.shape[1]
+
+    @staticmethod
+    def lanes_per_row(B: int, mesh: Mesh) -> int:
+        return -(-B // mesh.local_rows)
+
+    @classmethod
+    def zeros(cls, config: RWKVConfig, B: int, mesh: Mesh) -> "ShardedState":
+        """A fresh state of B streams: zeros, and pp -1e30 (init_state)."""
+        tp, per = mesh.shape["model"], cls.lanes_per_row(B, mesh)
+        L, E = config.n_layer, config.n_embd
+
+        def cell(dev):
+            z = lambda w: torch.zeros((L, per, w), dtype=torch.float32, device=dev)  # noqa: E731
+            return WKVState(xy=z(E), aa=z(E // tp), bb=z(E // tp),
+                            pp=torch.full((L, per, E // tp), -1e30, dtype=torch.float32,
+                                          device=dev), dd=z(E))
+
+        return cls([[cell(dev) for dev in row] for row in mesh.devices], mesh, B)
+
+    @classmethod
+    def cut(cls, state: WKVState, mesh: Mesh) -> "ShardedState":
+        """A whole state ([L, B, E] leaves) cut over the mesh (shard_state),
+        padded to whole rows."""
+        B = state.xy.shape[1]
+        pad = cls.lanes_per_row(B, mesh) * mesh.local_rows - B
+        if pad:
+            state = WKVState(*(torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in state))
+        return cls(shard_state(state, mesh), mesh, B)
+
+    def join(self) -> WKVState:
+        """The whole state, [L, B, E] leaves on the mesh's first device
+        (unshard_state)."""
+        whole = unshard_state(self.cells, self.mesh)
+        return whole if self.per * len(self.cells) == self.B else \
+            WKVState(*(t[:, :self.B] for t in whole))
+
+    def replace(self, cells) -> "ShardedState":
+        return ShardedState(cells, self.mesh, self.B)
+
+    def __iter__(self):
+        return (t for row in self.cells for cell in row for t in cell)
+
+    def with_leaves(self, leaves) -> "ShardedState":
+        """The same layout over other leaf tensors, in __iter__'s order."""
+        it = iter(leaves)
+        return self.replace([[WKVState(*(next(it) for _ in WKVState._fields)) for _ in row]
+                             for row in self.cells])
+
+    def _copy_lane(self, g: int, src: "ShardedState", k: int) -> None:
+        """Stream g of this state := stream k of src, shard by shard."""
+        d, i = divmod(g, self.per)
+        ds, ks = divmod(k, src.per)
+        for dst, got in zip(self.cells[d], src.cells[ds]):
+            for t, u in zip(dst, got):
+                t[:, i].copy_(u[:, ks])
+
+    def take(self, lanes) -> "ShardedState":
+        """Streams `lanes` (in that order) as a ShardedState of len(lanes)
+        streams: on one data row each shard's lanes picked on its device;
+        over several rows lane by lane (a stream may change rows)."""
+        lanes = list(lanes)
+        if len(self.cells) == 1:
+            cells = [[WKVState(*(t.index_select(1, torch.tensor(lanes, device=t.device))
+                                 for t in cell)) for cell in self.cells[0]]]
+            return ShardedState(cells, self.mesh, len(lanes))
+        L, _, E = self.cells[0][0].xy.shape
+        out = ShardedState.zeros(RWKVConfig(n_layer=L, n_embd=E, vocab_size=1), len(lanes),
+                                 self.mesh)
+        for k, g in enumerate(lanes):
+            out._copy_lane(k, self, g)
+        return out
+
+    def put(self, lanes, src: "ShardedState") -> None:
+        """Write src's streams 0 .. len(lanes) - 1 into streams `lanes`, in
+        place, each shard's on its device."""
+        lanes = list(lanes)
+        if src.B != len(lanes):
+            raise ValueError(f"put: {src.B} streams for {len(lanes)} lanes")
+        if len(self.cells) == 1 and len(src.cells) == 1:
+            for dst, got in zip(self.cells[0], src.cells[0]):
+                idx = torch.tensor(lanes, device=dst.xy.device)
+                for t, u in zip(dst, got):
+                    t.index_copy_(1, idx, u[:, :len(lanes)])
+            return
+        for k, g in enumerate(lanes):
+            self._copy_lane(g, src, k)
+
+    def where(self, active: torch.Tensor, old: "ShardedState") -> "ShardedState":
+        """Per stream, this state where active[b] (a [B] bool), else old's."""
+        act = torch.nn.functional.pad(active, (0, self.per * len(self.cells) - self.B))
+        rows = act.reshape(len(self.cells), self.per)
+        cells = []
+        for d, (new_row, old_row) in enumerate(zip(self.cells, old.cells)):
+            row = []
+            for j, (n, o) in enumerate(zip(new_row, old_row)):
+                a = rows[d].to(n.xy.device)[None, :, None]
+                row.append(WKVState(*(torch.where(a, x, y) for x, y in zip(n, o))))
+            cells.append(row)
+        return self.replace(cells)
 
 
 @dataclasses.dataclass
@@ -283,9 +424,10 @@ _VOCAB_DIM = {"embed": 0, "head": 1, "logit_bias": 0}
 
 def make_put(ctx: "ShardingContext | Mesh"):
     """A put(name, host_array) for io.binfmt.read_bin that cuts each tensor
-    straight into its shards (Shards; a replicated tensor goes to the first
-    device whole), so the host holds one tensor at a time and each device
-    only its pieces. shard_params then takes the result as it is."""
+    straight into its pieces on every data row's devices (MeshShards; a
+    replicated tensor whole on each of them), each piece sent from the host
+    to its own device, so the host holds about one tensor at a time and each
+    device only its pieces. shard_params then takes the result as it is."""
     mesh = ctx.mesh if isinstance(ctx, ShardingContext) else ctx
     tp = mesh.shape["model"]
 
@@ -293,8 +435,8 @@ def make_put(ctx: "ShardingContext | Mesh"):
         dim = _PUT_DIMS.get(name)
         vd = _VOCAB_DIM.get(name)
         if dim is None or (vd is not None and arr.shape[vd] % tp):
-            return _as_tensor(arr).to(mesh.first_device)
-        return Shards(_cut(arr, dim, mesh.devices[0]))
+            dim = None
+        return _cut_mesh(arr, dim, mesh)
 
     return put
 

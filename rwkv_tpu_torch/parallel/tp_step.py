@@ -31,17 +31,22 @@ shard_map runs one program over all of them. Bodies, by their JAX names:
 
 4-bit params run only through "fused", as in JAX. body=None picks "fused"
 where K7 is eligible (signed int8 or 4-bit weights, E / tp and each shard's
-vocab multiples of 128) and every data row's shards lie on one CUDA device,
-the JAX rule on an accelerator; else "halves" where the Pallas rule makes it
+vocab multiples of 128) and every data row's shards lie on one CUDA device
+or each on its own card with peer access between every pair (K7 across
+cards: one launch per card, the exchanges peer stores over NVLink), the JAX
+rule on an accelerator; else "halves" where the Pallas rule makes it
 eligible (signed int8 weights, (E / tp) % 128 == 0), else "plain", as
-make_tp_step does on a CPU backend. On CPU tensors the kernel bodies run
-their kernels' plain versions; on CUDA tensors the kernels. A data row over
-distinct GPUs has no fused body yet: asking for it raises.
+make_tp_step does on a CPU backend. body="fused" over a row of cards without
+peer access raises, naming the pair. On CPU tensors the kernel bodies run
+their kernels' plain versions; on CUDA tensors the kernels. Over distinct
+cards the collectives of "plain" and "halves", and the fused body's one
+logits gather, are the mesh's NCCL collectives (parallel/mesh.py).
 
-The step takes and returns the whole state ([L, B, E] leaves on the mesh's
-first device): it cuts it into per-shard contiguous pieces for each call and
-joins them after (sharding.shard_state / unshard_state), so the engine and
-the pool keep one state of full tensors.
+The step takes the state either whole ([L, B, E] leaves on the mesh's first
+device: cut into per-shard pieces for the call and joined after,
+sharding.shard_state / unshard_state) or resident per shard
+(sharding.ShardedState, returned as one, with no cut and no join): the
+engine and the pool keep theirs resident.
 
 On a pod mesh (parallel/multihost.py: pod_mesh), whose data axis spans
 processes, the step, the prefill and the engine adapters take and return this
@@ -79,6 +84,7 @@ from rwkv_tpu_torch.ops.cuda.decode_stack_tp import (
     FUSE_EMBED_MAX_B,
     decode_stack_tp,
     fused_problem,
+    row_devices,
 )
 from rwkv_tpu_torch.ops.cuda.mm8 import mm8
 from rwkv_tpu_torch.ops.cuda.tp_halves import att_half, ffn_half
@@ -86,7 +92,12 @@ from rwkv_tpu_torch.ops.layernorm import layer_norm
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState, wkv_parallel, wkv_step
 from rwkv_tpu_torch.parallel.mesh import Mesh
-from rwkv_tpu_torch.parallel.sharding import ShardedParams, shard_state, unshard_state
+from rwkv_tpu_torch.parallel.sharding import (
+    ShardedParams,
+    ShardedState,
+    shard_state,
+    unshard_state,
+)
 from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
 
 BODIES = ("plain", "halves", "fused")
@@ -107,8 +118,12 @@ class _Collectives:
     def psum(self, parts):
         return self.mesh.psum(parts) if self.on else parts
 
-    def gather(self, parts):
-        return self.mesh.all_gather(parts, dim=-1) if self.on else parts
+    def gather(self, parts, first_only: bool = False):
+        """first_only: the caller reads only each row's shard 0 (the
+        logits), so the gathered tensor is not copied out to the others."""
+        if not self.on:
+            return parts
+        return self.mesh.all_gather(parts, dim=-1, first_only=first_only)
 
 
 def _split_batch(mesh: Mesh, t: torch.Tensor, dim: int):
@@ -158,7 +173,7 @@ def _head(sp: ShardedParams, x, comm: _Collectives, kernel: bool):
         logits = _matmul(h, p.head)
         return logits if p.logit_bias is None else logits + p.logit_bias
 
-    return comm.gather(_grid(sp.mesh, local))
+    return comm.gather(_grid(sp.mesh, local), first_only=True)
 
 
 def _stack(layers) -> WKVState:
@@ -259,7 +274,7 @@ def _tp_step_local_fused(sp: ShardedParams, tokens, states, comm: _Collectives):
         bias = [p.logit_bias for p in sp.rows[d]]
         logits.append([g if b is None else g + b for g, b in zip(lg, bias)])
         new.append(st)
-    return comm.gather(logits), new
+    return comm.gather(logits, first_only=True), new
 
 
 def _meta(params):
@@ -269,9 +284,16 @@ def _meta(params):
     return params, params.emb.shape[0], params.emb.shape[1]
 
 
-def _one_device_rows(mesh: Mesh) -> bool:
-    """Every data row's shards on one CUDA device (a virtual mesh)."""
-    return all(row[0].type == "cuda" and len(set(row)) == 1 for row in mesh.devices)
+def _k7_rows(mesh: Mesh) -> bool:
+    """Whether kernel K7 can run every data row: on one CUDA device (a
+    virtual mesh), or each shard on its own card with peer access between
+    every pair (decode_stack_tp.row_devices accepts it)."""
+    try:
+        for row in mesh.devices:
+            row_devices(row)
+    except (ValueError, RuntimeError):
+        return False
+    return True
 
 
 def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
@@ -280,14 +302,14 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
     and "halves", at most 2 for "fused": the module docstring); params is the
     ShardedParams the step will be given (or the whole params, for the
     checks); state leaves [L, B, E], B divisible by this process's data rows
-    (on a pod mesh the process's own streams); the results lie on the mesh's
-    first device.
+    (on a pod mesh the process's own streams), or a ShardedState of B
+    streams, returned resident; the logits lie on the mesh's first device.
 
     body: "plain", "halves" (kernel K6; signed int8 weights and E / tp a
     multiple of 128), "fused" (kernel K7; signed int8 or 4-bit weights, E /
-    tp and each shard's vocab multiples of 128, every data row on one
-    device; the only body of 4-bit params) or None (auto: "fused" where
-    eligible and every data row lies on one CUDA device, else "halves"
+    tp and each shard's vocab multiples of 128, every data row on one CUDA
+    device or each shard on its own card with peer access; the only body of
+    4-bit params) or None (auto: "fused" where eligible, else "halves"
     where eligible, else "plain")."""
     tp = mesh.shape["model"]
     p0, V, E = _meta(params)
@@ -309,18 +331,14 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
                              "halves bodies stream q8); quantize with quantize_params for those")
         body = "fused"
     problem = fused_problem(p0, tp, E, F, V)
-    if body is None and problem is None and _one_device_rows(mesh):
+    if body is None and problem is None and _k7_rows(mesh):
         body = "fused"
     if body == "fused":
         if problem is not None:
             raise problem[0](f"body='fused': {problem[1]}")
-        if any(len(set(row)) > 1 for row in mesh.devices):
-            raise ValueError(
-                "body='fused' runs every shard of a data row on one device (kernel K7's "
-                "exchanges read the shards' partials from one device's memory); a row over "
-                "distinct GPUs needs the cross-card exchange, which waits for a machine with "
-                "two or more GPUs (ROADMAP.md, queue 1, 'Modules to port', item 5): use "
-                "body='halves'")
+        for row in mesh.devices:
+            if len(set(row)) > 1 or row[0].type == "cuda":
+                row_devices(row)  # raises for a row K7 cannot run, naming why
     eligible = (not q4 and p0.att.key.w.dtype == torch.int8 and E % tp == 0
                 and (E // tp) % 128 == 0)
     if body is None:
@@ -333,15 +351,24 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
              "fused": _tp_step_local_fused}[body]
     nd = mesh.local_rows
 
-    def eager(sp: ShardedParams, token: torch.Tensor, state: WKVState):
+    def eager(sp: ShardedParams, token: torch.Tensor, state):
+        if isinstance(state, ShardedState):  # resident: no cut, no join
+            tok = torch.nn.functional.pad(token, (0, state.per * nd - state.B))
+            logits, cells = local(sp, _split_batch(mesh, tok, 0), state.cells,
+                                  _Collectives(mesh))
+            return _join_batch(mesh, logits, 0)[:state.B], state.replace(cells)
         logits, states = local(sp, _split_batch(mesh, token, 0), shard_state(state, mesh),
                                _Collectives(mesh))
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
     graphs = Graphs(mesh=mesh) if body == "halves" and one_cuda_device(mesh) else None
 
-    def step(sp: ShardedParams, token: torch.Tensor, state: WKVState):
-        if token.dim() != 1 or token.shape[0] % nd:
+    def step(sp: ShardedParams, token: torch.Tensor, state):
+        if isinstance(state, ShardedState):
+            if token.shape != (state.B,):
+                raise ValueError(f"tp_step: token must be [{state.B}] for a state of "
+                                 f"{state.B} streams, got {tuple(token.shape)}")
+        elif token.dim() != 1 or token.shape[0] % nd:
             raise ValueError(f"tp_step: token must be [B] with B divisible by this process's "
                              f"data rows ({nd}), got {tuple(token.shape)}")
         if graphs is None:
@@ -436,15 +463,27 @@ def make_tp_prefill(mesh: Mesh, params, *, masked: bool = True,
     nd = mesh.local_rows
 
     def prefill(sp: ShardedParams, tokens, state, length=None):
-        if tokens.dim() != 2 or tokens.shape[1] % nd:
+        resident = isinstance(state, ShardedState)
+        if resident:
+            if tokens.dim() != 2 or tokens.shape[1] != state.B:
+                raise ValueError(f"tp prefill: tokens must be [T, {state.B}] for a state of "
+                                 f"{state.B} streams, got {tuple(tokens.shape)}")
+            pad = state.per * nd - state.B
+            tokens = torch.nn.functional.pad(tokens, (0, pad))
+            if masked:
+                length = torch.nn.functional.pad(
+                    torch.as_tensor(length, device=tokens.device), (0, pad))
+        elif tokens.dim() != 2 or tokens.shape[1] % nd:
             raise ValueError(f"tp prefill: tokens must be [T, B] with B divisible by this "
                              f"process's data rows ({nd}), got {tuple(tokens.shape)}")
         lens = None
         if masked:
             lens = _split_batch(mesh, torch.as_tensor(length, device=tokens.device), 0)
-        logits, states = _tp_seq_local(sp, _split_batch(mesh, tokens, 1),
-                                       shard_state(state, mesh), lens, _Collectives(mesh),
-                                       compute_dtype)
+        cells = state.cells if resident else shard_state(state, mesh)
+        logits, states = _tp_seq_local(sp, _split_batch(mesh, tokens, 1), cells, lens,
+                                       _Collectives(mesh), compute_dtype)
+        if resident:
+            return _join_batch(mesh, logits, 0)[:state.B], state.replace(states)
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
     if masked:
@@ -460,7 +499,8 @@ def _pad_streams(state: WKVState, B: int, Bp: int) -> WKVState:
 
 def make_engine_prefill(mesh: Mesh, params, *, compute_dtype: torch.dtype = torch.float32):
     """A forward_seq-shaped adapter over make_tp_prefill for the engine and
-    the pool: tokens [T] or [T, B]; state leaves [L, E] or [L, B, E]; a
+    the pool: tokens [T] or [T, B]; state leaves [L, E] or [L, B, E], or a
+    ShardedState of B streams (tokens [T] then stand for its one stream); a
     scalar or [B] length, or None for a full chunk (every real lane holds T
     tokens); B padded up to the data rows (the padded lanes' results are
     dropped)."""
@@ -470,6 +510,15 @@ def make_engine_prefill(mesh: Mesh, params, *, compute_dtype: torch.dtype = torc
 
     def prefill(sp, tokens, state, length=None):
         unb = tokens.dim() == 1
+        if isinstance(state, ShardedState):  # resident: its lanes already padded
+            tokens = tokens[:, None] if unb else tokens
+            if length is not None:
+                length = torch.as_tensor(length, device=tokens.device).to(torch.int64)
+                length = length.expand(tokens.shape[1]) if length.dim() == 0 else length
+                logits, st = masked(sp, tokens, state, length)
+            else:
+                logits, st = full(sp, tokens, state)
+            return (logits[0] if unb else logits), st
         if unb:
             tokens = tokens[:, None]
             state = WKVState(*(s[:, None] for s in state))
@@ -497,14 +546,18 @@ def make_engine_prefill(mesh: Mesh, params, *, compute_dtype: torch.dtype = torc
 
 def make_engine_step(mesh: Mesh, params, **kw):
     """A make_tp_step with forward_step's shapes, for the engine and the
-    pool: token scalar or [B], state leaves [L, E] or [L, B, E]; B padded up
-    to the data rows (the padded streams compute on zero state and are
-    dropped)."""
+    pool: token scalar or [B], state leaves [L, E] or [L, B, E], or a
+    ShardedState of B streams (a scalar token then stands for its one
+    stream); B padded up to the data rows (the padded streams compute on
+    zero state, or a resident state's padding lanes, and are dropped)."""
     step = make_tp_step(mesh, params, **kw)
     nd = mesh.local_rows
 
     def engine_step(sp, token, state):
         unb = token.dim() == 0
+        if isinstance(state, ShardedState):  # resident: its lanes already padded
+            logits, st = step(sp, token.reshape(-1), state)
+            return (logits[0] if unb else logits), st
         if unb:
             token = token[None]
             state = WKVState(*(s[:, None] for s in state))

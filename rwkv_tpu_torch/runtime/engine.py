@@ -39,9 +39,14 @@ with the head on K2; "plain"; None picks "fused" on a mesh whose data rows
 each lie on one CUDA device, else "halves"). 4-bit weights run under a mesh
 through "fused" only, as in the JAX engine: a q4 artifact or params as they
 are (their row-parallel pack block must divide E / tp and F / tp), or a
-dense checkpoint quantized with q4_pack_block(E, tp). The state stays one
-set of whole tensors on the mesh's first device, cut for each call. W8A8
-(a8) has no sharded step, as in the JAX engine.
+dense checkpoint quantized with q4_pack_block(E, tp). The state stays
+resident per shard between calls (parallel/sharding.py's ShardedState, each
+shard's piece on its own device, as the JAX engine's state stays sharded on
+its chips): a call picks a stream's lanes on each shard and writes them
+back there, and only get_state/set_state (and snapshot, restore, save_state
+and load_state through them) join the shards into whole tensors or cut
+them. On a mesh over distinct cards, decode runs eagerly (runtime/graphs.py
+says why). W8A8 (a8) has no sharded step, as in the JAX engine.
 
 The engine runs on "cuda" unless the caller passes device="cpu" (or a mesh
 of CPU devices); it never falls back to the CPU on its own.
@@ -76,6 +81,7 @@ from rwkv_tpu_torch.ops.sampling import typical
 from rwkv_tpu_torch.parallel.mesh import canonical
 from rwkv_tpu_torch.parallel.sharding import (
     ShardedParams,
+    ShardedState,
     make_put,
     shard_params,
     tp_vocab_multiple,
@@ -164,7 +170,8 @@ class RWKV:
         self.tokenizer = None  # BPETokenizer or NativeBPETokenizer
         self.max_streams = max_streams
         self.prefill_buckets = tuple(sorted(prefill_buckets))
-        self._state: Optional[WKVState] = None  # leaves [L, max_streams, E]
+        # leaves [L, max_streams, E]; with a mesh, a ShardedState
+        self._state: Optional[WKVState | ShardedState] = None
         self._last_logits: dict[int, torch.Tensor] = {}  # stream -> logits [Vp]
         self._pending: dict[int, int] = {}  # emitted-but-not-absorbed token
         # the decode step (params, tokens, state) -> (logits, state); the pool
@@ -334,11 +341,35 @@ class RWKV:
     def reset_state(self, stream: Optional[int] = None) -> None:
         self._require_loaded()
         if stream is None or self._state is None:
-            self._state = init_state(self.config, (self.max_streams,), device=self.device)
+            if self._mesh is not None:
+                self._state = ShardedState.zeros(self.config, self.max_streams, self._mesh)
+            else:
+                self._state = init_state(self.config, (self.max_streams,), device=self.device)
             self._last_logits = {}
             self._pending = {}
+        elif self._mesh is not None:  # a fresh stream, written on each shard
+            self._check_stream(stream)
+            self._put_stream(ShardedState.zeros(self.config, 1, self._mesh), stream)
         else:
             self.set_state(self.empty_state(), stream)
+
+    def _stream_state(self, stream: int):
+        """The state a call steps for one stream: a contiguous copy of its
+        lanes (with a mesh a ShardedState of that one stream, each shard's
+        piece on its device: no join)."""
+        if self._mesh is not None:
+            return self._state.take([stream])
+        return self.get_state(stream)
+
+    def _put_stream(self, state, stream: int) -> None:
+        """Write a state from _stream_state back into the stream's lanes."""
+        if self._mesh is not None:
+            self._state.put([stream], state)
+        else:
+            for pool, s in zip(self._state, state):
+                pool[:, stream] = s
+        self._last_logits.pop(stream, None)
+        self._pending.pop(stream, None)
 
     def empty_state(self) -> WKVState:
         """A fresh single-stream state (leaves [L, E])."""
@@ -348,17 +379,23 @@ class RWKV:
     emptyState = empty_state
 
     def get_state(self, stream: int = 0) -> WKVState:
-        """A contiguous copy of one stream's state: later steps never change it."""
+        """A contiguous copy of one stream's state: later steps never change
+        it (with a mesh, its shards joined on the first device)."""
         self._check_stream(stream)
+        if self._mesh is not None:
+            return WKVState(*(s[:, 0].contiguous()
+                              for s in self._state.take([stream]).join()))
         return WKVState(*(s[:, stream].clone(memory_format=torch.contiguous_format)
                           for s in self._state))
 
     def set_state(self, state: WKVState, stream: int = 0) -> None:
+        """Set one stream's state from whole [L, E] leaves (with a mesh, cut
+        onto the shards)."""
         self._check_stream(stream)
-        for pool, s in zip(self._state, state):
-            pool[:, stream] = s
-        self._last_logits.pop(stream, None)
-        self._pending.pop(stream, None)
+        if self._mesh is not None:
+            state = ShardedState.cut(WKVState(*(s[:, None].to(self.device) for s in state)),
+                                     self._mesh)
+        self._put_stream(state, stream)
 
     def snapshot(self, stream: int = 0) -> dict:
         """Full continuation point: state + decode bookkeeping."""
@@ -439,7 +476,7 @@ class RWKV:
             tokens = [pending] + tokens
         if not tokens:
             raise ValueError("forward() needs at least one token")
-        state = self.get_state(stream)
+        state = self._stream_state(stream)
         logits = None
         K = self.prefill_buckets[-1]
         for start in range(0, len(tokens), K):
@@ -460,7 +497,7 @@ class RWKV:
                 logits, state = forward_seq(self.params, padded.to(self.device), state,
                                             parallel=True, length=length,
                                             compute_dtype=self.prefill_dtype)
-        self.set_state(state, stream)
+        self._put_stream(state, stream)
         self._last_logits[stream] = logits
         return logits[..., : self._true_vocab]
 
@@ -576,7 +613,7 @@ class RWKV:
 
         token = self._graphs(("sample", tuple(logits.shape)), self._sample,
                              logits, temp_t, tau_t, ban)
-        state = self.get_state(stream)
+        state = self._stream_state(stream)
 
         decoder = StreamDecoder(self.tokenizer)
         pieces: list[str] = []
@@ -609,7 +646,7 @@ class RWKV:
             text = "".join(pieces)[:scanner.cut]
         else:
             text = "".join(pieces) + decoder.flush()
-        self.set_state(state, stream)
+        self._put_stream(state, stream)
         self._pending[stream] = int(token)  # emitted, not yet absorbed
         metrics.inc("engine.generate_calls")
         metrics.inc("engine.tokens_generated", n_ids)

@@ -4,8 +4,8 @@ the JAX engine's decode and of its lax.scan of k decode steps).
     graphs = Graphs(generators=(gen,), mesh=mesh)
     out = graphs(key, fn, *args)
 
-fn takes tensors (or tuples of tensors, such as a WKVState) and returns
-tensors. The first call for a key runs fn eagerly: that call is the warm-up,
+fn takes tensors (or tuples of tensors, such as a WKVState, or a
+parallel.sharding.ShardedState) and returns tensors. The first call for a key runs fn eagerly: that call is the warm-up,
 in which the kernels are built and their pointer tables, per-width buffers
 and split-K scratch are made. Then fn is captured into one CUDA graph on
 static copies of the args, and every later call of the key copies its args
@@ -37,9 +37,14 @@ engine and the pool replay their graphs on one stream, one after another,
 and every output is copied or consumed before the next replay: no graph
 runs while another one's memory is still in use.
 
-On CPU tensors, or with enabled=False (a mesh over distinct GPUs: the
-collectives cross devices, which one stream's graph does not capture), fn
-runs eagerly on every call.
+On CPU tensors, or with enabled=False, fn runs eagerly on every call. A mesh
+over distinct GPUs decodes eagerly (one_cuda_device): a graph of its step
+would be one capture across the row's cards, each card's stream joined to
+the capturing one, with kernel K7's launches on every card and the
+collectives' copies (or NCCL's kernels) between them inside it. That
+multi-device capture is not done here (ROADMAP.md); the host's work a step
+over cards is K7's tp launches and the logits gather, and the step's time
+over four H100s is in PERF.md.
 """
 
 from __future__ import annotations
@@ -115,6 +120,8 @@ def _leaves(tree) -> list[torch.Tensor]:
 def _map(fn, tree):
     if torch.is_tensor(tree):
         return fn(tree)
+    if hasattr(tree, "with_leaves"):  # a ShardedState: its leaves, its layout
+        return tree.with_leaves([fn(t) for t in tree])
     items = [_map(fn, sub) for sub in tree]
     return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
@@ -186,7 +193,8 @@ class Graphs:
 
 def one_cuda_device(mesh: Optional[object]) -> bool:
     """Whether a mesh (or no mesh) lets its decode be graphed: every shard on
-    one CUDA device. A mesh over distinct GPUs decodes eagerly."""
+    one CUDA device. A mesh over distinct GPUs decodes eagerly (no
+    multi-device capture: the module docstring)."""
     if mesh is None:
         return True
     devs = {d for row in mesh.devices for d in row}

@@ -8,8 +8,11 @@ the stop-string and length bookkeeping runs.
 
 The pool's state is one WKVState with leaves [L, B, E] on the params' device
 ("cuda" on the card, where the step runs the decode kernels; "cpu" for the
-plain versions). A freed slot keeps its old state until an admission
-overwrites it.
+plain versions); on sharded params (parallel/sharding.py's ShardedParams) a
+ShardedState resident per shard, each shard's piece on its own device: a
+step advances it in place, and admission writes only the admitted slots'
+lanes on each shard (no whole-state cut or join). A freed slot keeps its
+old state until an admission overwrites it.
 
 Sampling: each slot draws its noise from its own torch.Generator on the
 device, one for the pool's life, reseeded with the request's seed at
@@ -42,6 +45,7 @@ import torch
 from rwkv_tpu_torch.models.rwkv4 import RWKVParams, WKVState, forward_seq, init_state
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
 from rwkv_tpu_torch.ops.sampling import typical
+from rwkv_tpu_torch.parallel.sharding import ShardedState
 from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
@@ -121,11 +125,12 @@ class InferencePool:
                                if 1 << i <= self.B} | {self.B})
 
         self.step_chunk = max(1, int(step_chunk))
-        self._state = init_state(self.cfg, (self.B,), device=self.device)
+        self._mesh = getattr(params, "mesh", None)  # ShardedParams carry their mesh
+        self._state = self._new_state(self.B)
         self._tokens = [0] * self.B
         self._active = [False] * self.B
         self._gens = [self._generator(i) for i in range(self.B)]
-        mesh = getattr(params, "mesh", None)  # ShardedParams carry their mesh
+        mesh = self._mesh
         self._graphs = Graphs(generators=self._gens, mesh=mesh, enabled=one_cuda_device(mesh))
         self._temp = [1.0] * self.B
         self._tau = [0.8] * self.B
@@ -146,6 +151,12 @@ class InferencePool:
 
     # -- device work ------------------------------------------------------------
 
+    def _new_state(self, n: int):
+        """A fresh state of n streams: resident per shard on sharded params."""
+        if self._mesh is not None:
+            return ShardedState.zeros(self.cfg, n, self._mesh)
+        return init_state(self.cfg, (n,), device=self.device)
+
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
@@ -159,8 +170,11 @@ class InferencePool:
         logits, new_state = self._step_impl(self.params, tokens, state)  # [B, V]
         logits = torch.where(ban, torch.full_like(logits, -1e9), logits)
         nxt = typical(logits, self._gens, temp=temp, tau=tau)
-        act = active[None, :, None]  # over [L, B, E]
-        state = WKVState(*(torch.where(act, n, o) for n, o in zip(new_state, state)))
+        if isinstance(state, ShardedState):
+            state = new_state.where(active, state)
+        else:
+            act = active[None, :, None]  # over [L, B, E]
+            state = WKVState(*(torch.where(act, n, o) for n, o in zip(new_state, state)))
         return torch.where(active, nxt, torch.zeros_like(nxt)), state
 
     def _batched_step_k(self, tokens, state, temp, tau, active, ban, *, k):
@@ -294,7 +308,7 @@ class InferencePool:
         maxlen = max(len(i) for i in ids)
         # the burst's width bucket: zero-length lanes are exact no-ops
         W = next(w for w in self._widths if w >= n)
-        batch_state = init_state(self.cfg, (W,), device=self.device)
+        batch_state = self._new_state(W)
         chunk_lg: list = [None] * n   # the last logits of each stream
         for c0 in range(0, maxlen, K):
             chunk = torch.zeros((K, W), dtype=torch.int64)
@@ -317,8 +331,11 @@ class InferencePool:
 
         # scatter the prefilled states into the pool's slots
         slot_idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
-        for pool, s in zip(self._state, batch_state):
-            pool.index_copy_(1, slot_idx, s[:, :n])
+        if isinstance(self._state, ShardedState):
+            self._state.put(slots, batch_state.take(range(n)))
+        else:
+            for pool, s in zip(self._state, batch_state):
+                pool.index_copy_(1, slot_idx, s[:, :n])
 
         # the first tokens of the whole burst in one sampling call
         V = self.cfg.vocab_size

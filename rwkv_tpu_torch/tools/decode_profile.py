@@ -1,7 +1,7 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
     python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8]
-                                                  [--tp N [--body fused|halves]]
+                                                  [--tp N [--body fused|halves] [--cards]]
                                                   [--batch 1 8 16] [--steps 30] [--seed 0]
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
@@ -58,6 +58,14 @@ shard and layer, the head on K2), it measures:
     eager, graphed), each with the device's busy share of generate and the
     host operations that took the most time (torch.profiler); the host ms
     of one decode program's call (k = 1) without waiting for the device.
+With --tp N --cards the mesh takes cards 0..N-1, each shard on its own card
+(K7 across cards for the fused body, K6 + K2 on each card and the mesh's
+collectives between them for halves), the state resident per card; it then
+measures, eagerly (no capture across cards), the wall ms per step and per
+token of the tp step and of the unsharded step on card 0 in turns (host
+clock, every card synchronized), the launches and collectives of one step,
+and for the fused body each card's phases from its stamps and the share of
+the launch its waits for the peers' flags take.
 Prints one JSON line per batch size. Needs a CUDA device.
 """
 
@@ -87,6 +95,112 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _cards(args) -> None:
+    """--tp N --cards: the tp step over cards 0..N-1 beside the unsharded
+    step on card 0 (the module docstring)."""
+    import numpy as np
+    import torch
+
+    from rwkv_tpu_torch.models.config import RWKVConfig
+    from rwkv_tpu_torch.models.rwkv4 import (
+        init_state,
+        params_to,
+        q4_pack_block,
+        random_quantized_params_np,
+        signedize_params,
+    )
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import (
+        ShardedState,
+        shard_params,
+        shard_state,
+        tp_vocab_multiple,
+    )
+    from rwkv_tpu_torch.parallel.tp_step import make_engine_step
+    from rwkv_tpu_torch.runtime import graphs as graphs_mod
+
+    n = args.tp
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"decode_profile --cards: {n} cards asked, "
+                         f"{torch.cuda.device_count()} visible")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    card = f"{card[0]}, x{len(card)}"
+    cards = [torch.device("cuda", i) for i in range(n)]
+    dev = cards[0]
+    cfg = RWKVConfig.rwkv4_430m()
+    host = signedize_params(params_to(random_quantized_params_np(
+        cfg, seed=args.seed, pad_multiple=tp_vocab_multiple(n), q4=args.quant == "q4",
+        q4_block=q4_pack_block(cfg.n_embd, n)), "cpu"))
+    params = params_to(host, dev)
+    mesh = make_mesh(model=n, devices=cards)
+    sp = shard_params(host, mesh)
+    step = make_engine_step(mesh, sp, body=args.body)
+    rng = np.random.default_rng(args.seed)
+    L = cfg.n_layer
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    for B in args.batch:
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        st1, stn = init_state(cfg, (B,), device=dev), ShardedState.zeros(cfg, B, mesh)
+        runs = {"tp=1": lambda: forward_step_fused(params, tok, st1),  # noqa: B023
+                f"tp={n}": lambda: step(sp, tok, stn)}  # noqa: B023
+        turns = {}
+        for name in ("tp=1", f"tp={n}", f"tp={n}", "tp=1"):
+            for _ in range(3):
+                runs[name]()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                runs[name]()
+            sync()
+            turns.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / args.steps)
+        graphs_mod.set_counts([0] * len(graphs_mod.counts(mesh)), mesh)
+        step(sp, tok, stn)
+        sync()
+        names = [f"{m.__name__.rsplit('.', 1)[1]}.{a}" for m, a in graphs_mod.COUNTERS]
+        per_step = {k: v for k, v in zip(names + list(mesh.collectives),
+                                         graphs_mod.counts(mesh)) if v}
+        phases, waits = {}, []
+        if args.body == "fused" and B <= k7.FUSE_EMBED_MAX_B:
+            local = [sp.local(0, j) for j in range(n)]
+            s = shard_state(init_state(cfg, (B,), device=dev), mesh)[0]
+            stamps = [torch.zeros((args.steps, 6 * L + 3), dtype=torch.int64, device=d)
+                      for d in cards]
+            for i in range(args.steps):
+                s = k7.decode_stack_tp(sp.rows[0], s, local, token=tok,
+                                       stamps=[t[i] for t in stamps])[1]
+            sync()
+            for c, t in enumerate(stamps):
+                t = t.double().cpu()
+                ms = (t[:, 1:4 * L + 2] - t[:, :4 * L + 1]).mean(0) / 1e6
+                total = float((t[:, 4 * L + 1] - t[:, 0]).mean() / 1e6)
+                wait = (t[:, 4 * L + 2] - t[:, 0]).mean() / 1e6
+                for l in range(L):
+                    wait += (t[:, 4 * L + 3 + 2 * l] - t[:, 2 + 4 * l]).mean() / 1e6
+                    wait += (t[:, 4 * L + 4 + 2 * l] - t[:, 4 + 4 * l]).mean() / 1e6
+                waits.append(float(wait) / total)
+                if c == 0:
+                    for k in range(4 * L):
+                        phases[FUSED_PHASES[k % 4]] = phases.get(FUSED_PHASES[k % 4], 0.0) \
+                            + float(ms[k])
+                    phases["last exchange+ln_out+head"] = float(ms[4 * L])
+                    phases["launch (first stamp to last)"] = total
+        print(json.dumps({
+            "quant": args.quant, "tp": n, "cards": n, "body": args.body, "batch": B,
+            "wall_ms_per_step_in_turns": turns,
+            "wall_ms_per_token": {k: min(v) / B for k, v in turns.items()},
+            "per_step": per_step,
+            **({"card0_device_ms_per_step_by_phase": phases,
+                "exchange_wait_share_by_card": waits} if phases else {}),
+            "card": card}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quant", choices=["q8", "q4"], default="q8")
@@ -95,6 +209,8 @@ def main() -> None:
                     help="the tensor-parallel step on a mesh naming the card N times")
     ap.add_argument("--body", choices=["fused", "halves"], default="fused",
                     help="the tensor-parallel step's body (with --tp)")
+    ap.add_argument("--cards", action="store_true",
+                    help="with --tp N: the mesh over cards 0..N-1, one shard a card")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
@@ -105,6 +221,11 @@ def main() -> None:
         ap.error("--tp runs without --a8")
     if args.tp and args.quant == "q4" and args.body == "halves":
         ap.error("4-bit weights run the tensor-parallel step through --body fused only")
+    if args.cards:
+        if args.tp < 2:
+            ap.error("--cards needs --tp 2 or more")
+        _cards(args)
+        return
 
     import numpy as np
     import torch

@@ -4,10 +4,10 @@
     python -m rwkv_tpu_torch.tools.pod_worker --params m.bin --write-ref ref.npz
     python -m rwkv_tpu_torch.tools.pod_worker --params m.bin --ref ref.npz \
         --coordinator 127.0.0.1:<port> --processes 2 --process-id <i> \
-        [--backend gloo] [--devices cuda:0] [--model 1] [--bodies fused halves] \
-        [--time-steps 20] [--out logits.npz]
+        [--backend gloo] [--devices cuda:0 [cuda:1 ...]] [--model 1] \
+        [--bodies fused halves] [--time-steps 20] [--out logits.npz]
     torchrun --nproc-per-node N -m rwkv_tpu_torch.tools.pod_worker \
-        --params m.bin --ref ref.npz --model 1       # one card a process
+        --params m.bin --ref ref.npz --cards K      # K cards a process, model K
 
 --write-ref writes the reference (write_reference) and exits. Then every
 process of the job runs the check, with its own --process-id, or under a
@@ -16,8 +16,9 @@ does what the JAX package's two-process test worker does, on
 torch.distributed:
 
   1. initialize() with the explicit arguments or the launcher's environment
-     (a failed bootstrap raises), pod_mesh(model, devices): the model axis on this process's devices, the
-     data axis across the processes;
+     (a failed bootstrap raises), pod_mesh(model, devices): the model axis on
+     this process's devices (several cards: K7 across them), the data axis
+     across the processes;
   2. a psum over 'data' of each process's index + 1 (1 + 2 = 3 for two);
   3. the params, cut over this process's mesh rows: a .bin through
      read_bin(put=make_put(mesh)), or an .npz of the flattened numpy params
@@ -214,8 +215,10 @@ def main(argv=None) -> int:
     ap.add_argument("--process-id", type=int)
     ap.add_argument("--backend", default=None, help="gloo or nccl (default: nccl with CUDA)")
     ap.add_argument("--devices", nargs="+", default=None,
-                    help="this process's devices (default: cuda:$LOCAL_RANK under a "
-                    "launcher, else every visible CUDA device)")
+                    help="this process's devices (default: --cards cards from "
+                    "cuda:cards*$LOCAL_RANK under a launcher, else every visible CUDA device)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="cards a process under a launcher (without --devices)")
     ap.add_argument("--model", type=int, default=None, help="TP width (default: the devices)")
     ap.add_argument("--bodies", nargs="+", default=["fused", "halves"])
     ap.add_argument("--time-steps", type=int, default=0)
@@ -230,7 +233,7 @@ def main(argv=None) -> int:
         ap.error("--ref (or --write-ref) is required")
     devices = args.devices
     if devices is None and "LOCAL_RANK" in os.environ:
-        devices = [f"cuda:{os.environ['LOCAL_RANK']}"]
+        devices = multihost.local_devices(args.cards)
 
     multihost.initialize(args.coordinator, args.processes, args.process_id,
                          backend=args.backend, timeout=args.timeout)

@@ -1251,3 +1251,125 @@ def test_native_tokenizer_builds_on_the_card_machine(dev, tmp_path, monkeypatch)
     assert tok.encode(text) == py.encode(text)
     assert [tok.decode_bytes([i]) for i in range(50254, 50277)] == \
         [py.decode_bytes([i]) for i in range(50254, 50277)]
+
+
+# -- across cards: kernel K7 with each shard on its own card (needs >= 2 cards) ----------
+
+
+@pytest.fixture(scope="module")
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (K7 across cards)")
+    return [torch.device("cuda", i) for i in range(min(4, torch.cuda.device_count()))]
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+def test_decode_stack_tp_across_cards_matches_plain(cards, quant, B):
+    """K7 over a row of distinct cards (one launch per card, the exchanges
+    peer stores), q8 and q4, the embedding gather in the step (B <= 8) or an
+    x given (B > 8), against its plain version on copies of the shards on
+    card 0, over 2 carried steps."""
+    from rwkv_tpu_torch.models.rwkv4 import q4_pack_block
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.ops.layernorm import layer_norm
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, shard_state
+
+    tp = len(cards)
+    cfg = RWKVConfig(n_layer=2, n_embd=128 * tp, vocab_size=1000)
+    host = random_quantized_params_np(cfg, seed=11, pad_multiple=128 * tp, q4=quant == "q4",
+                                      q4_block=q4_pack_block(cfg.n_embd, tp))
+    params = params_to(signedize_params(host) if quant == "q8" else host, "cpu")
+    sp = shard_params(params, make_mesh(model=tp, devices=cards))
+    dev0 = cards[0]
+    ref = [params_to(p, dev0) for p in sp.rows[0]]
+    local = [sp.local(0, j) for j in range(tp)]
+    local_ref = [(d.to(dev0), b.to(dev0)) for d, b in local]
+    st_k = shard_state(init_state(cfg, (B,), device=dev0), sp.mesh)[0]
+    st_p = [WKVState(*(t.to(dev0) for t in c)) for c in st_k]
+    rng = np.random.default_rng(B)
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, 1000, size=(B,))).to(dev0)
+        if B <= k7.FUSE_EMBED_MAX_B:
+            kw = {"token": tok}
+        else:
+            p0 = params_to(params, dev0)
+            kw = {"x": layer_norm(p0.emb[tok], p0.ln0.weight, p0.ln0.bias)}
+        before = k7.launches + k7.launches_q4
+        lg_k, n_k = k7.decode_stack_tp(sp.rows[0], st_k, local, **kw)
+        assert k7.launches + k7.launches_q4 == before + tp
+        lg_p, n_p = k7.decode_stack_tp_reference(ref, st_p, local_ref, **kw)
+        for j in range(tp):
+            assert lg_k[j].device == cards[j]
+            assert _scaled(lg_k[j].to(dev0), lg_p[j]) <= 1e-4
+            for a, b in zip(n_k[j], n_p[j]):
+                assert a.device == cards[j] and _scaled(a.to(dev0), b) <= 1e-4
+        st_k, st_p = n_k, n_p
+
+
+def test_engine_across_cards_matches_one_card(cards, tmp_path):
+    """RWKV(path, sharding=make_mesh(model=tp)) over distinct cards runs the
+    fused body (K7 across cards, tp launches a step), eagerly, its state
+    resident per card (no whole-state cut or join while decoding), its
+    logits within 3e-4 of the one-card engine's."""
+    from rwkv_tpu_torch.io.binfmt import write_bin
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.parallel import sharding
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.runtime.engine import RWKV
+
+    tp = len(cards)
+    path = str(tmp_path / "m.bin")
+    write_bin(path, random_quantized_params_np(RWKVConfig(n_layer=2, n_embd=256 * tp), seed=5,
+                                               pad_multiple=None))
+    one = RWKV(path, device=cards[0])
+    eng = RWKV(path, sharding=make_mesh(model=tp, devices=cards))
+    assert eng._step_fn.body == "fused" and not eng._graphs.enabled
+    assert isinstance(eng._state, sharding.ShardedState)
+    V = eng._true_vocab
+    a, b = one.forward([3, 4, 5]), eng.forward([3, 4, 5])
+    assert _scaled(b[:V], a[:V]) <= 3e-4
+    cuts = dict(sharding.counts)
+    before = k7.launches
+    for _ in range(6):
+        t = int(a.argmax())
+        a, b = one.forward(t), eng.forward(t)
+        assert _scaled(b[:V], a[:V]) <= 3e-4
+    assert sharding.counts == cuts and k7.launches == before + 6 * tp
+
+
+def test_wrappers_launch_on_their_tensors_card_across_cards(cards):
+    """K2 (mm8) and K6 (att_half, ffn_half) given tensors on card 1 while
+    card 0 is current launch on card 1 (a launch on the current device ran
+    every shard of a mesh over cards on card 0, its weights read over
+    NVLink), and give card 0's bits for the same inputs there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rwkv_tpu_torch.ops.cuda import tp_halves as th
+
+    one = cards[1]
+    cfg = RWKVConfig(n_layer=1, n_embd=256, vocab_size=1000)
+    host = signedize_params(random_quantized_params_np(cfg, seed=9, pad_multiple=128))
+    p0, p1 = params_to(host, cards[0]), params_to(host, one)
+    rng = np.random.default_rng(9)
+    x, xy, dd, aa, bb, pp = (torch.from_numpy(rng.normal(size=(2, 256)).astype(np.float32))
+                             for _ in range(6))
+
+    def run(p, d):
+        t = [v.to(d) for v in (x, xy, dd, aa, bb, pp)]
+        return (th.att_half(p, 0, t[0], t[1], t[3], t[4], t[5], p.att.decay, p.att.bonus)
+                + th.ffn_half(p, 0, t[0], t[2])
+                + (mm8_mod.mm8(t[0], p.head.w),))
+
+    torch.cuda.set_device(cards[0])
+    want = run(p0, cards[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run(p1, one)
+        torch.cuda.synchronize(one)
+    ran = {e.device_index for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and "rwkv::" in e.name}
+    assert ran == {one.index}
+    for a, b in zip(got, want):
+        assert a.device == one and torch.equal(a.to(cards[0]), b)

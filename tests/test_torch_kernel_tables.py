@@ -45,10 +45,11 @@ def _enum(source: str, enum: str) -> list:
     ("decode_stack.cu", "Ptr", "P_", decode_stack._POINTERS),
     ("decode_stack_tp.cu", "SharedPtr", "S_", decode_stack_tp._SHARED),
     ("decode_stack_tp.cu", "ShardPtr", "D_", decode_stack_tp._SHARD),
+    ("decode_stack_tp.cu", "PeerKind", "K_", decode_stack_tp._PEER_KINDS),
     ("tp_halves.cu", "AttPtr", "A_", tp_halves._ATT_POINTERS),
     ("tp_halves.cu", "FfnPtr", "F_", tp_halves._FFN_POINTERS),
 ], ids=["decode_stack.Ptr", "decode_stack_tp.SharedPtr", "decode_stack_tp.ShardPtr",
-        "tp_halves.AttPtr", "tp_halves.FfnPtr"])
+        "decode_stack_tp.PeerKind", "tp_halves.AttPtr", "tp_halves.FfnPtr"])
 def test_pointer_table_matches_enum(source, enum, prefix, names):
     entries = _enum(source, enum)
     want = [_enum_name(prefix, n) for n in names]

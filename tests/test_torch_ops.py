@@ -240,7 +240,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "parallel/sharding.py", "parallel/tp_step.py", "ops/cuda/tp_halves.py",
                    "apps/_common.py", "apps/server.py", "apps/chat.py", "apps/storygen.py",
                    "apps/vectordb.py", "eval/ppl.py", "eval/cli.py", "parallel/multihost.py",
-                   "tools/pod_worker.py"):
+                   "tools/pod_worker.py", "tools/tp_cards.py"):
         assert any(f.endswith(os.path.join(*module.split("/"))) for f in files), module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "rwkv_tpu")]
