@@ -179,14 +179,23 @@ Phases, in order; any failure raises and exits non-zero:
               processes timing at once and with each alone while the other
               waits at a barrier (a correctness run, not a scaling figure);
               then one process on NCCL at world
-              size 1 (psum, allgather of CUDA tensors, the fused step).
+              size 1 (psum, allgather of CUDA tensors, the fused step);
+              then a model axis across the two processes on the one card
+              (pod_mesh(model=2) on gloo: each process holds one shard),
+              bodies halves (K6 + K2 in each process) and plain, eager,
+              against the same single-process K1 + K2 reference at 3e-4,
+              3L + 2 collectives a step in each process, and K7 refusing
+              the row, naming the shared card ("launches_pod_model").
  18. cards    tensor parallelism across distinct cards
               (rwkv_tpu_torch/tools/tp_cards.py, whose docstring lists what
               it checks): K7 across cards against its plain version, the
               fused, halves and plain steps at 14B widths over the cards
               against tp = 1 on card 0, the engine and the pool over the
               cards, pods with NCCL between processes of several cards, and
-              the timings. On a machine with one card it prints that it did
+              the timings, and a model axis across processes of one card
+              each (part (g): K7 across processes through CUDA IPC, every
+              body against K1 + K2, each process's step a CUDA graph, the
+              engine and the pool). On a machine with one card it prints that it did
               not run, and why; the kernels line's "launches_cards" is then
               null. With two or more cards any failure in it fails the run.
 
@@ -1987,7 +1996,8 @@ def main() -> int:
     # ------------------------------------------------------------------ 17
     print("phase 17 multi-process serving: two gloo processes on the one card, "
           "pod_mesh(model=1) with the data axis across them, bodies fused (K7) and halves "
-          "(K6 + K2) on the phase-4 .bin; then an NCCL process at world size 1")
+          "(K6 + K2) on the phase-4 .bin; then an NCCL process at world size 1; then "
+          "pod_mesh(model=2), a model axis across the two processes")
     t17 = time.perf_counter()
     from rwkv_tpu_torch.tools import pod_worker
 
@@ -1998,10 +2008,10 @@ def main() -> int:
     pod_steps = pod_worker.write_reference(bin_path, ref_npz, dev).shape[0] + 3  # + 3 sampled
     torch.cuda.empty_cache()
 
-    def pod_children(n, backend, bodies):
+    def pod_children(n, backend, bodies, model=1, extra=()):
         """n pod_worker processes (tools/pod_worker.py) on cuda:0 joined over
-        `backend` at a free port; returns each one's JSON record once all
-        exited 0 with their OK lines."""
+        `backend` at a free port, pod_mesh(model); returns each one's JSON
+        record once all exited 0 with their OK lines."""
         import socket
 
         with socket.socket() as sock:
@@ -2014,7 +2024,8 @@ def main() -> int:
             [sys.executable, "-m", "rwkv_tpu_torch.tools.pod_worker", "--params", bin_path,
              "--ref", ref_npz, "--coordinator", f"127.0.0.1:{port}", "--processes", str(n),
              "--process-id", str(i), "--backend", backend, "--devices", "cuda:0",
-             "--model", "1", "--bodies", *bodies, "--time-steps", "20", "--timeout", "60"],
+             "--model", str(model), "--bodies", *bodies, "--time-steps", "20", "--timeout",
+             "60", *extra],
             cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for i in range(n)]
         outs = []
@@ -2075,6 +2086,41 @@ def main() -> int:
                      for cn in COUNTER_NAMES}
     pod_err = max(rec["bodies"][b]["max_scaled_err"] for rec in gloo + nccl
                   for b in rec["bodies"])
+    # a model axis across the two processes on the one card: pod_mesh(model=2)
+    # on gloo (the processes share the card), the halves body (K6 + K2 in each
+    # process, on its shard) and plain, eager, against the same single-process
+    # K1 + K2 reference; K7 refuses the row, naming the shared card
+    t0 = time.perf_counter()
+    pm = pod_children(2, "gloo", ["halves", "plain"], model=2,
+                      extra=("--expect-refused", "fused"))
+    pm_s = time.perf_counter() - t0
+    ref_steps = pod_steps - pod_worker.SAMPLED_STEPS
+    for rec in pm:
+        require(rec["mesh"] == {"data": 1, "model": 2} and rec["local_shards"] == 1
+                and rec["first_shard"] == rec["process"] and rec["psum"] == [1.0]
+                and rec["group"] == {"backend": "gloo", "ranks": [0, 1]},
+                f"model-axis worker {rec['process']}: mesh {rec['mesh']}, shard "
+                f"{rec['first_shard']}, psum {rec['psum']}, group {rec['group']}")
+        require("share one card" in rec["refused"].get("fused", ""),
+                f"model-axis worker {rec['process']}: K7's refusal {rec['refused']}")
+        for body, want in (("halves", {"K6 att": 2 * L * pod_steps, "K6 ffn": 2 * L * pod_steps,
+                                       "K2": pod_steps}), ("plain", {})):
+            got = rec["bodies"][body]
+            counts = {cn: got["launches"][worker_key[cn]] for cn in COUNTER_NAMES}
+            require(counts == {cn: want.get(cn, 0) for cn in COUNTER_NAMES},
+                    f"model-axis worker {rec['process']} body {body}: launches {counts}")
+            require(got["collectives"] == {"psum": (2 * L + 1) * ref_steps,
+                                           "all_gather": (L + 1) * ref_steps}
+                    and not got["graphed"],
+                    f"model-axis worker {rec['process']} body {body}: collectives "
+                    f"{got['collectives']}, graphed {got['graphed']}")
+    for body in ("halves", "plain"):
+        a, b = (rec["bodies"][body] for rec in pm)
+        require(a["sampled"] == b["sampled"], f"model-axis body {body}: the processes of the "
+                f"row fed different ids")
+    pm_launches = {cn: sum(rec["bodies"][b]["launches"][worker_key[cn]] for rec in pm
+                           for b in ("halves", "plain")) for cn in COUNTER_NAMES}
+    pm_err = max(rec["bodies"][b]["max_scaled_err"] for rec in pm for b in rec["bodies"])
     for rec in gloo:
         print(f"  gloo process {rec['process']} of 2 ({rec['device']}): mesh {rec['mesh']}, "
               f"row {rec['first_row']}, psum {rec['psum']}, load {rec['load_s']:.1f} s; "
@@ -2096,8 +2142,20 @@ def main() -> int:
           f"{ {k: v for k, v in nccl_launches.items() if v} }; largest scaled error "
           f"{pod_err:.2e} <= {pod_worker.TOL}; two processes on one card are a correctness run, not "
           f"a scaling figure")
+    for rec in pm:
+        print(f"  model axis across the 2 processes (pod_mesh(model=2), gloo, shard "
+              f"{rec['first_shard']} of 2 in process {rec['process']}, {rec['shard_bytes'] / 1e6:.1f}"
+              f" MB of params): "
+              + "; ".join(f"{b} max abs err {r['max_abs_err']:.2e} (scaled "
+                          f"{r['max_scaled_err']:.2e}) against the single-process K1 + K2, "
+                          f"{r['ms_per_step']:.3f} ms/step eager"
+                          for b, r in rec["bodies"].items())
+              + f"; K7 refused: {rec['refused']['fused'][:90]}... {card}")
+    print(f"  model axis: launches over both processes {pod_steps} steps a body each "
+          f"{ {k: v for k, v in pm_launches.items() if v} }; collectives a step {3 * L + 2} "
+          f"in each process; largest scaled error {pm_err:.2e} <= {pod_worker.TOL}")
     print(f"  phase 17: {time.perf_counter() - t17:.1f} s (gloo pair {gloo_s:.1f} s, nccl "
-          f"{nccl_s:.1f} s)")
+          f"{nccl_s:.1f} s, model-axis pair {pm_s:.1f} s)")
     pod_dir.cleanup()
 
     n_cards = torch.cuda.device_count()
@@ -2208,6 +2266,7 @@ def main() -> int:
         k["launches_convert"] = convert_launches[counter_of[k["name"]]]
         k["launches_pod"] = pod_launches[counter_of[k["name"]]]
         k["launches_pod_nccl"] = nccl_launches[counter_of[k["name"]]]
+        k["launches_pod_model"] = pm_launches[counter_of[k["name"]]]
         k["launches_cards"] = (None if cards_launches is None
                                else cards_launches[counter_of[k["name"]]])
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -108,6 +108,35 @@
 // the end of each wait (4 L + 2 onwards: the embedding exchange, then the
 // att and ffn exchanges of each layer).
 //
+// Across processes (parallel/multihost.py's pod_mesh(model=tp), one card a
+// process, tp processes a data row): the same launch of one shard a card,
+// `me` the process's global shard index, and the same peer stores and
+// flags. This replaces the TPU kernel's remote DMAs between chips that
+// belong to different processes (its device ids are global, so one kernel
+// serves such a row there). What differs is the set-up, which the wrapper
+// makes once per batch size: each process allocates its card's receive
+// slots, embedding slots and flag words as one region of its own
+// (rwkv_ipc_alloc: cudaMalloc, zeroed, cudaIpcGetMemHandle), the processes
+// all-gather the handles over the row's group, each opens its peers'
+// regions (rwkv_ipc_open: cudaIpcOpenMemHandle with lazy peer access) and
+// writes the opened addresses into its `peers` table, and the row meets at
+// a barrier before any card launches: the host-side counterpart of the TPU
+// kernel's barrier semaphore at t == 0, so that no store reaches a region
+// its owner has not zeroed and every card's table exists before the first
+// launch. Teardown mirrors it: every process closes its peers' mappings,
+// the row meets at a barrier, then each frees its own region. The step
+// counter lives in the flag words on the device and a region's addresses
+// are fixed for its life, so no epoch or address reaches the launch as a
+// host value, and each process's CUDA graph may replay its launch. A row
+// whose processes share a card is refused by the wrapper: without MPS the
+// cooperative kernels of two contexts do not run side by side, and one
+// would spin on the other's flag until its 20 s wait traps. Bound per card
+// as across cards: that card's weight bytes over device memory bandwidth
+// (14B q8 at tp = 4: about 3.5 GB, 1.04 ms at 3.35 TB/s), plus 3 L + 1
+// exchange latencies.
+//
+#include <cstring>
+
 #include "stack.cuh"
 
 namespace rwkv {
@@ -545,6 +574,51 @@ extern "C" int rwkv_enable_peer(int dev, int peer) {
   const cudaError_t back = cudaSetDevice(cur);
   return (int)(e != cudaSuccess ? e : back);
 }
+
+// Across processes: the receive slots and flags of one card, one cudaMalloc
+// region of the caller's size, zeroed, and its IPC handle (64 bytes) in
+// *handle. The region is this library's own, not a caching allocator's, so
+// the handle names exactly it. The current device is the card's.
+extern "C" int rwkv_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  *ptr = nullptr;
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    if (*ptr) cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)e;
+}
+
+// Maps another process's region (its rwkv_ipc_alloc handle) into this one,
+// on the current device, peer access enabled as the mapping needs it.
+extern "C" int rwkv_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  const cudaError_t e = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// Unmaps a region rwkv_ipc_open mapped; every importer does this before the
+// exporter frees it (rwkv_ipc_free).
+extern "C" int rwkv_ipc_close(void* ptr) {
+  const cudaError_t e = cudaIpcCloseMemHandle(ptr);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+extern "C" int rwkv_ipc_free(void* ptr) {
+  const cudaError_t e = cudaFree(ptr);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+extern "C" int rwkv_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
 
 // Blocks of the step's launch at batch B and width E, in *grid: q4 selects
 // the instantiation. Returns the first CUDA error (0 if none).

@@ -52,7 +52,9 @@ def read_bin(path: str, device, *, put=None, pad_vocab_to: int | None = None,
     `device` (parallel/sharding.py::make_put cuts it into its tensor-parallel
     shards and sends each piece from the host to its own device, on every
     data row: on a mesh over distinct cards each card receives only its
-    pieces, and the host holds about one tensor at a time); names are the
+    pieces, and the host holds about one tensor at a time; on a pod mesh
+    whose rows span processes a process places only its own shards'
+    pieces, so its card holds one shard's weights); names are the
     registry's (io/registry.py), plus "logit_bias", "ln0.w", "ln0.b",
     "ln1.w", ..., "ln_out.b"."""
     cfg = read_header(path)

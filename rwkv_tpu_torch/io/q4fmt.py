@@ -85,7 +85,10 @@ def is_q4_file(path: str) -> bool:
 
 def load_q4(path: str) -> RWKVParams:
     """A save_q4 artifact as RWKVParams with numpy leaves: owned copies,
-    read one leaf at a time with the mapping's pages released between."""
+    read one leaf at a time with the mapping's pages released between.
+    They stay on the host: a sharded engine cuts them there and sends each
+    device only its shards (on a pod mesh across processes, only this
+    process's)."""
     f = SafetensorsFile(path)
     try:
         meta = f.metadata

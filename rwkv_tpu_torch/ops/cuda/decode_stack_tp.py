@@ -30,13 +30,22 @@ into receive slots on every card, ordered by a flag per exchange and shard
 (the source's note says how); the sums stay in shard order 0..tp-1, so the
 step holds against the same plain version. Peer access between every pair of
 the row's cards is checked once and enabled; a pair without it raises, naming
-the pair. A launch a card refuses raises; there is no other route. `stamps=`
+the pair. Each card's receive slots and flags are one region of its own
+(`_region_layout`). Where the row's shards lie in distinct processes, one
+card each (`mesh=`, a parallel/multihost.py pod mesh whose row spans
+processes), each process launches its own shard's step, and the row's
+processes open each other's regions through CUDA IPC (the source's note says
+how; `release_ipc` closes and frees them); `process_row_problem` names why a
+row cannot run so (processes sharing a card, a row across hosts, a pair of
+cards without peer access), and the first call on such a row raises it. A
+launch a card refuses raises; there is no other route. `stamps=`
 takes an int64 CUDA tensor of at least 4 * L + 2 entries (6 * L + 3 across
 cards: one tensor per card, a list), into which the kernel writes
 %globaltimer at its start, after each barrier and at its end, and across
 cards at the end of each exchange's wait (tools/decode_profile.py reads the
 time of each phase and the exchanges' share). On CPU tensors it runs `decode_stack_tp_reference`, which does the
-exchanges as the same explicit sums. Weights: signed int8
+exchanges as the same explicit sums (across processes, this process's shards
+first, then the mesh's collectives over the row's group). Weights: signed int8
 (models.rwkv4.signedize_params) or, in q4, every family Quant4Linear, with
 att.output and ffn.value packed in blocks that divide E / tp and F / tp.
 Bound on the card: the weight bytes of
@@ -52,6 +61,8 @@ from __future__ import annotations
 
 import ctypes
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 import torch
 
@@ -121,7 +132,13 @@ def _kernel():
                                              ctypes.POINTER(I), ctypes.POINTER(I)]
         lib.rwkv_decode_stack_tp_grid.argtypes = [I, I, I, ctypes.POINTER(I)]
         lib.rwkv_enable_peer.argtypes = [I, I]
-        for fn in (lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_grid,
+        lib.rwkv_ipc_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(P), P]
+        lib.rwkv_ipc_open.argtypes = [P, ctypes.POINTER(P)]
+        lib.rwkv_ipc_close.argtypes = [P]
+        lib.rwkv_ipc_free.argtypes = [P]
+        for fn in (lib.rwkv_ipc_alloc, lib.rwkv_ipc_open, lib.rwkv_ipc_close,
+                   lib.rwkv_ipc_free, lib.rwkv_ipc_handle_bytes,
+                   lib.rwkv_decode_stack_tp, lib.rwkv_decode_stack_tp_grid,
                    lib.rwkv_decode_stack_tp_shared_count, lib.rwkv_decode_stack_tp_shard_count,
                    lib.rwkv_decode_stack_tp_max_shards, lib.rwkv_decode_stack_tp_barrier_words,
                    lib.rwkv_decode_stack_tp_flag_words, lib.rwkv_decode_stack_tp_peer_kinds,
@@ -180,9 +197,10 @@ def fused_problem(p: RWKVParams, tp: int, E: int, F: int, V: int):
     return None
 
 
-def _meta(shards: Sequence[RWKVParams]):
-    """(L, E, El, Fl, Vl, q4) of a data row, after the JAX kernel's checks."""
-    p0, tp = shards[0], len(shards)
+def _meta(shards: Sequence[RWKVParams], tp: Optional[int] = None):
+    """(L, E, El, Fl, Vl, q4) of a data row's shards (tp of them, default
+    all given), after the JAX kernel's checks."""
+    p0, tp = shards[0], tp or len(shards)
     q4 = isinstance(p0.att.key, Quant4Linear)
     El, Fl = p0.att.key.out_features, p0.ffn.key.out_features
     Vl = p0.head.out_features
@@ -214,27 +232,51 @@ def _in_order(parts):
     return s
 
 
-def _embed(shards, token: torch.Tensor) -> torch.Tensor:
+class _Exchange:
+    """The exchanges of the plain version: sums of the shards' partials in
+    shard order and the gates' concatenation; for a row across processes
+    (mesh), this process's shards first, then the row's group (the mesh's
+    group_sum and group_gather, not counted as the step's collectives: they
+    stand for the kernel's peer stores)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.first = 0 if mesh is None else mesh.first_shard
+
+    def sum(self, parts):
+        s = _in_order(parts)
+        return s if self.mesh is None else self.mesh.group_sum(s)
+
+    def cat(self, parts):
+        g = torch.cat(parts, dim=-1)
+        return g if self.mesh is None else self.mesh.group_gather(g, -1)
+
+
+def _embed(shards, token: torch.Tensor, ex: _Exchange) -> torch.Tensor:
     """The vocab-sharded gather: shard j holds rows [j * Vl, (j + 1) * Vl); a
     row outside every shard is zero; summed in shard order, then ln0."""
     rows = []
     for j, p in enumerate(shards):
         Vl = p.emb.shape[0]
-        t = token.long() - j * Vl
+        t = token.long() - (ex.first + j) * Vl
         mine = ((t >= 0) & (t < Vl))[:, None]
         got = p.emb[t.clamp(0, Vl - 1)]
         rows.append(torch.where(mine, got, torch.zeros_like(got)))
     p0 = shards[0]
-    return layer_norm(_in_order(rows), p0.ln0.weight, p0.ln0.bias)
+    return layer_norm(ex.sum(rows), p0.ln0.weight, p0.ln0.bias)
 
 
 def decode_stack_tp_reference(shards: Sequence[RWKVParams], states: Sequence[WKVState],
                               local, *, x: Optional[torch.Tensor] = None,
-                              token: Optional[torch.Tensor] = None):
+                              token: Optional[torch.Tensor] = None, mesh=None):
     """The plain PyTorch version of decode_stack_tp: the same step, shard by
-    shard, the exchanges as explicit sums in shard order 0..tp-1."""
+    shard, the exchanges as explicit sums in shard order 0..tp-1. mesh: a
+    pod mesh whose row spans processes; `shards` are then this process's
+    (global shards mesh.first_shard on), and the exchanges also run over the
+    row's group, so every process of the row calls it at once."""
     shards = list(shards)
-    _meta(shards)
+    _meta(shards, None if mesh is None else mesh.shape["model"])
+    ex = _Exchange(mesh)
     p0 = shards[0]
     if (x is None) == (token is None):
         raise ValueError("decode_stack_tp takes exactly one of x and token")
@@ -242,7 +284,7 @@ def decode_stack_tp_reference(shards: Sequence[RWKVParams], states: Sequence[WKV
         if token.shape[0] > FUSE_EMBED_MAX_B:
             raise ValueError(f"decode_stack_tp's embedding gather takes B <= "
                              f"{FUSE_EMBED_MAX_B}; pass x for more")
-        x = _embed(shards, token)
+        x = _embed(shards, token, ex)
     new = [[] for _ in shards]
     for i in range(p0.n_layer):
         att = p0.att
@@ -258,7 +300,7 @@ def decode_stack_tp_reference(shards: Sequence[RWKVParams], states: Sequence[WKV
                                bonus[i])
             parts.append(_qmm(torch.sigmoid(r) * y, p.att.output, i))
             chans.append(chan)
-        x = x + _in_order(parts)
+        x = x + ex.sum(parts)
         ffn = p0.ffn
         xx2 = layer_norm(x, p0.ln2.weight[i], p0.ln2.bias[i])
         dd = states[0].dd[i]
@@ -269,7 +311,7 @@ def decode_stack_tp_reference(shards: Sequence[RWKVParams], states: Sequence[WKV
             gates.append(torch.sigmoid(_qmm(fr, p.ffn.receptance, i)))
             h = torch.square(torch.relu(_qmm(fk, p.ffn.key, i)))
             vparts.append(_qmm(h, p.ffn.value, i))
-        x = x + torch.cat(gates, dim=-1) * _in_order(vparts)
+        x = x + ex.cat(gates) * ex.sum(vparts)
         for j, chan in enumerate(chans):
             new[j].append((xx, chan.aa, chan.bb, chan.pp, xx2))
     h = layer_norm(x, p0.ln_out.weight, p0.ln_out.bias)
@@ -343,7 +385,118 @@ def row_devices(devices) -> tuple[list, bool]:
     return devs, True
 
 
+def process_row_problem(mesh):
+    """Why kernel K7 cannot run this process's row across processes:
+    (exception class, message), or None. It runs one shard a process, each
+    process on its own CUDA card of one host, with peer access between
+    every pair of the row's cards, from the cards pod_mesh gathered
+    (mesh.row_cards: the same answer in every process of the row)."""
+    cards = mesh.row_cards
+    if cards is None:
+        return RuntimeError, ("decode_stack_tp across processes needs the row's cards; build "
+                              "the mesh with multihost.pod_mesh inside a process group")
+    if any(c[1] != "cuda" for c in cards):
+        return ValueError, (f"decode_stack_tp runs on CUDA devices; the row lies on "
+                            f"{[f'{c[1]}:{c[2]}' for c in cards]}")
+    if mesh.local_shards != 1:
+        return ValueError, (f"decode_stack_tp across processes runs one shard a process; this "
+                            f"process holds {mesh.local_shards} of the row's "
+                            f"{mesh.shape['model']}")
+    hosts = sorted({c[0] for c in cards})
+    if len(hosts) > 1:
+        return ValueError, (f"decode_stack_tp across processes runs a row on one host (CUDA "
+                            f"IPC and peer stores do not cross hosts); this row spans {hosts}; "
+                            "take body 'halves' or 'plain'")
+    ids = [c[3] for c in cards]
+    if len(set(ids)) != len(ids):
+        shared = sorted({f"cuda:{c[2]}" for c in cards if ids.count(c[3]) > 1})
+        return ValueError, (f"decode_stack_tp across processes: the row's processes share one "
+                            f"card ({', '.join(shared)}); without MPS the cooperative launches "
+                            f"of two processes do not run side by side on one card, and one "
+                            f"would spin on the other's flag until its 20 s wait traps; take "
+                            f"body 'halves' or 'plain'")
+    visible = {}
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
+        visible[str(getattr(torch.cuda.get_device_properties(i), "uuid", i))] = i
+    index = [visible.get(c[3], c[2]) for c in cards]
+    for a in index:
+        for b in index:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                return RuntimeError, (
+                    f"decode_stack_tp across processes needs peer access between every pair "
+                    f"of the row's cards; cuda:{a} cannot access cuda:{b} "
+                    f"(cudaDeviceCanAccessPeer)")
+    return None
+
+
 _peers_enabled: set = set()
+
+# K7's regions across processes, each (its card, its address, the peers'
+# mapped addresses, the row's group), in the order they were made
+_ipc_regions: list = []
+
+
+def open_handles() -> int:
+    """Peer regions this process holds open (cudaIpcOpenMemHandle)."""
+    return sum(len(r[2]) for r in _ipc_regions)
+
+
+def _ipc_region(dev: torch.device, nbytes: int, mesh) -> list:
+    """This card's region of `nbytes`, zeroed, and every shard's region of
+    the row, opened here: [the address on this process of shard c's region
+    for each shard c]. A collective of the row's processes: the handles are
+    all-gathered over its group, and the row meets at a barrier once every
+    process has opened its peers', before any launch."""
+    lib = _kernel()
+    group = mesh.model_group
+    base = ctypes.c_void_p(0)
+    handle = ctypes.create_string_buffer(lib.rwkv_ipc_handle_bytes())
+    with torch.cuda.device(dev):
+        _build.check(lib, lib.rwkv_ipc_alloc(nbytes, ctypes.byref(base), handle),
+                     f"decode_stack_tp: the receive region on {dev}")
+        got: list = [None] * dist.get_world_size(group)
+        dist.all_gather_object(got, handle.raw, group=group)
+    me = mesh.first_shard
+    addrs, opened = [], []
+    try:
+        for c, h in enumerate(got):
+            if c == me:
+                addrs.append(base.value)
+                continue
+            ptr = ctypes.c_void_p(0)
+            with torch.cuda.device(dev):
+                _build.check(lib, lib.rwkv_ipc_open(h, ctypes.byref(ptr)),
+                             f"decode_stack_tp: opening shard {c}'s region on {dev}")
+            addrs.append(ptr.value)
+            opened.append(ptr.value)
+    finally:
+        _ipc_regions.append((dev, base.value, opened, group))
+    dist.barrier(group=group, device_ids=[dev.index])
+    return addrs
+
+
+def release_ipc() -> None:
+    """Close and free K7's regions across processes, a collective of each
+    row's processes (every process of the row calls it): each closes its
+    peers' mappings, the row meets at a barrier, then each frees its own
+    region, so no exporter frees a region another process still maps. The
+    steps that used them must not run again."""
+    lib = _kernel() if _ipc_regions else None
+    regions = list(_ipc_regions)
+    _ipc_regions.clear()
+    for dev, _, opened, _ in regions:
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize(dev)
+            for ptr in opened:
+                _build.check(lib, lib.rwkv_ipc_close(ptr), f"decode_stack_tp: closing a peer "
+                             f"region on {dev}")
+    for group in {id(r[3]): r[3] for r in regions}.values():
+        dist.barrier(group=group, device_ids=[regions[0][0].index])
+    for dev, base, _, _ in regions:
+        with torch.cuda.device(dev):
+            _build.check(lib, lib.rwkv_ipc_free(base), f"decode_stack_tp: freeing the region "
+                         f"on {dev}")
+    _prepared.clear()
 
 
 def _enable_peers(devs) -> None:
@@ -363,13 +516,20 @@ class _Prepared:
     cards. A table's parameter and scratch slots are filled once; a call
     fills the slots of its inputs and outputs and passes the same array."""
 
-    def __init__(self, shards):
+    def __init__(self, shards, mesh=None):
         self.shards = shards
-        tp = len(shards)
-        devs, self.cards = row_devices([p.emb.device for p in shards])
-        if self.cards:
-            _enable_peers(devs)
-        L, E, El, Fl, Vl, q4 = _meta(shards)
+        self.mesh = mesh  # a row across processes: this process's one shard
+        if mesh is not None:
+            problem = process_row_problem(mesh)
+            if problem is not None:
+                raise problem[0](problem[1])
+            tp, devs, self.cards = mesh.shape["model"], [shards[0].emb.device], True
+        else:
+            tp = len(shards)
+            devs, self.cards = row_devices([p.emb.device for p in shards])
+            if self.cards:
+                _enable_peers(devs)
+        L, E, El, Fl, Vl, q4 = _meta(shards, tp)
         n_emb = shards[0].emb.shape[0]
         shapes = _param_shapes(L, E, El, Fl, Vl, n_emb, q4)
         ptrs = []
@@ -390,9 +550,29 @@ class _Prepared:
         self.device = devs[0]
         self.dims = (L, E, El, Fl, Vl, n_emb)
         self.tables: dict = {}
+        self.slots: dict = {}  # across cards, by B: each launch's receive slots and flags
 
     def shard_device(self, j: int) -> torch.device:
         return self.devices[j] if self.cards else self.devices[0]
+
+    def me(self, c: int) -> int:
+        """The global shard index of launch c (`me` in the kernel)."""
+        if self.mesh is not None:
+            return self.mesh.first_shard
+        return c if self.cards else 0
+
+    def _regions(self, B: int, launches_) -> tuple[dict, list]:
+        """Across cards: one region a card (_region_layout), its base on
+        this process for every shard of the row: each card's own buffer in
+        one process, or, across processes, this card's region and its
+        peers' opened through CUDA IPC (a collective of the row)."""
+        L, E, El, Fl, Vl, _ = self.dims
+        lay = _region_layout(self.tp, B, E, El)
+        if self.mesh is not None:
+            return lay, _ipc_region(self.device, lay["total"][0], self.mesh)
+        for dev, _, buf in launches_:  # zero on every card before any launch
+            buf["region"] = torch.zeros(lay["total"][0], dtype=torch.uint8, device=dev)
+        return lay, [buf["region"].data_ptr() for _, _, buf in launches_]
 
     def table(self, B: int):
         """[(pointer array, split-K partial floats a shard, its buffers) per
@@ -417,8 +597,7 @@ class _Prepared:
             z = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
             tiles = -(-El // 128) + -(-Fl // 128)  # column tiles of 128 (csrc/qmv.cuh)
             cap = min(3 * B * 128 * grid, _build.SPLIT_FLOATS)
-            buf = {"x": z(B, E), "x_mid": z(B, E), "apart": z(tp, B, E), "vpart": z(tp, B, E),
-                   "gate": z(tp, B, El), "rwkv": z(nloc, B, El), "kk": z(nloc, B, Fl),
+            buf = {"x": z(B, E), "x_mid": z(B, E), "rwkv": z(nloc, B, El), "kk": z(nloc, B, Fl),
                    "fr": z(B, E),
                    # the rank-1 offset terms are summed in double
                    "fr_off": z(B).double(), "off_parts": z(nloc, tiles, B).double(),
@@ -426,25 +605,30 @@ class _Prepared:
                    # zero before the first launch; every launch leaves them so
                    "counters": torch.zeros(nloc * _COUNTERS + _BARRIER_WORDS, dtype=torch.int32,
                                            device=dev)}
-            if self.cards:
-                buf["emb_slots"] = z(tp, B, E)
-                # the step counter and the flags: zero on every card at once
-                buf["flags"] = torch.zeros(_FLAG_WORDS, dtype=torch.int64, device=dev)
+            if not self.cards:
+                buf.update(apart=z(tp, B, E), vpart=z(tp, B, E), gate=z(tp, B, El))
             launches_.append((dev, cap, buf))
-        if self.cards:  # each card's table of its peers' slots for its shard
+        slots = [{} for _ in launches_]
+        if self.cards:  # each card's receive slots, flags and table of its peers' slots
+            lay, bases = self._regions(B, launches_)
             for c, (dev, _, buf) in enumerate(launches_):
+                me = self.me(c)
+                slots[c] = {name: bases[me] + lay[kind][0] for name, kind in
+                            (("apart", "apart"), ("vpart", "vpart"), ("gate", "gate"),
+                             ("emb_slots", "emb"), ("flags", "flags"))}
                 addr = [[0] * MAX_SHARDS for _ in _PEER_KINDS]
                 for k, kind in enumerate(_PEER_KINDS):
-                    for d, (_, _, other) in enumerate(launches_):
-                        t = other[kind if kind != "emb" else "emb_slots"]
-                        addr[k][d] = t.data_ptr() + (0 if kind == "flags"
-                                                     else c * t[0].numel() * t.element_size())
+                    off, slot = lay[kind]
+                    for d, base in enumerate(bases):
+                        addr[k][d] = base + off + (0 if kind == "flags" else me * slot)
                 buf["peers"] = torch.tensor(addr, dtype=torch.int64).to(dev)
             for dev, _, _ in launches_:
                 torch.cuda.synchronize(dev)  # every card's zeros and tables in place
+        self.slots[B] = slots
         got = []
         for c, (dev, cap, buf) in enumerate(launches_):
             fixed = {n: t.data_ptr() for n, t in buf.items()}
+            fixed.update(slots[c])
             arr = (ctypes.c_void_p * (len(_SHARED) + nloc * len(_SHARD)))(
                 *(fixed.get(n) for n in _SHARED))
             for j in range(nloc):
@@ -454,6 +638,20 @@ class _Prepared:
             got.append((arr, cap, buf))
         self.tables[B] = got
         return got
+
+
+def _region_layout(tp: int, B: int, E: int, El: int) -> dict:
+    """{kind: (byte offset, bytes of one shard's slot)} of a card's region
+    across cards: apart, vpart, gate and the embedding slots, tp slots each,
+    then the flag words (the step counter at word 0); offsets 256-byte
+    aligned."""
+    out, at = {}, 0
+    for kind, n in (("apart", B * E), ("vpart", B * E), ("gate", B * El), ("emb", B * E)):
+        out[kind] = (at, 4 * n)
+        at += -(-4 * n * tp // 256) * 256
+    out["flags"] = (at, 8 * _FLAG_WORDS)
+    out["total"] = (at + 8 * _FLAG_WORDS, 0)
+    return out
 
 
 def stack_grid_tp(B: int, E: int, *, q4: bool = False) -> int:
@@ -469,14 +667,39 @@ def stack_grid_tp(B: int, E: int, *, q4: bool = False) -> int:
 _prepared: dict = {}
 
 
-def _prepare(shards) -> _Prepared:
-    key = tuple(id(p) for p in shards)
+def _prepare(shards, mesh=None) -> _Prepared:
+    key = tuple(id(p) for p in shards) + (id(mesh),)
     prep = _prepared.get(key)
     if prep is None or any(a is not b for a, b in zip(prep.shards, shards)):
-        if len(_prepared) > 64:  # the rows of earlier engines: drop them all
-            _prepared.clear()
-        prep = _prepared[key] = _Prepared(list(shards))
+        if len(_prepared) > 64:  # earlier engines' rows, but those holding IPC regions
+            for k in [k for k, v in _prepared.items() if v.mesh is None]:
+                del _prepared[k]
+        prep = _prepared[key] = _Prepared(list(shards), mesh)
     return prep
+
+
+class _DeviceWords:
+    """A view of device memory this module owns (a region across processes)
+    for torch.as_tensor: [n] int64 at `ptr`."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "<i8", "data": (ptr, False),
+                                         "version": 3}
+
+
+def flag_words(shards, B: int, mesh) -> torch.Tensor:
+    """The flag words of K7's table at batch B on this process's card, for
+    a row across processes (`mesh`), as an int64 tensor [64] on the host:
+    word 0 the card's step counter (the launches it ran), then the flag of
+    (exchange x, shard j) at 16 + 8 x + j (x: the embedding, att and ffn
+    exchanges), each the epoch of its last release."""
+    prep = _prepare(shards, mesh)
+    prep.table(B)
+    with torch.cuda.device(prep.device):
+        torch.cuda.synchronize(prep.device)
+        words = torch.as_tensor(_DeviceWords(prep.slots[B][0]["flags"], _FLAG_WORDS),
+                                device=prep.device)
+        return words.cpu()
 
 
 _S = {n: i for i, n in enumerate(_SHARED)}
@@ -485,23 +708,28 @@ _D = {n: i for i, n in enumerate(_SHARD)}
 
 def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], local, *,
                     x: Optional[torch.Tensor] = None, token: Optional[torch.Tensor] = None,
-                    stamps=None):
+                    stamps=None, mesh=None):
     """One decode step of the shards of a data row; returns (logits_loc, new
     states) as decode_stack_tp_reference, each shard's on its device. token
     [B] (B <= 8) or x [B, E], on any of the row's devices. stamps: see the
-    module docstring (CUDA only)."""
+    module docstring (CUDA only). mesh: a pod mesh whose row spans
+    processes; `shards`, `states` and `local` are then this process's one
+    shard's, and every process of the row calls this at once."""
+    if mesh is not None and not mesh.spans_processes:
+        mesh = None
     given = token if x is None else x
     if shards[0].emb.device.type == "cpu" and given is not None and given.device.type == "cpu":
-        return decode_stack_tp_reference(shards, states, local, x=x, token=token)
+        return decode_stack_tp_reference(shards, states, local, x=x, token=token, mesh=mesh)
     global launches, launches_q4
-    prep = _prepare(shards)
+    prep = _prepare(shards, mesh)
     tp = prep.tp
+    n_here = len(prep.shards)
     L, E, El, Fl, Vl, n_emb = prep.dims
     if (x is None) == (token is None):
         raise ValueError("decode_stack_tp takes exactly one of x and token")
-    if len(states) != tp or len(local) != tp:
+    if len(states) != n_here or len(local) != n_here:
         raise ValueError(f"decode_stack_tp: {len(states)} states and {len(local)} (decay, "
-                         f"bonus) pairs for {tp} shards")
+                         f"bonus) pairs for {n_here} shards")
     row = set(prep.devices)
     if token is not None:
         if token.dim() != 1 or token.device not in row:
@@ -533,7 +761,7 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
             _check(t, "stamps", torch.int64, dev, (t.numel(),))
             if t.numel() < n_stamps:
                 raise ValueError(f"decode_stack_tp: stamps needs {n_stamps} entries")
-    for j in range(tp):
+    for j in range(n_here):
         decay, bonus = local[j]
         _io(decay, f"shard {j} decay", prep.shard_device(j), (L, El))
         _io(bonus, f"shard {j} bonus", prep.shard_device(j), (L, El))
@@ -541,9 +769,9 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
     f32 = torch.float32
     k, n = len(_SHARED), len(_SHARD)
     # every input on its card and every output made before the first launch
-    calls, logits, outs, xy_dd = [], [], [[] for _ in range(tp)], []
+    calls, logits, outs, xy_dd = [], [], [[] for _ in range(n_here)], []
     for c, ((arr, cap, _), dev) in enumerate(zip(tables, prep.devices)):
-        shard_ids = [c] if prep.cards else list(range(tp))
+        shard_ids = [c] if prep.cards else list(range(n_here))
         xy_out = torch.empty(be, dtype=f32, device=dev)
         dd_out = torch.empty(be, dtype=f32, device=dev)
         lg = torch.empty((len(shard_ids), B, Vl), dtype=f32, device=dev)
@@ -572,7 +800,7 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
     for c, (arr, cap, dev, _) in enumerate(calls):
         launched, grid = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(dev):
-            err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, c if prep.cards else 0,
+            err = lib.rwkv_decode_stack_tp(arr, len(arr), tp, prep.me(c),
                                            int(prep.cards), L, B, E, El, Fl, Vl, n_emb,
                                            int(prep.q4), prep.halves, cap, _COUNTERS,
                                            torch.cuda.current_stream(dev).cuda_stream,
@@ -583,6 +811,6 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
             launches += launched.value
         _build.check(lib, err, f"decode_stack_tp on {dev}")
     if prep.cards:
-        return logits, [WKVState(xy_dd[j][0], *outs[j], xy_dd[j][1]) for j in range(tp)]
+        return logits, [WKVState(xy_dd[j][0], *outs[j], xy_dd[j][1]) for j in range(n_here)]
     xy_out, dd_out = xy_dd[0]
-    return logits, [WKVState(xy_out, *outs[j], dd_out) for j in range(tp)]
+    return logits, [WKVState(xy_out, *outs[j], dd_out) for j in range(n_here)]

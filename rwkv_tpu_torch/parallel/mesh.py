@@ -33,15 +33,27 @@ shard order on shard 0's card (PERF.md, section 5, tools/tp_cards.py), so
 the copies are not kept as a choice. On one device, or on the CPU, the
 collectives are the plain sums above.
 
-Across processes (parallel/multihost.py: pod_mesh) only the data axis spans
-the process boundary, as in the JAX pod mesh: `shape` is the global
-{"data": rows of every process, "model": tp}, while `devices` holds this
-process's `local_rows` rows, global rows first_row .. first_row +
-local_rows - 1 (which process this is, torch.distributed says:
-multihost.process_index()). A model axis never crosses a process (the JAX
-doctrine: tensor parallelism stays inside a host); a process holding several
-cards runs its rows' model axis across them. A mesh of one process has
-local_rows == shape["data"] and first_row == 0.
+Across processes (parallel/multihost.py: pod_mesh) the mesh is the
+process's part of the JAX pod mesh: `shape` is the global {"data": rows of
+every process, "model": tp}, while `devices` holds this process's
+`local_rows` rows, global rows first_row .. first_row + local_rows - 1, and
+of each row this process's `local_shards` shards, global shards
+first_shard .. first_shard + local_shards - 1 (which process this is,
+torch.distributed says: multihost.process_index()). A process holding tp
+devices or a multiple of tp holds whole rows (local_shards == tp,
+first_shard == 0), and its rows' model axis runs across its own devices. A
+row wider than a process's devices spans tp / local_shards consecutive
+processes (the JAX order: row d is the global devices d*tp .. (d+1)*tp - 1),
+and the mesh then holds the row's `model_group`, a torch.distributed group
+of those processes: psum and all_gather first sum or gather this process's
+shards, then run dist.all_reduce / all_gather over the group (NCCL between
+cards, gloo where the processes share a card or run on the CPU). NCCL's and
+gloo's sum orders are their own, so such a row holds the TP pin (3e-4).
+`row_cards` lists, per global shard of such a row, its process's host and
+card ((host, device type, index, uuid), gathered by pod_mesh), from which
+kernel K7 across processes decides whether it can run the row. A mesh of
+one process has local_rows == shape["data"], first_row == 0, local_shards
+== shape["model"] and no model_group.
 """
 
 from __future__ import annotations
@@ -64,12 +76,18 @@ def canonical(device) -> torch.device:
 class Mesh:
     """A [data, model] grid of devices, and its collectives.
 
-    devices: this process's [data][model] rows. data: the data rows of every
-    process (default: this process's, a one-process mesh); first_row: the
-    global index of this process's first row."""
+    devices: this process's [data][model] rows (of each row its own
+    shards). data: the data rows of every process (default: this
+    process's, a one-process mesh); first_row: the global index of this
+    process's first row. model: the row's global width (default: the
+    shards given); first_shard: the global index of this process's first
+    shard; model_group: the torch.distributed group of a row's processes,
+    for a row that spans processes; row_cards: its shards' (host, device
+    type, index, uuid), as pod_mesh gathers them."""
 
     def __init__(self, devices: Sequence[Sequence], *, data: Optional[int] = None,
-                 first_row: int = 0):
+                 first_row: int = 0, model: Optional[int] = None, first_shard: int = 0,
+                 model_group=None, row_cards: Optional[Sequence] = None):
         grid = [[canonical(d) for d in row] for row in devices]
         if not grid or not grid[0] or any(len(row) != len(grid[0]) for row in grid):
             raise ValueError("a mesh needs a non-empty rectangular [data][model] grid of devices")
@@ -77,14 +95,30 @@ class Mesh:
         if first_row < 0 or first_row + len(grid) > data:
             raise ValueError(f"local rows {first_row}..{first_row + len(grid) - 1} lie outside "
                              f"the mesh's {data} data rows")
+        n = len(grid[0])
+        model = n if model is None else model
+        if model % n or first_shard % n or not 0 <= first_shard < model:
+            raise ValueError(f"local shards {first_shard}..{first_shard + n - 1} are not a "
+                             f"block of the row's {model} shards")
+        if n < model and len(grid) != 1:
+            raise ValueError("a process holding part of a row holds one row")
         self.devices = grid
-        self.shape = {"data": data, "model": len(grid[0])}
+        self.shape = {"data": data, "model": model}
         self.local_rows = len(grid)
         self.first_row = first_row
+        self.local_shards = n
+        self.first_shard = first_shard
+        self.model_group = model_group
+        self.row_cards = None if row_cards is None else list(row_cards)
         self.collectives = {"psum": 0, "all_gather": 0}
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether this process holds only part of its row's shards."""
+        return self.local_shards < self.shape["model"]
+
     def row_on_cards(self, d: int) -> bool:
-        """Whether data row d's shards each lie on their own CUDA device."""
+        """Whether data row d's local shards each lie on their own CUDA device."""
         row = self.devices[d]
         return (len(row) > 1 and len(set(row)) == len(row)
                 and all(dev.type == "cuda" for dev in row))
@@ -102,14 +136,77 @@ class Mesh:
         for k in self.collectives:
             self.collectives[k] = 0
 
+    def _group(self):
+        """The row's process group, for a row that spans processes."""
+        if self.model_group is None:
+            raise RuntimeError("this mesh's row spans processes and has no model_group: build "
+                               "it with multihost.pod_mesh inside a process group")
+        return self.model_group
+
+    def _on_backend(self, t: torch.Tensor) -> torch.Tensor:
+        """t where the row's group can exchange it: gloo takes CPU tensors."""
+        import torch.distributed as dist
+
+        if dist.get_backend(self._group()) == "gloo" and t.device.type != "cpu":
+            return t.cpu()
+        return t.contiguous()
+
+    def group_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the row's processes (the identity within a
+        process), on t's device."""
+        if not self.spans_processes:
+            return t
+        import torch.distributed as dist
+
+        x = self._on_backend(t)
+        if x is t:
+            x = t.clone()  # all_reduce writes in place
+        dist.all_reduce(x, group=self._group())
+        return x.to(t.device)
+
+    def group_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every process's t of the row, concatenated along dim in shard
+        order (the identity within a process), on t's device."""
+        if not self.spans_processes:
+            return t
+        import torch.distributed as dist
+
+        group = self._group()
+        x = self._on_backend(t)
+        n = dist.get_world_size(group)
+        if x.device.type == "cuda":
+            out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x, group=group)
+            parts = out.unbind(0)
+        else:
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+        return torch.cat(list(parts), dim=dim).to(t.device)
+
+    def group_broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """t as the row's shard-0 process holds it, in every process of the
+        row (the identity within a process): sampled ids, so that every
+        process feeds the same token."""
+        if not self.spans_processes:
+            return t
+        import torch.distributed as dist
+
+        group = self._group()
+        x = self._on_backend(t)
+        if x is t:
+            x = t.clone()
+        dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
+        return x.to(t.device)
+
     def psum(self, parts):
         """[data][model] grid of tensors -> the grid of their sums over the
         model shards of each data row: in the fixed order 0..tp-1, or, for a
-        row across cards, NCCL's all-reduce."""
+        row across cards, NCCL's all-reduce; for a row across processes,
+        this process's shards first, then the group's all-reduce."""
         self.collectives["psum"] += 1
         out = []
         for d, (row, devs) in enumerate(zip(parts, self.devices)):
-            if self.row_on_cards(d):
+            if self.row_on_cards(d) and not self.spans_processes:
                 from torch.cuda import nccl
 
                 ins = [p.contiguous() for p in row]
@@ -120,19 +217,21 @@ class Mesh:
             s = row[0]
             for p in row[1:]:
                 s = s + p.to(devs[0])
+            s = self.group_sum(s)
             out.append([s.to(dev) for dev in devs])
         return out
 
     def all_gather(self, parts, dim: int = -1, first_only: bool = False):
         """[data][model] grid of tensors -> the grid of their concatenations
-        over the model shards of each data row, along `dim`. first_only: the
-        concatenation is made on each row's shard 0 only (the others'
-        entries are that tensor too), for a caller that reads only shard
-        0's."""
+        over the model shards of each data row, along `dim` (for a row
+        across processes, this process's shards first, then the group's
+        gather). first_only: the concatenation is made on each row's shard 0
+        only (the others' entries are that tensor too), for a caller that
+        reads only shard 0's."""
         self.collectives["all_gather"] += 1
         out = []
         for d, (row, devs) in enumerate(zip(parts, self.devices)):
-            if self.row_on_cards(d):
+            if self.row_on_cards(d) and not self.spans_processes:
                 from torch.cuda import nccl
 
                 ins = [p.contiguous() for p in row]
@@ -143,6 +242,7 @@ class Mesh:
                 out.append(got * len(devs) if first_only else got)
                 continue
             g = torch.cat([p.to(devs[0]) for p in row], dim=dim)
+            g = self.group_gather(g, dim)
             out.append([g] * len(devs) if first_only else [g.to(dev) for dev in devs])
         return out
 

@@ -37,6 +37,12 @@ and the pool keep one and step it in place; it is joined into whole
 tensors (unshard_state) or cut from them (shard_state) only where a caller
 reads or writes a whole state. `counts` counts those cuts and joins.
 
+On a mesh whose rows span processes (multihost.pod_mesh(model=tp) with tp
+wider than a process's devices) every cut takes the global shard index,
+first_shard + j: a process holds only its own weight columns, vocab slice
+and state channels, and make_put copies out and places only those pieces of
+each tensor it reads, so a card holds one shard's weights, not the model's.
+
 Not ported: the JAX package's 4-D pretiled layout (the port has none).
 """
 
@@ -89,9 +95,14 @@ def _zip_map(fn, tree, spec):
     return fn(tree, spec)
 
 
-def _vocab(params: RWKVParams) -> int:
+def _vocab(params: RWKVParams, mesh: Optional[Mesh] = None) -> int:
+    """The whole (padded) vocab; a MeshShards embedding holds this process's
+    shards of it."""
     emb = params.emb
-    return sum(p.shape[0] for p in emb[0]) if isinstance(emb, MeshShards) else emb.shape[0]
+    if not isinstance(emb, MeshShards):
+        return emb.shape[0]
+    n = sum(p.shape[0] for p in emb[0])
+    return n * mesh.shape["model"] // mesh.local_shards if mesh is not None else n
 
 
 def param_pspecs(params: RWKVParams, n_model: Optional[int] = None) -> RWKVParams:
@@ -137,9 +148,10 @@ def param_pspecs(params: RWKVParams, n_model: Optional[int] = None) -> RWKVParam
 
 
 def _cut_mesh(t, dim: Optional[int], mesh: Mesh) -> MeshShards:
-    """t cut into tp contiguous pieces along dim (dim None: t whole), piece j
-    on mesh.devices[d][j] for every data row d; a device named twice gets one
-    copy. A MeshShards is taken as it is."""
+    """t cut into tp contiguous pieces along dim (dim None: t whole), piece
+    first_shard + j on mesh.devices[d][j] for every data row d (only this
+    process's pieces are copied out and placed); a device named twice gets
+    one copy. A MeshShards is taken as it is."""
     if isinstance(t, MeshShards):
         return t
     tp = mesh.shape["model"]
@@ -154,18 +166,20 @@ def _cut_mesh(t, dim: Optional[int], mesh: Mesh) -> MeshShards:
     placed: dict = {}
 
     def on(j, dev):
-        key = (id(pieces[j]), dev)
+        piece = pieces[mesh.first_shard + j]
+        key = (id(piece), dev)
         if key not in placed:
-            placed[key] = pieces[j].contiguous().to(dev)
+            placed[key] = piece.contiguous().to(dev)
         return placed[key]
 
     return MeshShards(tuple(on(j, dev) for j, dev in enumerate(row)) for row in mesh.devices)
 
 
 class ShardedParams:
-    """RWKVParams cut over a mesh: rows[d][j] is model shard j of data row d,
-    every leaf a contiguous tensor on mesh.devices[d][j] (data rows share a
-    shard's tensors where they name the same device)."""
+    """RWKVParams cut over a mesh: rows[d][j] is model shard first_shard + j
+    of data row d, every leaf a contiguous tensor on mesh.devices[d][j]
+    (data rows share a shard's tensors where they name the same device); a
+    process holds only its own shards."""
 
     def __init__(self, rows, mesh: Mesh, vocab_size: int):
         self.rows = rows
@@ -192,11 +206,15 @@ class ShardedParams:
 
     @property
     def logit_bias(self) -> Optional[torch.Tensor]:
-        """The whole [Vp] logit bias on the first device, or None."""
+        """The whole [Vp] logit bias on the first device, or None (on a row
+        across processes its first read gathers the other processes' slices:
+        a collective, which the engine makes at load in every process)."""
         if self._bias is None and self.rows[0][0].logit_bias is not None:
             parts = [p.logit_bias.to(self.device) for p in self.rows[0]]
             vocab_split = parts[0].shape[0] != self.vocab_size
             self._bias = torch.cat(parts) if vocab_split else parts[0]
+            if vocab_split:
+                self._bias = self.mesh.group_gather(self._bias, 0)
         return self._bias
 
     def local(self, d: int, j: int):
@@ -205,8 +223,8 @@ class ShardedParams:
         got = self._local.get((d, j))
         if got is None:
             p, tp = self.rows[d][j], self.mesh.shape["model"]
-            El = p.n_embd // tp
-            got = tuple(v[:, j * El:(j + 1) * El].contiguous()
+            El, g = p.n_embd // tp, self.mesh.first_shard + j
+            got = tuple(v[:, g * El:(g + 1) * El].contiguous()
                         for v in (p.att.decay, p.att.bonus))
             self._local[(d, j)] = got
         return got
@@ -233,11 +251,11 @@ def shard_params(params: RWKVParams, mesh: Mesh) -> ShardedParams:
     must divide its rows per shard (ValueError otherwise)."""
     tp = mesh.shape["model"]
     _check_q4_blocks(params, tp)
-    vocab = _vocab(params)
+    vocab = _vocab(params, mesh)
     specs = param_pspecs(params, n_model=tp)
     cut = _zip_map(lambda leaf, dim: _cut_mesh(leaf, dim, mesh), params, specs)
-    rows = [[_zip_map(lambda grid, _: grid[d][j], cut, specs) for j in range(tp)]
-            for d in range(mesh.local_rows)]
+    rows = [[_zip_map(lambda grid, _: grid[d][j], cut, specs)
+             for j in range(mesh.local_shards)] for d in range(mesh.local_rows)]
     return ShardedParams(rows, mesh, vocab)
 
 
@@ -253,25 +271,28 @@ def state_pspecs(n_model: int = 0) -> WKVState:
 
 def shard_state(state: WKVState, mesh: Mesh):
     """A full state ([L, B, E] leaves) cut into a [data][model] grid of
-    WKVStates over this process's rows, each leaf contiguous on its shard's
-    device. B (this process's streams) must split evenly over its data rows."""
+    WKVStates over this process's rows and shards, each leaf contiguous on
+    its shard's device. B (this process's streams) must split evenly over
+    its data rows."""
     counts["shard_state"] += 1
-    nd, tp = mesh.local_rows, mesh.shape["model"]
+    nd, tp, first = mesh.local_rows, mesh.shape["model"], mesh.first_shard
     specs = state_pspecs(n_model=tp)
-    cells = [[{} for _ in range(tp)] for _ in range(nd)]
+    cells = [[{} for _ in range(mesh.local_shards)] for _ in range(nd)]
     for name, t, (ddim, mdim) in zip(WKVState._fields, state, specs):
         if t.shape[ddim] % nd:
             raise ValueError(f"batch {t.shape[ddim]} does not split over data={nd}")
         rows = torch.chunk(t, nd, ddim)
         for d, row in enumerate(rows):
             cols = torch.chunk(row, tp, mdim) if mdim is not None else [row] * tp
-            for j, c in enumerate(cols):
-                cells[d][j][name] = c.contiguous().to(mesh.devices[d][j])
+            for j in range(mesh.local_shards):
+                cells[d][j][name] = cols[first + j].contiguous().to(mesh.devices[d][j])
     return [[WKVState(**c) for c in row] for row in cells]
 
 
 def unshard_state(grid, mesh: Mesh) -> WKVState:
-    """The inverse of shard_state: full leaves on the mesh's first device."""
+    """The inverse of shard_state: full leaves on the mesh's first device
+    (for a row across processes the other processes' channels gathered over
+    the row's group: a collective, which every process of the row makes)."""
     counts["unshard_state"] += 1
     specs = state_pspecs(n_model=mesh.shape["model"])
     first = mesh.first_device
@@ -282,7 +303,8 @@ def unshard_state(grid, mesh: Mesh) -> WKVState:
             if mdim is None:
                 rows.append(row[0][i].to(first))
             else:
-                rows.append(torch.cat([cell[i].to(first) for cell in row], dim=mdim))
+                rows.append(mesh.group_gather(
+                    torch.cat([cell[i].to(first) for cell in row], dim=mdim), mdim))
         out.append(torch.cat(rows, dim=ddim) if len(rows) > 1 else rows[0])
     return WKVState(*out)
 

@@ -52,14 +52,27 @@ On a pod mesh (parallel/multihost.py: pod_mesh), whose data axis spans
 processes, the step, the prefill and the engine adapters take and return this
 process's streams only (multihost.local_batch cuts a global batch to them),
 as the JAX pod is fed host-local arrays: B splits over the mesh's local data
-rows. Every collective of the step stays inside the process, on the model
-axis; nothing crosses the process boundary inside a step, so a captured
-CUDA graph never holds a cross-process call.
+rows. Where a row's model axis also spans processes (pod_mesh(model=tp),
+tp wider than a process's devices), each process runs its own shards of the
+row (mesh.local_shards from mesh.first_shard; the embedding gather and the
+head take the global shard index), and the exchanges cross the process
+boundary inside the step: the mesh's collectives over the row's process
+group for "plain" and "halves" (NCCL between cards), and for "fused" kernel
+K7's peer stores into the other processes' receive slots, opened through
+CUDA IPC, plus the one logits gather. Every process of the row runs the
+same step at the same call (SPMD, as the JAX program). "fused" there needs
+one card a process, each on its own card of one host with peer access
+(decode_stack_tp.process_row_problem: the auto choice takes "fused" only
+where it passes, and K7's first call on a row that fails it raises, naming
+why); a row whose processes share a card takes "halves" or "plain", whose
+collectives need no peer memory.
 
-The "halves" body on a mesh whose every shard names one CUDA device replays
-a CUDA graph of the whole step (runtime/graphs.py): eagerly, the host's work
-a layer (wrapper checks, outputs, collectives) takes longer than the
-device's, so the host would set the pace. One graph per (sharded params, B),
+The "halves" body on a mesh whose every shard names one CUDA device, and
+every body on a row across processes of one card each whose group is NCCL
+(runtime/graphs.py: one_cuda_device), replays a CUDA graph of the whole
+step, the group's NCCL collectives and K7's launch inside it: eagerly, the
+host's work a layer (wrapper checks, outputs, collectives) takes longer
+than the device's, so the host would set the pace. One graph per (sharded params, B),
 captured at that key's first call right after the call ran eagerly (the
 warm-up); each replay advances the launch counters and the mesh's collective
 counts by what the capture recorded. Inside a caller's own capture (the
@@ -84,6 +97,7 @@ from rwkv_tpu_torch.ops.cuda.decode_stack_tp import (
     FUSE_EMBED_MAX_B,
     decode_stack_tp,
     fused_problem,
+    process_row_problem,
     row_devices,
 )
 from rwkv_tpu_torch.ops.cuda.mm8 import mm8
@@ -104,8 +118,8 @@ BODIES = ("plain", "halves", "fused")
 
 
 def _grid(mesh: Mesh, fn: Callable):
-    """[[fn(d, j) for each model shard j] for each data row d]."""
-    return [[fn(d, j) for j in range(mesh.shape["model"])] for d in range(mesh.local_rows)]
+    """[[fn(d, j) for each local model shard j] for each local data row d]."""
+    return [[fn(d, j) for j in range(mesh.local_shards)] for d in range(mesh.local_rows)]
 
 
 class _Collectives:
@@ -141,8 +155,9 @@ def _join_batch(mesh: Mesh, grid, dim: int) -> torch.Tensor:
 
 
 def _embed_psum(sp: ShardedParams, tokens, comm: _Collectives):
-    """Vocab-sharded embedding gather -> one psum -> ln0. tokens[d][j]: [B]
-    for a decode step or [T, B] for prefill. At tp = 1: a plain lookup."""
+    """Vocab-sharded embedding gather (shard first_shard + j holds its
+    global slice) -> one psum -> ln0. tokens[d][j]: [B] for a decode step or
+    [T, B] for prefill. At tp = 1: a plain lookup."""
     mesh = sp.mesh
 
     def rows(d, j):
@@ -150,7 +165,7 @@ def _embed_psum(sp: ShardedParams, tokens, comm: _Collectives):
         Vl = p.emb.shape[0]
         if not comm.on:
             return p.emb[t.clamp(0, Vl - 1)]
-        lo = j * Vl
+        lo = (mesh.first_shard + j) * Vl
         mine = ((t >= lo) & (t < lo + Vl))[..., None]
         got = p.emb[(t - lo).clamp(0, Vl - 1)]
         return torch.where(mine, got, torch.zeros_like(got))
@@ -263,14 +278,15 @@ def _tp_step_local_fused(sp: ShardedParams, tokens, states, comm: _Collectives):
     """The K7 body: one decode_stack_tp call per data row, then each shard's
     logit-bias slice and the logits gather."""
     mesh = sp.mesh
-    tp = mesh.shape["model"]
     fuse = tokens[0][0].shape[0] <= FUSE_EMBED_MAX_B
     x = None if fuse else _embed_psum(sp, tokens, comm)
     logits, new = [], []
     for d in range(mesh.local_rows):
-        lg, st = decode_stack_tp(sp.rows[d], states[d], [sp.local(d, j) for j in range(tp)],
+        lg, st = decode_stack_tp(sp.rows[d], states[d],
+                                 [sp.local(d, j) for j in range(mesh.local_shards)],
                                  x=None if fuse else x[d][0],
-                                 token=tokens[d][0] if fuse else None)
+                                 token=tokens[d][0] if fuse else None,
+                                 mesh=mesh if mesh.spans_processes else None)
         bias = [p.logit_bias for p in sp.rows[d]]
         logits.append([g if b is None else g + b for g, b in zip(lg, bias)])
         new.append(st)
@@ -287,7 +303,12 @@ def _meta(params):
 def _k7_rows(mesh: Mesh) -> bool:
     """Whether kernel K7 can run every data row: on one CUDA device (a
     virtual mesh), or each shard on its own card with peer access between
-    every pair (decode_stack_tp.row_devices accepts it)."""
+    every pair (decode_stack_tp.row_devices accepts it), or, for a row
+    across processes, one card a process with peer access between every
+    pair (process_row_problem; the same answer in every process, from the
+    cards pod_mesh gathered)."""
+    if mesh.spans_processes:
+        return process_row_problem(mesh) is None
     try:
         for row in mesh.devices:
             row_devices(row)
@@ -361,7 +382,8 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
                                _Collectives(mesh))
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
-    graphs = Graphs(mesh=mesh) if body == "halves" and one_cuda_device(mesh) else None
+    graphed = one_cuda_device(mesh) and (body == "halves" or mesh.spans_processes)
+    graphs = Graphs(mesh=mesh) if graphed else None
 
     def step(sp: ShardedParams, token: torch.Tensor, state):
         if isinstance(state, ShardedState):
@@ -378,6 +400,7 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
 
     step.body = body
     step.graphed = graphs is not None
+    step.graphs = graphs  # its replays, or None
     step.eager = eager  # the body without the graph, for measuring the two apart
     return step
 

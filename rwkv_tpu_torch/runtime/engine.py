@@ -48,6 +48,20 @@ and load_state through them) join the shards into whole tensors or cut
 them. On a mesh over distinct cards, decode runs eagerly (runtime/graphs.py
 says why). W8A8 (a8) has no sharded step, as in the JAX engine.
 
+    RWKV("model.bin", sharding=pod_mesh(model=tp))   one card a process
+
+On a pod mesh whose rows span processes (parallel/multihost.py), every
+process of a launcher makes the same engine and the same calls (load_context,
+forward, generate), as each JAX process runs the same program: each holds
+and steps its own shards, its decode program is one CUDA graph of its card
+(the row's NCCL collectives and K7's launch inside it), and the row's
+shard-0 process draws each token and broadcasts it over the row's group, so
+that every process feeds the same token and returns the same text. The
+state's other shards lie in other processes: get_state (and snapshot and
+save_state through it) raises there, as the JAX engine cannot fetch an array
+that spans devices of other processes; set_state and load_state cut a whole
+state onto this process's shards.
+
 The engine runs on "cuda" unless the caller passes device="cpu" (or a mesh
 of CPU devices); it never falls back to the CPU on its own.
 """
@@ -285,7 +299,8 @@ class RWKV:
             if not isinstance(params.head, (QuantLinear, Quant4Linear)):
                 raise TypeError("the sharded engine needs quantized (QuantLinear or "
                                 "Quant4Linear) params")
-            params = params_to(params, self.device)
+            # prepared on the host: each device then receives only its shards
+            params = params_to(params, "cpu")
             multiple = tp_vocab_multiple(mesh.shape["model"])
             if params.head.out_features % (128 * mesh.shape["model"]):
                 params = pad_vocab(params, multiple=multiple)
@@ -382,6 +397,12 @@ class RWKV:
         """A contiguous copy of one stream's state: later steps never change
         it (with a mesh, its shards joined on the first device)."""
         self._check_stream(stream)
+        if self._mesh is not None and self._mesh.spans_processes:
+            raise RuntimeError(
+                "get_state: the model axis spans processes, so this stream's state lies partly "
+                "in other processes and is not addressable here (the JAX engine cannot fetch "
+                "an array that spans non-addressable devices either); snapshot and save_state "
+                "need the whole state")
         if self._mesh is not None:
             return WKVState(*(s[:, 0].contiguous()
                               for s in self._state.take([stream]).join()))
@@ -534,7 +555,10 @@ class RWKV:
         """The ban mask, then typical from the engine's generator (JAX:
         _sample, the first token after a prompt)."""
         logits = torch.where(ban, torch.full_like(logits, -1e9), logits)
-        return typical(logits, self._gen, temp=temp, tau=tau)
+        ids = typical(logits, self._gen, temp=temp, tau=tau)
+        if self._mesh is not None:  # a row across processes: shard 0's draw
+            ids = self._mesh.group_broadcast(ids)
+        return ids
 
     def _decode(self, token, state, temp, tau, ban):
         """One decode step as the device program runs it (JAX: decode): the

@@ -38,17 +38,34 @@ and every output is copied or consumed before the next replay: no graph
 runs while another one's memory is still in use.
 
 On CPU tensors, or with enabled=False, fn runs eagerly on every call. A mesh
-over distinct GPUs decodes eagerly (one_cuda_device): a graph of its step
-would be one capture across the row's cards, each card's stream joined to
-the capturing one, with kernel K7's launches on every card and the
+whose process drives several GPUs decodes eagerly (one_cuda_device): a graph
+of its step would be one capture across the row's cards, each card's stream
+joined to the capturing one, with kernel K7's launches on every card and the
 collectives' copies (or NCCL's kernels) between them inside it. That
 multi-device capture is not done here (ROADMAP.md); the host's work a step
 over cards is K7's tp launches and the logits gather, and the step's time
 over four H100s is in PERF.md.
+
+A row across processes of one card each (multihost.pod_mesh(model=tp)) is
+graphed: each process's step is a capture on its one card, its row's NCCL
+collectives and K7's launch inside it. The communicator exists before the
+capture (the warm-up's collectives made it), and every process of the row
+captures the same key at the same call, since the program is SPMD (the
+engine and the pool run the same calls in every process). A row whose group
+is gloo (processes sharing a card, or on the CPU) runs eagerly: a gloo
+collective runs on the host and cannot be captured.
+
+Teardown: NCCL destroys a communicator only once every CUDA graph that
+captured one of its collectives is gone. Every Graphs object is registered
+when it is made, and release_all frees their captures, whoever still holds
+them (multihost.shutdown calls it before it destroys the process group); a
+Graphs whose captures were freed warms up and captures anew at its next
+call of a key.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -67,6 +84,7 @@ COUNTERS = ((_ds, "launches"), (_ds, "launches_q4"), (_ds, "launches_a8"),
             (_th, "launches_ffn"))
 
 _POOL: dict = {}  # the one graph memory pool: its handle, and per device a keeper
+_LIVE: "weakref.WeakSet[Graphs]" = weakref.WeakSet()  # every Graphs made (release_all)
 
 
 def memory_pool(device: torch.device):
@@ -134,7 +152,7 @@ class _Captured:
         self.fn, self.mesh = fn, mesh  # fn kept alive: a key may hold id()s it owns
         self.inputs = _map(lambda t: t.clone(), args)
         self.input_ids = {id(t) for t in _leaves(self.inputs)}
-        device = _leaves(args)[0].device
+        self.device = device = _leaves(args)[0].device
         before = counts(mesh)
         torch.cuda.synchronize(device)
         self.graph = torch.cuda.CUDAGraph()
@@ -174,6 +192,7 @@ class Graphs:
         self.enabled = enabled
         self.replays = 0
         self._graphs: dict = {}
+        _LIVE.add(self)
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -190,12 +209,36 @@ class Graphs:
         self._graphs[key] = _Captured(fn, args, self.generators, self.mesh)
         return out
 
+    def reset(self) -> None:
+        """Free every captured graph, once its device has finished its work;
+        the next call of a key warms up and captures anew."""
+        graphs, self._graphs = list(self._graphs.values()), {}
+        for g in graphs:
+            torch.cuda.synchronize(g.device)
+            g.graph.reset()
+
+
+def release_all() -> None:
+    """Free the captures of every Graphs still alive: the module
+    docstring's teardown."""
+    for g in list(_LIVE):
+        g.reset()
+
 
 def one_cuda_device(mesh: Optional[object]) -> bool:
-    """Whether a mesh (or no mesh) lets its decode be graphed: every shard on
-    one CUDA device. A mesh over distinct GPUs decodes eagerly (no
-    multi-device capture: the module docstring)."""
+    """Whether a mesh (or no mesh) lets its decode be graphed: this
+    process's shards all on one CUDA device, and, for a row across
+    processes, its group on NCCL. A process driving distinct GPUs decodes
+    eagerly (no multi-device capture), and so does a row on a gloo group:
+    the module docstring."""
     if mesh is None:
         return True
     devs = {d for row in mesh.devices for d in row}
-    return len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        return False
+    if getattr(mesh, "spans_processes", False):
+        import torch.distributed as dist
+
+        group = mesh.model_group
+        return group is not None and dist.get_backend(group) == "nccl"
+    return True

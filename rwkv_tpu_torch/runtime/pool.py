@@ -31,6 +31,12 @@ carry. Admission (prefill and the burst's first tokens, JAX: _jit_admit)
 runs eagerly, in float32 or, with prefill_dtype=torch.bfloat16, with bf16
 product operands. On the CPU, and over a mesh of distinct GPUs, the program
 runs eagerly.
+
+On params sharded over a pod mesh whose rows span processes, every process
+makes the same pool and the same calls (submit, step, run): each steps its
+own shards, the row's shard-0 process draws every id and broadcasts it over
+the row's group (inside the graph on NCCL), and every process returns the
+same texts.
 """
 
 from __future__ import annotations
@@ -169,7 +175,7 @@ class InferencePool:
         nothing) but their state update is masked out."""
         logits, new_state = self._step_impl(self.params, tokens, state)  # [B, V]
         logits = torch.where(ban, torch.full_like(logits, -1e9), logits)
-        nxt = typical(logits, self._gens, temp=temp, tau=tau)
+        nxt = self._broadcast(typical(logits, self._gens, temp=temp, tau=tau))
         if isinstance(state, ShardedState):
             state = new_state.where(active, state)
         else:
@@ -194,7 +200,12 @@ class InferencePool:
         """First tokens of a whole admission burst in one sampling call:
         logits [n, V], one generator and ban row per request."""
         logits = torch.where(ban, torch.full_like(logits, -1e9), logits)
-        return typical(logits, gens, temp=temp, tau=tau)
+        return self._broadcast(typical(logits, gens, temp=temp, tau=tau))
+
+    def _broadcast(self, ids):
+        """On a row across processes, the row's shard-0 process's draw in
+        every process (the same tokens fed everywhere); else ids."""
+        return ids if self._mesh is None else self._mesh.group_broadcast(ids)
 
     def _prefill(self, params, tokens, length, slot_state):
         """Prompt ingest (parallel WKV scan): tokens [T, W] with [W] ragged

@@ -1,6 +1,6 @@
 """Tensor parallelism across distinct GPUs, driven end to end and timed.
 
-    python -m rwkv_tpu_torch.tools.tp_cards [--seed 0] [--out tp_cards.json]
+    python -m rwkv_tpu_torch.tools.tp_cards [--seed 0] [--out tp_cards.json] [--only-g [engine]]
 
 Needs two or more CUDA devices of one host with peer access between them
 (four H100s for every part); with fewer it exits 2 and says why. It runs, with n the cards it sees and
@@ -46,7 +46,22 @@ tp = min(n, 4) for the 14B parts:
       stamps (each card's wait for its peers' flags, from the barrier to the
       wait's end, over the launch); one psum and one gather of [B, E] over
       the cards by device copies and by the mesh's NCCL collectives; the
-      14B halves step.
+      14B halves step;
+  (g) a model axis across processes (tools/pod_worker.py under
+      pod_mesh(model=tp)): tp processes of one card each, NCCL between them,
+      at 14B widths (each process makes the seed's weights and keeps its
+      shard): bodies "fused" (K7 across processes: one launch a process a
+      step, the exchanges peer stores into regions opened through CUDA IPC),
+      "halves" and "plain" at B in {1, 8}, 4 steps then 3 sampled, against
+      K1 + K2 on card 0 at the TP pin; K7 against its plain version on the
+      same inputs at 1e-4; each process's step replayed from its own CUDA
+      graph (the row's NCCL collectives inside it), its flag words at the
+      steps made, and its eager body and graph timed in turns, ms/step and
+      ms/token, and K7's and its plain version's ms a step; then, on the
+      430M .bin, K7 against its plain version (4 streams, the same checks
+      and times), and the engine and an 8-slot pool of 12 requests in every
+      process, as in (c) and (d), each process still holding its engine
+      and pool when it leaves the group (--only-g engine: this half alone).
 
 Every figure line names the card (nvidia-smi's name and power limit); the
 P2P matrix of the cards comes first. The last lines: one JSON object of the
@@ -465,6 +480,213 @@ def run_pods(bin_path, n, card, tmp):
     return recs
 
 
+# -- (g) a model axis across processes ---------------------------------------------
+
+
+def _spawn(tp, args_of, timeout):
+    """tp pod_worker processes on one NCCL job, process i on cuda:i; their
+    records (raising on any failure). A process that fails fails the job at
+    once: the others, which would wait on it in a collective, are stopped
+    with SIGABRT (with Python's fault handler on, each prints where it
+    waited), as is every process still running after `timeout` seconds."""
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONFAULTHANDLER"] = "1"
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(tp)]
+    ps = [subprocess.Popen(
+        [sys.executable, "-m", "rwkv_tpu_torch.tools.pod_worker", "--coordinator",
+         f"127.0.0.1:{port}", "--processes", str(tp), "--process-id", str(i), "--backend",
+         "nccl", "--devices", f"cuda:{i}", "--model", str(tp), "--timeout", "300",
+         *args_of(i)], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+        for i, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in ps):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in ps):
+                break
+            time.sleep(0.5)
+    finally:
+        stopped = [p for p in ps if p.poll() is None]
+        for p in stopped:
+            p.send_signal(signal.SIGABRT)
+        for p in stopped:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    got = []
+    for i, (p, o) in enumerate(zip(ps, outs)):
+        require(p.returncode == 0 and f"POD_WORKER_OK {i}" in o,
+                f"(g) pod worker {i} of {tp} exited {p.returncode}"
+                f"{' (stopped)' if p in stopped else ''}:\n{o[-6000:]}"
+                + "".join(f"\n--- worker {k}, rc {q.returncode}:\n{outs[k][-3000:]}"
+                          for k, q in enumerate(ps) if k != i))
+        got.append(json.loads(next(ln for ln in o.splitlines() if ln.startswith("{"))))
+    print(json.dumps(got))  # every process's record, before any check reads it
+    return got
+
+
+def run_pod_model(host14, seed, bin_path, tp, card, tmp):
+    """(g): tp processes of one card each, pod_mesh(model=tp), at 14B
+    widths, then the engine and the pool on the 430M .bin."""
+    from rwkv_tpu_torch.tools import pod_worker
+
+    dev0 = torch.device("cuda", 0)
+    cfg14 = host14.config
+    L = cfg14.n_layer
+    whole = params_to(host14, dev0)
+    rng = np.random.default_rng(seed + 7)
+    refs = []
+    for B in (1, 8):
+        refs.append(os.path.join(tmp, f"ref14_{B}.npz"))
+        tokens = tuple(int(t) for t in rng.integers(0, 50277, size=B))
+        pod_worker.write_reference(whole, refs[-1], dev0, tokens=tokens)
+    del whole
+    torch.cuda.empty_cache()
+    spec = f"random:{L}x{cfg14.n_embd}:{seed}"
+    t0 = time.perf_counter()
+    got = _spawn(tp, lambda i: ["--params", spec, "--ref", *refs, "--bodies", "fused",
+                                "halves", "plain", "--k7-check", "--time-steps", "20"], 1500)
+    secs = time.perf_counter() - t0
+    steps = 4 + pod_worker.SAMPLED_STEPS
+    out: dict = {"seconds": secs, "bodies": {}, "k7": {}}
+    for r in got:
+        require(r["group"] == {"backend": "nccl", "ranks": list(range(tp))}
+                and r["local_shards"] == 1 and r["first_shard"] == r["process"],
+                f"(g) process {r['process']}: group {r['group']}, shard {r['first_shard']}")
+        for k in r["k7"]:
+            require(k["max_scaled_err"] <= K7_TOL and k["launches"] == 2,
+                    f"(g) process {r['process']}: K7 against its plain version {k}")
+        for key, b in r["bodies"].items():
+            body = key.split()[0]
+            require(b["max_scaled_err"] <= TP_TOL, f"(g) {key}: scaled error "
+                    f"{b['max_scaled_err']:.3e} against K1 + K2 on card 0")
+            require(b["graphed"] and b["replays"] == steps - 1,
+                    f"(g) {key}: graphed {b['graphed']}, {b['replays']} replays, want "
+                    f"{steps - 1}")
+            want = {"fused": {"decode_stack_tp.launches": steps},
+                    "halves": {"tp_halves.launches_att": 2 * L * steps,
+                               "tp_halves.launches_ffn": 2 * L * steps,
+                               "mm8.launches": steps},
+                    "plain": {}}[body]
+            nz = {k: v for k, v in b["launches"].items() if v}
+            require(nz == want, f"(g) {key} process {r['process']}: launches {nz}, want {want}")
+            if body != "fused":
+                require(b["collectives"] == {"psum": (2 * L + 1) * b["steps"],
+                                             "all_gather": (L + 1) * b["steps"]},
+                        f"(g) {key}: collectives {b['collectives']}")
+        # a region a batch size (B = 1 and 8), each process's opened in the others
+        require(r["open_handles"] == 2 * (tp - 1) and r["open_handles_after"] == 0,
+                f"(g) process {r['process']}: IPC handles {r['open_handles']} open, "
+                f"{r['open_handles_after']} after shutdown, want {2 * (tp - 1)} and 0")
+    for key in got[0]["bodies"]:
+        rows = [r["bodies"][key] for r in got]
+        B = rows[0]["B"]
+        out["bodies"][key] = {
+            "max_scaled_err": max(x["max_scaled_err"] for x in rows),
+            "ms_per_step": [x["ms_per_step"] for x in rows],
+            "ms_eager": [x["ms_eager"] for x in rows],
+            "ms_graphed": [x["ms_graphed"] for x in rows],
+            "replays": rows[0]["replays"],
+            "launches_per_process": {k: v for k, v in rows[0]["launches"].items() if v}}
+        e, gph = max(min(x["ms_eager"]) for x in rows), max(min(x["ms_graphed"]) for x in rows)
+        print(f"  (g) 14B across {tp} processes, body {key.split()[0]} B={B}: scaled err <= "
+              f"{out['bodies'][key]['max_scaled_err']:.2e} (pin {TP_TOL}) against K1 + K2 on "
+              f"card 0; graphed ({rows[0]['replays']} replays) in turns with eager, slowest "
+              f"process: eager {e:.3f} ms/step ({e / B:.3f} ms/token), graphed {gph:.3f} "
+              f"ms/step ({gph / B:.3f} ms/token); per process "
+              f"{out['bodies'][key]['launches_per_process'] or 'no kernel launches'} {card}")
+    out["k7"] = _k7_across(got)
+    out["flags"] = {k: got[0]["bodies"][k].get("flags") for k in got[0]["bodies"]
+                    if k.startswith("fused")}
+    print(f"  (g) K7 across {tp} processes at 14B widths against its plain version: "
+          f"{out['k7']} (scaled error <= {K7_TOL}; ms a step of K7 and of its plain version, "
+          f"slowest process, every process timing at once), one launch a process a step; "
+          f"flag words on card 0 after the "
+          f"fused steps {out['flags']}; every process closed its {got[0]['open_handles']} "
+          f"peer regions before the regions were freed; {secs:.0f} s {card}")
+    out["launches"] = {k: sum(r["bodies"][b]["launches"][k] for r in got for b in r["bodies"])
+                       for k in got[0]["bodies"]["fused"]["launches"]}
+
+    for k, v in run_pod_engine(bin_path, tp, card, tmp, out).items():
+        out["launches"][k] += v
+    return out
+
+
+def _k7_across(got) -> dict:
+    """K7 across processes per reference batch, from every process's
+    --k7-check record: the largest scaled error against the plain version,
+    and the slowest process's ms a step of each."""
+    return {f"B={k['B']}": {key: max(r["k7"][i][key] for r in got)
+                            for key in ("max_scaled_err", "ms", "plain_ms")}
+            for i, k in enumerate(got[0]["k7"])}
+
+
+def run_pod_engine(bin_path, tp, card, tmp, out, timeout=900):
+    """(g)'s second half, in tp processes of one card each on the 430M
+    .bin: K7 across processes against its plain version (4 streams), then
+    the engine and the pool, which every process still holds when it
+    leaves; fills out["engine"] and out["k7_430m"] and returns the
+    processes' kernel launches."""
+    from rwkv_tpu_torch.tools import pod_worker
+
+    dev0 = torch.device("cuda", 0)
+    eng_ref = os.path.join(tmp, "eng_ref.npz")
+    ref = os.path.join(tmp, "ref430.npz")
+    pod_worker.write_engine_reference(bin_path, eng_ref, dev0)
+    pod_worker.write_reference(bin_path, ref, dev0)
+    torch.cuda.empty_cache()
+    eng = _spawn(tp, lambda i: ["--params", bin_path, "--ref", ref, "--k7-check",
+                                "--engine-ref", eng_ref, "--bodies"], timeout)
+    out["k7_430m"] = _k7_across(eng)
+    for r in eng:
+        for k in r["k7"]:
+            require(k["max_scaled_err"] <= K7_TOL and k["launches"] == 2,
+                    f"(g) 430M process {r['process']}: K7 against its plain version {k}")
+        require(r["open_handles_after"] == 0,
+                f"(g) engine process {r['process']}: {r['open_handles_after']} IPC handles "
+                f"open after shutdown")
+    print(f"  (g) K7 across {tp} processes at 430M widths against its plain version: "
+          f"{out['k7_430m']} (scaled error <= {K7_TOL}; ms a step, slowest process) {card}")
+    e0 = eng[0]["engine"]
+    for r in eng:
+        e = r["engine"]
+        require(e["body"] == "fused" and e["graphed"],
+                f"(g) engine process {r['process']}: body {e['body']}, graphed {e['graphed']}")
+        require(e["max_scaled_err"] <= TP_TOL, f"(g) engine logits {e['max_scaled_err']:.3e}")
+        require("spans processes" in (e["get_state_refused"] or ""), "(g) get_state")
+    out["engine"] = {"max_scaled_err": max(r["engine"]["max_scaled_err"] for r in eng),
+                     "ties": e0["ties"], "replays": e0["replays"], "pool_s": e0["pool_s"],
+                     "engine_launches": e0["engine_launches"],
+                     "pool_launches": e0["pool_launches"]}
+    launches = {k: sum(r["engine"]["engine_launches"][k] + r["engine"]["pool_launches"][k]
+                       for r in eng) for k in e0["engine_launches"]}
+    print(f"  (g) engine over {tp} processes (body {e0['body']}, graphed, {e0['replays']} "
+          f"replays in process 0), 3 requests x {pod_worker.ENGINE_STEPS} greedy steps: "
+          f"logits scaled err <= {out['engine']['max_scaled_err']:.2e} against the one-card "
+          f"engine, greedy ids equal wherever the top-two gap exceeds the pin ({e0['ties']} "
+          f"within it); generate texts equal in every process: {[t[:24] for t in e0['texts']]!r}; "
+          f"pool of 8 slots, 12 requests at tau=0 in {e0['pool_s']:.2f} s, every text the "
+          f"engine's and the same in every process; K7 launches in process 0: engine "
+          f"{e0['engine_launches']['decode_stack_tp.launches']}, pool "
+          f"{e0['pool_launches']['decode_stack_tp.launches']}; every process left the group "
+          f"holding its engine and pool (their graphs freed by multihost.shutdown) {card}")
+    return launches
+
+
 # -- (f) timings ---------------------------------------------------------------------
 
 
@@ -659,6 +881,10 @@ def run(seed: int = 0, bin_path: str | None = None) -> dict:
     # (e) pods on NCCL
     rec["e"] = run_pods(bin_path, 2 * (n // 2) if n < 4 else 4, card, tmp.name)
 
+    # (g) a model axis across processes, one card a process
+    if n >= 2:
+        rec["g"] = run_pod_model(host14, seed, bin_path, tp_max, card, tmp.name)
+
     # (f) timings
     bound = {}
     for tp in [1] + tps:
@@ -684,7 +910,39 @@ def run(seed: int = 0, bin_path: str | None = None) -> dict:
     rows430q4, sps430q4, _ = time_steps(q4, cfg430, tps, "430M q4", card, rng)
     rec["f_430m_q4"] = {f"tp={tp} B={B}": v for (tp, B), v in rows430q4.items()}
     rec["f_430m_q4_plain"] = plain_times(sps430q4, cfg430, "430M q4", card)
+    if "g" in rec:  # the launches of (g)'s processes with (b)-(d)'s
+        for k, v in rec["g"]["launches"].items():
+            rec["launches"][k] += v
     rec["seconds"] = time.perf_counter() - t_start
+    tmp.cleanup()
+    return rec
+
+
+def run_g(seed: int = 0, part: str = "all") -> dict:
+    """(g) alone: the 14B weights, the 430M .bin, then run_pod_model; part
+    "engine": the 430M .bin and run_pod_engine only."""
+    from rwkv_tpu_torch.io.binfmt import write_bin
+    from rwkv_tpu_torch.ops.cuda import _build
+
+    n = torch.cuda.device_count()
+    card = card_name()
+    tp = min(n, 4)
+    print(f"tp_cards (g): {n} cards {card}; P2P (cudaDeviceCanAccessPeer): {p2p_matrix(n)}")
+    secs = _build.build(("decode_stack", "decode_stack_tp", "tp_halves", "mm8"))
+    print(f"  build: {', '.join(f'{k} {v:.0f} s' for k, v in secs.items())}")
+    tmp = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    bin_path = os.path.join(tmp.name, "m430.bin")
+    write_bin(bin_path, random_quantized_params_np(RWKVConfig(n_layer=24, n_embd=1024),
+                                                   seed=seed + 3))
+    if part == "engine":
+        g: dict = {}
+        g["launches"] = run_pod_engine(bin_path, tp, card, tmp.name, g, timeout=300)
+    else:
+        host14 = signedize_params(params_to(random_quantized_params_np(
+            RWKVConfig(n_layer=40, n_embd=5120), seed=seed, pad_multiple=tp_vocab_multiple(tp)),
+            "cpu"))
+        g = run_pod_model(host14, seed, bin_path, tp, card, tmp.name)
+    rec = {"cards": n, "card": card, "g": g}
     tmp.cleanup()
     return rec
 
@@ -693,13 +951,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the record as JSON here")
+    ap.add_argument("--only-g", nargs="?", const="all", choices=("all", "engine"),
+                    help="run part (g) alone (a model axis across processes); "
+                    "--only-g engine: its engine and pool half")
     args = ap.parse_args(argv)
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < 2:
         print(f"tp_cards: did not run: {n} CUDA device(s); tensor parallelism across cards "
               "needs two or more")
         return 2
-    rec = run(args.seed)
+    rec = run_g(args.seed, args.only_g) if args.only_g else run(args.seed)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

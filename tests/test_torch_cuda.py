@@ -1373,3 +1373,128 @@ def test_wrappers_launch_on_their_tensors_card_across_cards(cards):
     assert ran == {one.index}
     for a, b in zip(got, want):
         assert a.device == one and torch.equal(a.to(cards[0]), b)
+
+
+# -- across processes: kernel K7 with one card a process (needs >= 2 cards) ------------
+
+
+def _pod_job(n, args_of, tmp, timeout=600):
+    """n pod_worker processes (rwkv_tpu_torch/tools/pod_worker.py) on one job;
+    each one's JSON record."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rwkv_tpu_torch.tools.pod_worker", "--coordinator",
+         f"127.0.0.1:{port}", "--processes", str(n), "--process-id", str(i), *args_of(i)],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"POD_WORKER_OK {i}" in out, out[-4000:]
+        recs.append(json.loads(next(ln for ln in out.splitlines() if ln.startswith("{"))))
+    return recs
+
+
+@pytest.fixture(scope="module", params=["q8", "q4"])
+def k7_pair(request, tmp_path_factory):
+    """Two processes of one card each, pod_mesh(model=2) on NCCL, the fused
+    body (K7 across processes, graphed; q8, and q4 with its row-tiled blocks
+    inside a shard) against the unsharded step (K1 + K2, or K4, on card 0)
+    and K7 against its plain version: each process's record."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (K7 across processes)")
+    from rwkv_tpu_torch.parallel.sharding import tp_vocab_multiple
+    from rwkv_tpu_torch.tools import pod_worker
+
+    tmp = tmp_path_factory.mktemp(f"k7_pair_{request.param}")
+    spec = "random:2x256:1" + (":q4" if request.param == "q4" else "")
+    whole = params_to(pod_worker.random_params(spec, tp_vocab_multiple(2), 2), "cuda:0")
+    refs = []
+    for B, tokens in ((3, (5, 700, 50000)), (8, tuple(range(11, 8 * 997, 997)))):
+        refs.append(str(tmp / f"ref{B}.npz"))
+        pod_worker.write_reference(whole, refs[-1], torch.device("cuda", 0), tokens=tokens)
+    del whole
+    torch.cuda.empty_cache()
+    return _pod_job(2, lambda i: [
+        "--params", spec, "--ref", *refs, "--backend", "nccl", "--devices", f"cuda:{i}",
+        "--model", "2", "--bodies", "fused", "--k7-check"], tmp)
+
+
+def test_decode_stack_tp_across_processes_matches_plain(k7_pair):
+    """K7 across two processes, one card each, B = 3 and 8: logits and states
+    within 1e-4 of its plain version (the exchanges over the row's NCCL
+    group), one launch a step in each process, and the fused step within
+    the TP pin of the unsharded step."""
+    for rec in k7_pair:
+        assert rec["group"] == {"backend": "nccl", "ranks": [0, 1]}
+        for k in rec["k7"]:
+            assert k["max_scaled_err"] <= 1e-4 and k["launches"] == 2, k
+        for key, body in rec["bodies"].items():
+            assert body["max_scaled_err"] <= 3e-4, key
+            k7_launches = {k: v for k, v in body["launches"].items() if v}
+            assert k7_launches in ({"decode_stack_tp.launches": body["steps"] + 3},
+                                   {"decode_stack_tp.launches_q4": body["steps"] + 3}), key
+
+
+def test_decode_stack_tp_across_processes_graph_replays_flags(k7_pair):
+    """The fused step across processes is one CUDA graph a process: after N
+    steps (the warm-up, then replays) the card's step counter is N, every
+    shard's embedding flag N and its att and ffn flags N * L: no epoch was
+    frozen into the graph."""
+    for rec in k7_pair:
+        for key, body in rec["bodies"].items():
+            n = body["steps"] + 3
+            assert body["graphed"] and body["replays"] == n - 1, key
+            assert body["flags"] == [n, n, n, 2 * n, 2 * n, 2 * n, 2 * n], key
+
+
+def test_decode_stack_tp_across_processes_ipc_teardown_leaves_no_open_handle(k7_pair):
+    """Each process opened its peer's region once per batch size, and
+    multihost.shutdown closed them all before the regions were freed."""
+    for rec in k7_pair:
+        assert rec["open_handles"] == 2 and rec["open_handles_after"] == 0
+
+
+def test_decode_stack_tp_refuses_processes_sharing_a_card(tmp_path):
+    """Two processes on one card, pod_mesh(model=2) on gloo: the fused body
+    raises, naming the shared card; the halves body runs eagerly within the
+    TP pin of the unsharded step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rwkv_tpu_torch.parallel.sharding import tp_vocab_multiple
+    from rwkv_tpu_torch.tools import pod_worker
+
+    spec = "random:2x256:2"
+    whole = params_to(pod_worker.random_params(spec, tp_vocab_multiple(2), 2), "cuda:0")
+    pod_worker.write_reference(whole, str(tmp_path / "ref.npz"), torch.device("cuda", 0))
+    del whole
+    recs = _pod_job(2, lambda i: [
+        "--params", spec, "--ref", str(tmp_path / "ref.npz"), "--backend", "gloo",
+        "--devices", "cuda:0", "--model", "2", "--bodies", "halves",
+        "--expect-refused", "fused"], tmp_path)
+    for rec in recs:
+        assert "share one card" in rec["refused"]["fused"]
+        halves = rec["bodies"]["halves"]
+        assert not halves["graphed"] and halves["max_scaled_err"] <= 3e-4
+        assert halves["collectives"] == {"psum": 5 * halves["steps"],
+                                         "all_gather": 3 * halves["steps"]}

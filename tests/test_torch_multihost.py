@@ -86,9 +86,15 @@ def test_pod_mesh_spans_processes(two_processes):
     assert (mesh.local_rows, mesh.first_row) == (1, 1)
     mesh = multihost.pod_mesh(model=2, devices=[torch.device("cpu")] * 4)
     assert mesh.shape == {"data": 4, "model": 2} and (mesh.local_rows, mesh.first_row) == (2, 2)
-    # a model axis across processes is not built: TP stays inside a process
-    with pytest.raises(ValueError, match="a model axis across processes is not built"):
-        multihost.pod_mesh(model=8, devices=[torch.device("cpu")] * 4)
+    # a model axis wider than a process's devices spans processes, in the JAX
+    # order: process 1 of 2 holds shards 4..7 of the one row
+    mesh = multihost.pod_mesh(model=8, devices=[torch.device("cpu")] * 4)
+    assert mesh.shape == {"data": 1, "model": 8} == dict(j_pod_mesh(model=8).shape)
+    assert (mesh.local_rows, mesh.first_row, mesh.local_shards, mesh.first_shard) == (1, 0, 4, 4)
+    assert mesh.spans_processes
+    # a width that neither divides nor is a multiple of the local devices
+    with pytest.raises(ValueError, match="neither divides nor is a multiple"):
+        multihost.pod_mesh(model=2, devices=[torch.device("cpu")] * 3)
 
 
 def test_data_axis_helpers(two_processes):
