@@ -190,14 +190,17 @@ Phases, in order; any failure raises and exits non-zero:
               (rwkv_tpu_torch/tools/tp_cards.py, whose docstring lists what
               it checks): K7 across cards against its plain version, the
               fused, halves and plain steps at 14B widths over the cards
-              against tp = 1 on card 0, the engine and the pool over the
-              cards, pods with NCCL between processes of several cards, and
-              the timings, and a model axis across processes of one card
-              each (part (g): K7 across processes through CUDA IPC, every
-              body against K1 + K2, each process's step a CUDA graph, the
-              engine and the pool). On a machine with one card it prints that it did
-              not run, and why; the kernels line's "launches_cards" is then
-              null. With two or more cards any failure in it fails the run.
+              against tp = 1 on card 0, each one CUDA graph across the cards
+              held against its eager body, the engine and the pool over the
+              cards decoding from such graphs, pods with NCCL between
+              processes of several cards, the timings (each body's 14B
+              step graphed and eager in turns), and a model axis across
+              processes of one card each (part (g): K7 across processes
+              through CUDA IPC, every body against K1 + K2, each process's
+              step a CUDA graph, the engine and the pool). On a machine
+              with one card it prints that it did not run, and why; the
+              kernels line's "launches_cards" is then null. With two or
+              more cards any failure in it fails the run.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 last: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.

@@ -305,8 +305,11 @@ def forward_seq(params: RWKVParams, tokens: torch.Tensor, state: WKVState, *,
 def forward_step(params: RWKVParams, token: torch.Tensor, state: WKVState
                  ) -> Tuple[torch.Tensor, WKVState]:
     """One decode step. token: scalar (state [L, E]) or [B] (state [L, B, E]).
-    Returns (logits [..., V], new state); the input state is not modified."""
-    x = layer_norm(params.emb[token].float(), params.ln0.weight, params.ln0.bias)
+    Returns (logits [..., V], new state); the input state is not modified.
+    The embedding rows are gathered by index_select: indexing with a 0-d
+    CUDA tensor reads it on the host, which a CUDA graph's capture refuses."""
+    emb = params.emb.index_select(0, token.reshape(-1)).reshape(*token.shape, -1)
+    x = layer_norm(emb.float(), params.ln0.weight, params.ln0.bias)
     new = {f: [] for f in WKVState._fields}
     for i in range(params.n_layer):
         ln1, ln2, att, ffn = _layer(params, i)

@@ -796,6 +796,11 @@ def decode_stack_tp(shards: Sequence[RWKVParams], states: Sequence[WKVState], lo
         calls.append((arr, cap, dev, (t_in, x_in)))
         logits.extend(lg.unbind(0))
         xy_dd.append((xy_out, dd_out))
+    # each card's launch on that card's current stream, after only the copies
+    # above: inside a capture across the cards (runtime/graphs.py) those are
+    # streams forked from the capturing one before any work, so no card's
+    # launch depends on another's; the launches spin on each other's flags,
+    # and a replay that ordered them would wait until the trap
     lib = _kernel()
     for c, (arr, cap, dev, _) in enumerate(calls):
         launched, grid = ctypes.c_int(0), ctypes.c_int(0)

@@ -30,8 +30,13 @@ row's cards). NCCL's sum order is its own, so the bodies over cards hold the
 TP pin (3e-4), not the one-device bits. On four H100s one psum of [1, 5120]
 took 0.040-0.065 ms by NCCL and 0.136-0.206 ms by device copies summed in
 shard order on shard 0's card (PERF.md, section 5, tools/tp_cards.py), so
-the copies are not kept as a choice. On one device, or on the CPU, the
-collectives are the plain sums above.
+the copies are not kept as a choice. Each card's NCCL call goes on that
+card's current stream and its output is allocated there: inside a capture
+across the cards (runtime/graphs.py) that is the card's stream forked from
+the capturing one and the graph's memory pool, so the collectives land in
+the graph; the communicators are made at the warm-up call, before any
+capture. On one device, or on the CPU, the collectives are the plain sums
+above.
 
 Across processes (parallel/multihost.py: pod_mesh) the mesh is the
 process's part of the JAX pod mesh: `shape` is the global {"data": rows of

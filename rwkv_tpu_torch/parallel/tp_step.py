@@ -67,12 +67,15 @@ where it passes, and K7's first call on a row that fails it raises, naming
 why); a row whose processes share a card takes "halves" or "plain", whose
 collectives need no peer memory.
 
-The "halves" body on a mesh whose every shard names one CUDA device, and
-every body on a row across processes of one card each whose group is NCCL
-(runtime/graphs.py: one_cuda_device), replays a CUDA graph of the whole
-step, the group's NCCL collectives and K7's launch inside it: eagerly, the
-host's work a layer (wrapper checks, outputs, collectives) takes longer
-than the device's, so the host would set the pace. One graph per (sharded params, B),
+The "halves" body on a mesh whose every shard names one CUDA device, every
+body on a mesh whose data rows run over distinct cards of this process (one
+capture across the cards: each card's K7 launch, or its K6 + K2 launches or
+plain ops, and the NCCL collectives between the cards), and every body on a
+row across processes of one card each whose group is NCCL
+(runtime/graphs.py: graphable), replays a CUDA graph of the whole step, the
+NCCL collectives and K7's launches inside it: eagerly, the host's work a
+layer (wrapper checks, outputs, collectives) takes longer than the
+device's, so the host would set the pace. One graph per (sharded params, B),
 captured at that key's first call right after the call ran eagerly (the
 warm-up); each replay advances the launch counters and the mesh's collective
 counts by what the capture recorded. Inside a caller's own capture (the
@@ -112,7 +115,7 @@ from rwkv_tpu_torch.parallel.sharding import (
     shard_state,
     unshard_state,
 )
-from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
+from rwkv_tpu_torch.runtime.graphs import Graphs, graphable
 
 BODIES = ("plain", "halves", "fused")
 
@@ -382,7 +385,8 @@ def make_tp_step(mesh: Mesh, params, *, body: Optional[str] = None):
                                _Collectives(mesh))
         return _join_batch(mesh, logits, 0), unshard_state(states, mesh)
 
-    graphed = one_cuda_device(mesh) and (body == "halves" or mesh.spans_processes)
+    graphed = graphable(mesh) and (body == "halves" or mesh.spans_processes
+                                   or mesh.spans_cards)
     graphs = Graphs(mesh=mesh) if graphed else None
 
     def step(sp: ShardedParams, token: torch.Tensor, state):
@@ -597,4 +601,5 @@ def make_engine_step(mesh: Mesh, params, **kw):
 
     engine_step.body = step.body
     engine_step.graphed = step.graphed
+    engine_step.graphs = step.graphs
     return engine_step

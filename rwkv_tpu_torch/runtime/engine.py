@@ -25,8 +25,9 @@ captured once per (params, batch shape, k) as a CUDA graph and replayed
 tail length, as JAX compiles once per static k; the first token after a
 prompt (`_sample`, JAX: _jit_sample) is one more. The engine's one
 torch.Generator is registered with them and reseeded per generate call.
-On the CPU, and on a mesh over distinct GPUs, the same functions run
-eagerly.
+On a mesh over distinct cards of this process each program is one graph
+across the cards (every card's step, the NCCL collectives between them, ban
++ typical on the first card). On the CPU the same functions run eagerly.
 
     RWKV("model.bin", sharding=make_mesh(model=tp))   tensor-parallel serving
 
@@ -45,8 +46,9 @@ shard's piece on its own device, as the JAX engine's state stays sharded on
 its chips): a call picks a stream's lanes on each shard and writes them
 back there, and only get_state/set_state (and snapshot, restore, save_state
 and load_state through them) join the shards into whole tensors or cut
-them. On a mesh over distinct cards, decode runs eagerly (runtime/graphs.py
-says why). W8A8 (a8) has no sharded step, as in the JAX engine.
+them. On a mesh over distinct cards, decode replays CUDA graphs across
+the cards (runtime/graphs.py says how). W8A8 (a8) has no sharded step, as
+in the JAX engine.
 
     RWKV("model.bin", sharding=pod_mesh(model=tp))   one card a process
 
@@ -101,7 +103,7 @@ from rwkv_tpu_torch.parallel.sharding import (
     tp_vocab_multiple,
 )
 from rwkv_tpu_torch.parallel.tp_step import make_engine_prefill, make_engine_step
-from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
+from rwkv_tpu_torch.runtime.graphs import Graphs, graphable
 from rwkv_tpu_torch.tokenizer import native as native_tok
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
@@ -317,7 +319,7 @@ class RWKV:
         self.params = params
         self.config = params.config
         self._graphs = Graphs(generators=(self._gen,), mesh=self._mesh,
-                              enabled=one_cuda_device(self._mesh))
+                              enabled=graphable(self._mesh))
         # True (unpadded) vocab: padded ids carry a -1e9 logit_bias; forward()
         # returns logits sliced back to this size
         if params.logit_bias is not None:

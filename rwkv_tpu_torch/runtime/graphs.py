@@ -37,14 +37,26 @@ engine and the pool replay their graphs on one stream, one after another,
 and every output is copied or consumed before the next replay: no graph
 runs while another one's memory is still in use.
 
-On CPU tensors, or with enabled=False, fn runs eagerly on every call. A mesh
-whose process drives several GPUs decodes eagerly (one_cuda_device): a graph
-of its step would be one capture across the row's cards, each card's stream
-joined to the capturing one, with kernel K7's launches on every card and the
-collectives' copies (or NCCL's kernels) between them inside it. That
-multi-device capture is not done here (ROADMAP.md); the host's work a step
-over cards is K7's tp launches and the logits gather, and the step's time
-over four H100s is in PERF.md.
+On CPU tensors, or with enabled=False, fn runs eagerly on every call.
+
+A mesh whose process drives several cards (four H100s of one host at tp =
+4) is graphed as one capture across them, the counterpart of jax.jit over a
+process's local devices (graphable). The capture begins on the first
+input's card. An event recorded there before any work forks one stream a
+card from the capturing stream, and that stream is the card's current
+stream while fn runs: kernel K7's launch on each card (or K6 + K2, or the
+plain ops), the mesh's NCCL collectives (torch.cuda.nccl, single-process)
+and the copies between the cards all land in the one graph, and every
+card's stream is joined back into the capturing one before the capture
+ends. No card's work waits for another card's launch except through what fn
+itself orders (a copy, a collective), so K7's launches, which spin on each
+other's flags, are siblings in the graph. What fn allocates on the other
+cards comes from the same pool on that card (memory_pool keeps one there
+too). A replay runs from the first card's current stream: it first waits
+for every other card's current stream (the input copies, and any write the
+caller made there), and every other card's current stream then waits for
+the replay before the outputs are read. Every card of the graph is
+synchronized before the capture and before its graph is freed.
 
 A row across processes of one card each (multihost.pod_mesh(model=tp)) is
 graphed: each process's step is a capture on its one card, its row's NCCL
@@ -58,13 +70,16 @@ collective runs on the host and cannot be captured.
 Teardown: NCCL destroys a communicator only once every CUDA graph that
 captured one of its collectives is gone. Every Graphs object is registered
 when it is made, and release_all frees their captures, whoever still holds
-them (multihost.shutdown calls it before it destroys the process group); a
-Graphs whose captures were freed warms up and captures anew at its next
-call of a key.
+them (multihost.shutdown calls it before it destroys the process group, and
+it runs at the process's exit, before torch.cuda.nccl's communicators are
+destroyed); a Graphs whose captures were freed warms up and captures anew
+at its next call of a key.
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import weakref
 from typing import Callable, Optional, Sequence
 
@@ -84,6 +99,7 @@ COUNTERS = ((_ds, "launches"), (_ds, "launches_q4"), (_ds, "launches_a8"),
             (_th, "launches_ffn"))
 
 _POOL: dict = {}  # the one graph memory pool: its handle, and per device a keeper
+_STREAMS: dict = {}  # per device, the stream its captures begin on
 _LIVE: "weakref.WeakSet[Graphs]" = weakref.WeakSet()  # every Graphs made (release_all)
 
 
@@ -98,10 +114,30 @@ def memory_pool(device: torch.device):
     handle = _POOL["handle"]
     if device not in _POOL:
         keeper = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device), torch.cuda.graph(keeper, pool=handle):
+        with torch.cuda.device(device), torch.cuda.graph(keeper, pool=handle,
+                                                         stream=_capture_stream(device)):
             held = torch.zeros(1, device=device)
         _POOL[device] = (keeper, held)
     return handle
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream captures on `device` begin on (torch.cuda.graph's default
+    is one stream for the process, on whichever card made it first)."""
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
+
+
+def _pool_begin(device: torch.device, handle) -> None:
+    """Route this thread's allocations on `device` into the graph pool (a
+    capture does so only on the card it began on)."""
+    torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, handle)
+
+
+def _pool_end(device: torch.device, handle) -> None:
+    torch._C._cuda_endAllocateToPool(device.index, handle)
+    torch._C._cuda_releasePool(device.index, handle)  # the keeper holds the pool
 
 
 def memory_pool_bytes() -> int:
@@ -144,23 +180,72 @@ def _map(fn, tree):
     return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
 
+def _cards(args: tuple, mesh, first: torch.device) -> list[torch.device]:
+    """The CUDA devices other than `first` that a program over args (and
+    the mesh) runs on, in order."""
+    devs = [t.device for t in _leaves(args)]
+    if mesh is not None:
+        devs += [d for row in mesh.devices for d in row]
+    out: list[torch.device] = []
+    for d in devs:
+        if d.type == "cuda" and d != first and d not in out:
+            out.append(d)
+    return out
+
+
+def _across(fn: Callable, args: tuple, first: torch.device, cards, handle):
+    """fn(*args) inside a capture begun on `first`, every card in `cards`
+    on a stream forked from the capturing one (the module docstring)."""
+    if not cards:
+        return fn(*args)
+    origin = torch.cuda.current_stream(first)
+    start = origin.record_event()  # before any work: the cards' launches stay siblings
+    forks = []
+    with contextlib.ExitStack() as stack:
+        for c in cards:
+            s = torch.cuda.Stream(c)
+            s.wait_event(start)
+            stack.enter_context(torch.cuda.stream(s))
+            _pool_begin(c, handle)
+            stack.callback(_pool_end, c, handle)
+            forks.append(s)
+        stack.enter_context(torch.cuda.device(first))
+        out = fn(*args)
+        for s in forks:
+            origin.wait_event(s.record_event())
+    return out
+
+
+def _synchronize(captured) -> None:
+    """Wait for every card a captured graph runs on."""
+    for d in (captured.device, *captured.cards):
+        torch.cuda.synchronize(d)
+
+
 class _Captured:
     """One captured graph: its static inputs, its outputs and the counts its
     capture added."""
 
     def __init__(self, fn: Callable, args: tuple, generators, mesh):
         self.fn, self.mesh = fn, mesh  # fn kept alive: a key may hold id()s it owns
+        self.device = device = _leaves(args)[0].device
+        self.cards = _cards(args, mesh, device)
         self.inputs = _map(lambda t: t.clone(), args)
         self.input_ids = {id(t) for t in _leaves(self.inputs)}
-        self.device = device = _leaves(args)[0].device
+        self._ready = [torch.cuda.Event() for _ in self.cards]
+        self._done = torch.cuda.Event()
         before = counts(mesh)
-        torch.cuda.synchronize(device)
+        handle = memory_pool(device)
+        for c in self.cards:
+            memory_pool(c)
+        _synchronize(self)
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
         try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph, pool=memory_pool(device)):
-                self.outputs = fn(*self.inputs)
+            with torch.cuda.device(device), torch.cuda.graph(self.graph, pool=handle,
+                                                             stream=_capture_stream(device)):
+                self.outputs = _across(fn, self.inputs, device, self.cards, handle)
             self.delta = [a - b for a, b in zip(counts(mesh), before)]
         finally:
             set_counts(before, mesh)  # the capture ran nothing
@@ -172,7 +257,15 @@ class _Captured:
                     raise ValueError(f"graph input of shape {tuple(a.shape)} for a graph "
                                      f"captured at {tuple(s.shape)}: the key must name the shapes")
                 s.copy_(a)
+        stream = torch.cuda.current_stream(self.device)
+        for c, ev in zip(self.cards, self._ready):
+            ev.record(torch.cuda.current_stream(c))
+            stream.wait_event(ev)
         self.graph.replay()
+        if self.cards:
+            self._done.record(stream)
+            for c in self.cards:
+                torch.cuda.current_stream(c).wait_event(self._done)
         set_counts([c + d for c, d in zip(counts(self.mesh), self.delta)], self.mesh)
         return _map(lambda t: t if id(t) in self.input_ids else t.clone(), self.outputs)
 
@@ -214,7 +307,7 @@ class Graphs:
         the next call of a key warms up and captures anew."""
         graphs, self._graphs = list(self._graphs.values()), {}
         for g in graphs:
-            torch.cuda.synchronize(g.device)
+            _synchronize(g)
             g.graph.reset()
 
 
@@ -225,16 +318,18 @@ def release_all() -> None:
         g.reset()
 
 
-def one_cuda_device(mesh: Optional[object]) -> bool:
-    """Whether a mesh (or no mesh) lets its decode be graphed: this
-    process's shards all on one CUDA device, and, for a row across
-    processes, its group on NCCL. A process driving distinct GPUs decodes
-    eagerly (no multi-device capture), and so does a row on a gloo group:
-    the module docstring."""
+atexit.register(release_all)
+
+
+def graphable(mesh: Optional[object]) -> bool:
+    """Whether a mesh (or no mesh) lets its decode be graphed: every shard
+    of this process on a CUDA device (one card, or several, captured as one
+    graph), and, for a row across processes, its group on NCCL. A mesh on
+    the CPU, and a row on a gloo group, decode eagerly: the module
+    docstring."""
     if mesh is None:
         return True
-    devs = {d for row in mesh.devices for d in row}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+    if any(d.type != "cuda" for row in mesh.devices for d in row):
         return False
     if getattr(mesh, "spans_processes", False):
         import torch.distributed as dist

@@ -29,8 +29,10 @@ Its inputs (tokens, temp, tau, active) are built from the host lists
 outside it and copied into its buffers; the state and the tokens are its
 carry. Admission (prefill and the burst's first tokens, JAX: _jit_admit)
 runs eagerly, in float32 or, with prefill_dtype=torch.bfloat16, with bf16
-product operands. On the CPU, and over a mesh of distinct GPUs, the program
-runs eagerly.
+product operands. Over a mesh of distinct cards of this process the program
+is one graph across the cards (every card's step, the NCCL collectives
+between them, ban + typical on the first card); on the CPU it runs
+eagerly.
 
 On params sharded over a pod mesh whose rows span processes, every process
 makes the same pool and the same calls (submit, step, run): each steps its
@@ -52,7 +54,7 @@ from rwkv_tpu_torch.models.rwkv4 import RWKVParams, WKVState, forward_seq, init_
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
 from rwkv_tpu_torch.ops.sampling import typical
 from rwkv_tpu_torch.parallel.sharding import ShardedState
-from rwkv_tpu_torch.runtime.graphs import Graphs, one_cuda_device
+from rwkv_tpu_torch.runtime.graphs import Graphs, graphable
 from rwkv_tpu_torch.tokenizer.bpe import BPETokenizer, StreamDecoder
 from rwkv_tpu_torch.utils.metrics import metrics
 from rwkv_tpu_torch.utils.text import StopScanner
@@ -137,7 +139,7 @@ class InferencePool:
         self._active = [False] * self.B
         self._gens = [self._generator(i) for i in range(self.B)]
         mesh = self._mesh
-        self._graphs = Graphs(generators=self._gens, mesh=mesh, enabled=one_cuda_device(mesh))
+        self._graphs = Graphs(generators=self._gens, mesh=mesh, enabled=graphable(mesh))
         self._temp = [1.0] * self.B
         self._tau = [0.8] * self.B
         # per-slot banned-token mask at the padded vocab width (set from each

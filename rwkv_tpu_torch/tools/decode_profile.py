@@ -1,7 +1,8 @@
 """Where a decode step's time goes on the GPU, at RWKV-4 430M widths.
 
     python -m rwkv_tpu_torch.tools.decode_profile [--quant q8|q4] [--a8]
-                                                  [--tp N [--body fused|halves] [--cards]]
+                                                  [--tp N [--body fused|halves|plain]
+                                                   [--cards]]
                                                   [--batch 1 8 16] [--steps 30] [--seed 0]
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
@@ -60,12 +61,15 @@ shard and layer, the head on K2), it measures:
     of one decode program's call (k = 1) without waiting for the device.
 With --tp N --cards the mesh takes cards 0..N-1, each shard on its own card
 (K7 across cards for the fused body, K6 + K2 on each card and the mesh's
-collectives between them for halves), the state resident per card; it then
-measures, eagerly (no capture across cards), the wall ms per step and per
-token of the tp step and of the unsharded step on card 0 in turns (host
-clock, every card synchronized), the launches and collectives of one step,
-and for the fused body each card's phases from its stamps and the share of
-the launch its waits for the peers' flags take.
+collectives between them for halves, torch ops and those collectives for
+plain, which only --cards takes), the state resident per card; it then
+measures the wall ms per step and per token of the unsharded step on card
+0, of the tp step replayed from its CUDA graph across the cards and of the
+same body eager, in turns (unsharded, graphed, eager, eager, graphed,
+unsharded; host clock, every card synchronized), the launches and
+collectives of one replay and the replays made, and for the fused body each
+card's phases from its stamps and the share of the launch its waits for the
+peers' flags take.
 Prints one JSON line per batch size. Needs a CUDA device.
 """
 
@@ -118,7 +122,7 @@ def _cards(args) -> None:
         shard_state,
         tp_vocab_multiple,
     )
-    from rwkv_tpu_torch.parallel.tp_step import make_engine_step
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
     from rwkv_tpu_torch.runtime import graphs as graphs_mod
 
     n = args.tp
@@ -137,7 +141,9 @@ def _cards(args) -> None:
     params = params_to(host, dev)
     mesh = make_mesh(model=n, devices=cards)
     sp = shard_params(host, mesh)
-    step = make_engine_step(mesh, sp, body=args.body)
+    step = make_tp_step(mesh, sp, body=args.body)
+    if not step.graphed:
+        raise SystemExit("decode_profile --cards: the step over the cards is not graphed")
     rng = np.random.default_rng(args.seed)
     L = cfg.n_layer
 
@@ -149,9 +155,11 @@ def _cards(args) -> None:
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
         st1, stn = init_state(cfg, (B,), device=dev), ShardedState.zeros(cfg, B, mesh)
         runs = {"tp=1": lambda: forward_step_fused(params, tok, st1),  # noqa: B023
-                f"tp={n}": lambda: step(sp, tok, stn)}  # noqa: B023
+                f"tp={n} graphed": lambda: step(sp, tok, stn),  # noqa: B023
+                f"tp={n} eager": lambda: step.eager(sp, tok, stn)}  # noqa: B023
         turns = {}
-        for name in ("tp=1", f"tp={n}", f"tp={n}", "tp=1"):
+        for name in ("tp=1", f"tp={n} graphed", f"tp={n} eager", f"tp={n} eager",
+                     f"tp={n} graphed", "tp=1"):
             for _ in range(3):
                 runs[name]()
             sync()
@@ -195,7 +203,7 @@ def _cards(args) -> None:
             "quant": args.quant, "tp": n, "cards": n, "body": args.body, "batch": B,
             "wall_ms_per_step_in_turns": turns,
             "wall_ms_per_token": {k: min(v) / B for k, v in turns.items()},
-            "per_step": per_step,
+            "per_step": per_step, "replays": step.graphs.replays,
             **({"card0_device_ms_per_step_by_phase": phases,
                 "exchange_wait_share_by_card": waits} if phases else {}),
             "card": card}))
@@ -207,8 +215,8 @@ def main() -> None:
     ap.add_argument("--a8", action="store_true", help="the W8A8 step (q8 weights only)")
     ap.add_argument("--tp", type=int, default=0,
                     help="the tensor-parallel step on a mesh naming the card N times")
-    ap.add_argument("--body", choices=["fused", "halves"], default="fused",
-                    help="the tensor-parallel step's body (with --tp)")
+    ap.add_argument("--body", choices=["fused", "halves", "plain"], default="fused",
+                    help="the tensor-parallel step's body (with --tp; plain with --cards)")
     ap.add_argument("--cards", action="store_true",
                     help="with --tp N: the mesh over cards 0..N-1, one shard a card")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
@@ -219,8 +227,10 @@ def main() -> None:
         ap.error("--a8 runs on q8 weights")
     if args.tp and args.a8:
         ap.error("--tp runs without --a8")
-    if args.tp and args.quant == "q4" and args.body == "halves":
+    if args.tp and args.quant == "q4" and args.body != "fused":
         ap.error("4-bit weights run the tensor-parallel step through --body fused only")
+    if args.body == "plain" and not args.cards:
+        ap.error("--body plain is profiled over cards only (--tp N --cards)")
     if args.cards:
         if args.tp < 2:
             ap.error("--cards needs --tp 2 or more")

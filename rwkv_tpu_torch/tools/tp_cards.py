@@ -22,31 +22,41 @@ tp = min(n, 4) for the 14B parts:
       and the line says which), 4 steps fed the same ids, B in {1, 8}:
       logits at the TP pin (3e-4, scaled); per step K7 tp launches, K6 2 + 2
       a layer per card and K2 one per card, collectives 3 L + 2 for halves
-      and plain, one gather for fused;
+      and plain, one gather for fused; each body one CUDA graph across the
+      cards (runtime/graphs.py), its first call eager then captured, the
+      other three replays, each step held against the eager body on a copy
+      of the state (bit-equal, or the difference printed and held to the
+      pin);
   (c) RWKV(path, sharding=make_mesh(model=tp)) on a 430M .bin written here
       (random weights, as chip_smoke.py's phase 4 writes it) answers 3
       requests (load_context, then greedy steps through forward, then
       generate) beside the one-card engine (K1 + K2): its logits at the TP
       pin, its greedy ids the one-card engine's wherever that engine's top
       two logits differ by more than the pin; no whole-state cut or join
-      (sharding.counts) while it decodes; save_state -> load_state gives
-      the state and logits back bit for bit;
+      (sharding.counts) while it decodes; generate decodes from CUDA graphs
+      across the cards (replays counted) and gives the texts of the same
+      calls run eagerly; save_state -> load_state gives the state and
+      logits back bit for bit;
   (d) InferencePool over that engine's sharded params, 8 slots, 12
-      requests at tau = 0: every text equal to the engine's generate for
-      the same request, no whole-state cut or join;
+      requests at tau = 0, its decode one CUDA graph across the cards:
+      every text equal to the engine's generate for the same request, no
+      whole-state cut or join;
   (e) pods with NCCL between the processes (tools/pod_worker.py): two
       processes of n / 2 cards each (pod_mesh(model="slice") = {"data": 2,
       "model": n / 2}, K7 across each process's cards), then n processes of
       one card each ({"data": n, "model": 1}); each holds its logits to the
       single-process reference at 3e-4 and allgathers its checksum;
-  (f) timings, eager, host-timed over back-to-back steps (every card
-      synchronized), in turns with tp = 1 on card 0: the 14B and 430M
-      step (body "fused") at tp = 1, 2 and 4, ms/step and ms/token, B in
-      {1, 8}; the exchanges' share of a 14B tp step from K7's %globaltimer
-      stamps (each card's wait for its peers' flags, from the barrier to the
-      wait's end, over the launch); one psum and one gather of [B, E] over
-      the cards by device copies and by the mesh's NCCL collectives; the
-      14B halves step;
+  (f) timings, host-timed over back-to-back steps (every card
+      synchronized), in turns with tp = 1 on card 0: the 14B and 430M step
+      (body "fused", from its CUDA graph across the cards) at tp = 1, 2 and
+      4, ms/step and ms/token, B in {1, 8} (430M q8 also B = 4); the
+      exchanges' share of a 14B tp step from K7's %globaltimer stamps (each
+      card's wait for its peers' flags, from the barrier to the wait's end,
+      over the launch), eager; one psum and one gather of [B, E] over the
+      cards by device copies and by the mesh's NCCL collectives; the 14B
+      step at tp = 4 of each body (fused, halves, plain), B in {1, 8},
+      replayed from its CUDA graph across the cards and run eagerly, in
+      turns;
   (g) a model axis across processes (tools/pod_worker.py under
       pod_mesh(model=tp)): tp processes of one card each, NCCL between them,
       at 14B widths (each process makes the seed's weights and keeps its
@@ -257,7 +267,7 @@ def check_bodies(whole, sp, cfg, rng, card, steps=4, batches=(1, 8)):
     tp, L, V = mesh.shape["model"], cfg.n_layer, 50277
     ref_step, which = unsharded_step(whole)
     dev0 = whole.emb.device
-    out, total = {}, {}
+    out, total, vs = {}, {}, {}
     for B in batches:
         toks = [torch.from_numpy(rng.integers(0, V, size=(B,))).to(dev0) for _ in range(steps)]
         st = init_state(cfg, (B,), device=dev0)
@@ -267,9 +277,11 @@ def check_bodies(whole, sp, cfg, rng, card, steps=4, batches=(1, 8)):
             want.append(lg[:, :V])
         for body in ("fused", "halves", "plain"):
             step = make_tp_step(mesh, sp, body=body)
-            require(step.body == body, f"asked for body {body}, got {step.body}")
+            require(step.body == body and step.graphed,
+                    f"asked for body {body}, graphed, got {step.body}, graphed {step.graphed}")
             state = ShardedState.zeros(cfg, B, mesh)
-            worst = (0.0, 0.0)
+            state_e = state.with_leaves([t.clone() for t in state])
+            worst, vs_eager = (0.0, 0.0), 0.0
             for i, tok in enumerate(toks):
                 set_launches_zero()
                 mesh.reset_collectives()
@@ -284,6 +296,13 @@ def check_bodies(whole, sp, cfg, rng, card, steps=4, batches=(1, 8)):
                 require(e[1] <= TP_TOL, f"body {body} tp={tp} B={B} step {i}: scaled error "
                         f"{e[1]:.3e} > {TP_TOL} against {which}")
                 worst = max(worst, e)
+                lg_e, state_e = step.eager(sp, tok, state_e)
+                sync_all()
+                d = max([scaled_err(lg, lg_e)[1]]
+                        + [scaled_err(a, b)[1] for a, b in zip(state, state_e)])
+                require(d <= TP_TOL, f"body {body} tp={tp} B={B} step {i}: graphed against "
+                        f"eager, scaled difference {d:.3e} > {TP_TOL}")
+                vs_eager = max(vs_eager, d)
                 if body == "fused":
                     exp = {"decode_stack_tp.launches": tp}
                     exp_coll = {"psum": 0, "all_gather": 1} if B <= k7.FUSE_EMBED_MAX_B else \
@@ -301,11 +320,18 @@ def check_bodies(whole, sp, cfg, rng, card, steps=4, batches=(1, 8)):
                     total[k] = total.get(k, 0) + v
                 require(coll == exp_coll, f"body {body} tp={tp} B={B}: collectives {coll}, "
                         f"want {exp_coll}")
+            require(step.graphs.replays == steps - 1 and len(step.graphs) == 1,
+                    f"body {body} B={B}: {step.graphs.replays} replays of {len(step.graphs)} "
+                    f"graphs, want {steps - 1} of 1")
             out[body, B] = worst
+            vs[body, B] = vs_eager
             print(f"  (b) 14B tp={tp} body {body} B={B}, {steps} steps fed the same ids: max abs "
                   f"err {worst[0]:.3e} (scaled {worst[1]:.2e} <= {TP_TOL}) against {which}; "
+                  f"one graph across the cards, {step.graphs.replays} replays, against the "
+                  f"eager body: "
+                  f"{'bit-equal' if vs_eager == 0 else f'scaled difference {vs_eager:.2e}'}; "
                   f"per step launches {exp or 'none'}, collectives {exp_coll} {card}")
-    return out, which, total
+    return out, which, total, vs
 
 
 # -- (c), (d) the engine and the pool over the cards ---------------------------------
@@ -320,9 +346,9 @@ def check_engine(bin_path, tp, card):
     mesh = make_mesh(model=tp, devices=[torch.device("cuda", i) for i in range(tp)])
     eng = RWKV(bin_path, sharding=mesh)
     eng.load_tokenizer(native=False)
-    require(eng._step_fn.body == "fused" and not eng._graphs.enabled,
+    require(eng._step_fn.body == "fused" and eng._graphs.enabled and eng._step_fn.graphed,
             f"the engine over cards runs body {eng._step_fn.body}, graphs "
-            f"{eng._graphs.enabled}; want fused, eager")
+            f"{eng._graphs.enabled}, step graphed {eng._step_fn.graphed}; want fused, graphed")
     V = eng._true_vocab
     worst, ties, steps, per_token_cuts = (0.0, 0.0), 0, 16, 0
     # the one-card engine's greedy trajectories first, so that the launches
@@ -360,11 +386,22 @@ def check_engine(bin_path, tp, card):
             "joins while decoding")
     engine_launches = launch_counts()
     texts = []
+    replays = eng._graphs.replays
     for i, prompt in enumerate(PROMPTS):
         eng.reset_state()
         cuts = dict(sharding.counts)
-        texts.append(eng.generate(prompt, max_tokens=24, temp=1.0, tau=0.0, seed=i))
+        texts.append(eng.generate(prompt, max_tokens=24, temp=1.0, tau=0.0, seed=i,
+                                  chunk=1 + 7 * (i % 2)))
         require(sharding.counts == cuts, "engine.generate over cards cut or joined the state")
+    replays = eng._graphs.replays - replays
+    require(replays > 0, "engine.generate over cards replayed no graph")
+    eng._graphs.enabled = eng._step_fn.graphs.enabled = False
+    for i, (prompt, want) in enumerate(zip(PROMPTS, texts)):
+        eng.reset_state()
+        got = eng.generate(prompt, max_tokens=24, temp=1.0, tau=0.0, seed=i,
+                           chunk=1 + 7 * (i % 2))
+        require(got == want, f"engine over cards: eager text {got!r}, graphed {want!r}")
+    eng._graphs.enabled = eng._step_fn.graphs.enabled = True
     # save_state -> load_state, bit for bit
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "s.npz")
@@ -382,8 +419,9 @@ def check_engine(bin_path, tp, card):
     print(f"  (c) engine over {tp} cards, 3 requests x {steps} greedy steps: logits max abs err "
           f"{worst[0]:.3e} (scaled {worst[1]:.2e} <= {TP_TOL}), greedy ids equal the one-card "
           f"engine's at every step whose top-two gap exceeds the pin ({ties} within it); 0 "
-          f"state cuts or joins per token; save/load_state bit for bit; generate: "
-          f"{[t[:24] for t in texts]!r} {card}")
+          f"state cuts or joins per token; save/load_state bit for bit; generate from "
+          f"graphs across the cards ({replays} replays, {len(eng._graphs)} graphs), the "
+          f"eager texts: {[t[:24] for t in texts]!r} {card}")
     return eng, worst, engine_launches
 
 
@@ -404,13 +442,17 @@ def check_pool(eng, card):
             f"{sharding.counts}")
     pool_launches = launch_counts()
     require(sorted(out) == sorted(rids), "the pool lost a request")
+    require(len(pool._graphs) == 1 and pool._graphs.replays > 0,
+            f"the pool over cards made {len(pool._graphs)} graphs, {pool._graphs.replays} "
+            f"replays; want its decode from one graph across the cards")
     for rid, (p, n, t, s) in zip(rids, reqs):
         eng.reset_state()
         want = eng.generate(p, max_tokens=n, temp=t, tau=0.0, seed=s)
         require(out[rid] == want, f"pool request {rid}: {out[rid]!r}, the engine gives "
                 f"{want!r}")
     print(f"  (d) pool over {eng._mesh.shape['model']} cards: 8 slots, 12 requests at tau=0 in "
-          f"{pool_s:.2f} s, every text the engine's; 0 state cuts or joins; K7 launches "
+          f"{pool_s:.2f} s, every text the engine's; 0 state cuts or joins; its decode one "
+          f"graph across the cards, {pool._graphs.replays} replays; K7 launches "
           f"{pool_launches['decode_stack_tp.launches']} {card}")
     return pool_launches
 
@@ -801,16 +843,32 @@ def collective_times(E, tp, card, n=50):
     return out
 
 
-def halves_time(sp, cfg, tp, card, n=5):
-    """ms/step of the 14B halves step (K6 + K2 on each card, 3 L + 2
-    collectives on NCCL), eager, B = 1."""
-    step = make_tp_step(sp.mesh, sp, body="halves")
-    st = ShardedState.zeros(cfg, 1, sp.mesh)
-    tok = torch.zeros(1, dtype=torch.int64, device=sp.mesh.first_device)
-    ms = [host_ms(lambda: step(sp, tok, st), n) for _ in range(2)]  # noqa: B023
-    print(f"  (f) 14B tp={tp} halves step B=1: {', '.join(f'{x:.3f}' for x in ms)} ms/step "
-          f"{card}")
-    return min(ms)
+def body_times(sp, cfg, card, batches=(1, 8), n=20):
+    """ms/step of the 14B step over the cards for each body (fused, halves,
+    plain), replayed from its CUDA graph across the cards and run eagerly, in
+    turns (graphed, eager, eager, graphed)."""
+    mesh = sp.mesh
+    tp = mesh.shape["model"]
+    out = {}
+    for body in ("fused", "halves", "plain"):
+        step = make_tp_step(mesh, sp, body=body)
+        require(step.graphed, f"(f) body {body} over the cards is not graphed")
+        for B in batches:
+            st = ShardedState.zeros(cfg, B, mesh)
+            tok = torch.zeros(B, dtype=torch.int64, device=mesh.first_device)
+            runs = {"graphed": lambda: step(sp, tok, st),  # noqa: B023
+                    "eager": lambda: step.eager(sp, tok, st)}  # noqa: B023
+            t = {"graphed": [], "eager": []}
+            for mode in ("graphed", "eager", "eager", "graphed"):
+                reps = max(3, n // 4) if (body, mode) == ("plain", "eager") else n
+                t[mode].append(host_ms(runs[mode], reps))
+            out[body, B] = t
+            print(f"  (f) 14B tp={tp} body {body} B={B}, in turns: graphed "
+                  f"{', '.join(f'{x:.3f}' for x in t['graphed'])} ms/step, eager "
+                  f"{', '.join(f'{x:.3f}' for x in t['eager'])} ms/step "
+                  f"({min(t['graphed']) / B:.3f} / {min(t['eager']) / B:.3f} ms/token) {card}")
+        del step
+    return out
 
 
 # -- the run ---------------------------------------------------------------------------
@@ -859,8 +917,9 @@ def run(seed: int = 0, bin_path: str | None = None) -> dict:
 
     # (b) the bodies over the cards against tp = 1 on card 0
     whole14 = params_to(host14, torch.device("cuda", 0))
-    bodies, which, launches_b = check_bodies(whole14, sp14, cfg14, rng, card)
+    bodies, which, launches_b, vs_eager = check_bodies(whole14, sp14, cfg14, rng, card)
     rec["b"] = {f"{b} B={B}": v for (b, B), v in bodies.items()}
+    rec["b_graphed_vs_eager"] = {f"{b} B={B}": v for (b, B), v in vs_eager.items()}
     rec["b_reference"] = which
     del whole14
 
@@ -899,12 +958,13 @@ def run(seed: int = 0, bin_path: str | None = None) -> dict:
     print(f"  (f) 14B tp={tp_max} K7 step B=1: exchanges (each card's waits for its peers' "
           f"flags) {share:.1%} of the {total:.3f} ms launch (median over cards and 5 steps); "
           f"bound per card {bound[tp_max]:.3f} ms (q8 weight bytes / 3.35 TB/s) {card}")
-    rec["f_halves"] = halves_time(sps[tp_max], cfg14, tp_max, card)
+    rec["f_14b_bodies"] = {f"{b} B={B}": v for (b, B), v in
+                           body_times(sps[tp_max], cfg14, card).items()}
     del sps, whole
     torch.cuda.empty_cache()
     rec["f_collectives"] = {f"{x} {k} B={b}": v
                             for (x, k, b), v in collective_times(5120, tp_max, card).items()}
-    rows430, sps430, _ = time_steps(q8, cfg430, tps, "430M", card, rng)
+    rows430, sps430, _ = time_steps(q8, cfg430, tps, "430M", card, rng, batches=(1, 4, 8))
     rec["f_430m"] = {f"tp={tp} B={B}": v for (tp, B), v in rows430.items()}
     rec["f_430m_plain"] = plain_times(sps430, cfg430, "430M q8", card)
     rows430q4, sps430q4, _ = time_steps(q4, cfg430, tps, "430M q4", card, rng)

@@ -1310,7 +1310,8 @@ def test_decode_stack_tp_across_cards_matches_plain(cards, quant, B):
 
 def test_engine_across_cards_matches_one_card(cards, tmp_path):
     """RWKV(path, sharding=make_mesh(model=tp)) over distinct cards runs the
-    fused body (K7 across cards, tp launches a step), eagerly, its state
+    fused body (K7 across cards, tp launches a step), from CUDA graphs across
+    the cards (the step's own for forward, the decode programs'), its state
     resident per card (no whole-state cut or join while decoding), its
     logits within 3e-4 of the one-card engine's."""
     from rwkv_tpu_torch.io.binfmt import write_bin
@@ -1325,7 +1326,7 @@ def test_engine_across_cards_matches_one_card(cards, tmp_path):
                                                pad_multiple=None))
     one = RWKV(path, device=cards[0])
     eng = RWKV(path, sharding=make_mesh(model=tp, devices=cards))
-    assert eng._step_fn.body == "fused" and not eng._graphs.enabled
+    assert eng._step_fn.body == "fused" and eng._graphs.enabled and eng._step_fn.graphed
     assert isinstance(eng._state, sharding.ShardedState)
     V = eng._true_vocab
     a, b = one.forward([3, 4, 5]), eng.forward([3, 4, 5])
@@ -1337,6 +1338,7 @@ def test_engine_across_cards_matches_one_card(cards, tmp_path):
         a, b = one.forward(t), eng.forward(t)
         assert _scaled(b[:V], a[:V]) <= 3e-4
     assert sharding.counts == cuts and k7.launches == before + 6 * tp
+    assert eng._step_fn.graphs.replays >= 5
 
 
 def test_wrappers_launch_on_their_tensors_card_across_cards(cards):
@@ -1373,6 +1375,162 @@ def test_wrappers_launch_on_their_tensors_card_across_cards(cards):
     assert ran == {one.index}
     for a, b in zip(got, want):
         assert a.device == one and torch.equal(a.to(cards[0]), b)
+
+
+@pytest.fixture(scope="module")
+def cards_sp(cards):
+    """Signed q8 params at E = 256 a card (every body eligible), L = 2,
+    sharded over the cards."""
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.parallel.sharding import shard_params, tp_vocab_multiple
+
+    tp = len(cards)
+    cfg = RWKVConfig(n_layer=2, n_embd=256 * tp, vocab_size=1000)
+    host = signedize_params(random_quantized_params_np(cfg, seed=21,
+                                                       pad_multiple=tp_vocab_multiple(tp)))
+    return cfg, shard_params(params_to(host, "cpu"), make_mesh(model=tp, devices=cards))
+
+
+def _sync(cards):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("body", ["fused", "halves", "plain"])
+def test_tp_step_across_cards_graph_equals_eager(cards, cards_sp, body, B):
+    """The step over distinct cards of one process is one CUDA graph across
+    them (each card's K7, or K6 + K2, or plain ops, and the NCCL
+    collectives): from its second call each call is one replay, bit-equal to
+    the eager body over 4 carried steps (logits and every card's resident
+    state), and each call advances the launch counters and the mesh's
+    collective counts by one step's worth."""
+    from rwkv_tpu_torch.parallel.sharding import ShardedState
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
+    from rwkv_tpu_torch.runtime import graphs
+
+    cfg, sp = cards_sp
+    mesh, tp, L = sp.mesh, len(cards), cfg.n_layer
+    step = make_tp_step(mesh, sp, body=body)
+    assert step.body == body and step.graphed
+    want = {"fused": {"decode_stack_tp.launches": tp},
+            "halves": {"tp_halves.launches_att": 2 * L * tp,
+                       "tp_halves.launches_ffn": 2 * L * tp, "mm8.launches": tp},
+            "plain": {}}[body]
+    coll = ({"psum": 0, "all_gather": 1} if body == "fused"
+            else {"psum": 2 * L + 1, "all_gather": L + 1})
+    names = [f"{m.__name__.rsplit('.', 1)[1]}.{a}" for m, a in graphs.COUNTERS]
+    st = ShardedState.zeros(cfg, B, mesh)
+    st_e = st.with_leaves([t.clone() for t in st])
+    rng = np.random.default_rng(B)
+    for i in range(4):
+        tok = torch.from_numpy(rng.integers(0, 1000, size=(B,))).to(cards[0])
+        before, replays = graphs.counts(mesh), step.graphs.replays
+        logits, st = step(sp, tok, st)
+        delta = [a - b for a, b in zip(graphs.counts(mesh), before)]
+        assert {n: d for n, d in zip(names, delta) if d} == want, (body, B, i)
+        assert dict(zip(mesh.collectives, delta[len(names):])) == coll, (body, B, i)
+        assert step.graphs.replays - replays == (1 if i else 0)
+        ref, st_e = step.eager(sp, tok, st_e)
+        _sync(cards)
+        assert torch.equal(logits, ref), (body, B, i, _scaled(logits, ref))
+        for a, b in zip(st, st_e):
+            assert a.device == b.device and torch.equal(a, b), (body, B, i, _scaled(a, b))
+    assert len(step.graphs) == 1
+
+
+@pytest.mark.parametrize("body", ["fused", "halves"])
+def test_tp_step_across_cards_replay_waits_for_a_write_on_card_1(cards, cards_sp, body):
+    """The caller writes card 1's resident state on card 1's current stream,
+    behind a spin of tens of milliseconds, and replays at once: the replay
+    waits for that stream (it reads the written state, as the eager body
+    does), and the logits read on card 0 and the state read on card 1 come
+    after it."""
+    from rwkv_tpu_torch.parallel.sharding import ShardedState
+    from rwkv_tpu_torch.parallel.tp_step import make_tp_step
+
+    cfg, sp = cards_sp
+    step = make_tp_step(sp.mesh, sp, body=body)
+    st = ShardedState.zeros(cfg, 2, sp.mesh)
+    tok = torch.tensor([5, 900], device=cards[0])
+    for _ in range(3):
+        _, st = step(sp, tok, st)
+    assert step.graphs.replays == 2
+    rng = np.random.default_rng(7)
+    for r in range(3):
+        cell = st.cells[0][1]
+        new = [torch.from_numpy(rng.normal(size=tuple(t.shape)).astype(np.float32)).to(cards[1])
+               for t in cell]
+        _sync(cards)
+        with torch.cuda.device(cards[1]):
+            torch.cuda._sleep(50_000_000)
+            for t, v in zip(cell, new):
+                t.copy_(v)
+        logits, got = step(sp, tok, st)
+        on1 = [t.clone() for t in got.cells[0][1]]  # read on card 1's current stream
+        st_e = st.with_leaves([t.clone() for t in st])
+        ref, want = step.eager(sp, tok, st_e)
+        _sync(cards)
+        assert torch.equal(logits, ref), (body, r)
+        for a, b in zip(on1, want.cells[0][1]):
+            assert torch.equal(a, b), (body, r)
+        st = got
+    assert step.graphs.replays == 5
+
+
+def test_engine_and_pool_across_cards_graphed_equal_eager(cards, tmp_path):
+    """The engine over distinct cards decodes each chunk as one replay of a
+    graph across the cards (K7 on every card, the logits gather, ban +
+    typical on card 0): greedy texts at tau = 0 equal the eager engine's
+    (its programs and the step's own graph off), and the pool's texts
+    graphed equal its eager texts and the engine's."""
+    from rwkv_tpu_torch.io.binfmt import write_bin
+    from rwkv_tpu_torch.ops.cuda import decode_stack_tp as k7
+    from rwkv_tpu_torch.parallel.mesh import make_mesh
+    from rwkv_tpu_torch.runtime.engine import RWKV
+    from rwkv_tpu_torch.runtime.pool import InferencePool
+
+    tp = len(cards)
+    path = str(tmp_path / "m.bin")
+    write_bin(path, random_quantized_params_np(RWKVConfig(n_layer=2, n_embd=256 * tp), seed=8,
+                                               pad_multiple=None))
+    eng = RWKV(path, sharding=make_mesh(model=tp, devices=cards))
+    eng.load_tokenizer(native=False)
+    calls = [("Once upon a time", 1.0, 0.0, 1, 1), ("The capital of France", 0.7, 0.0, 2, 8),
+             ("Hello", 1.3, 0.0, 3, 8)]
+
+    def texts():
+        out = []
+        for prompt, temp, tau, seed, chunk in calls:
+            eng.reset_state()
+            out.append(eng.generate(prompt, max_tokens=17, temp=temp, tau=tau, seed=seed,
+                                    chunk=chunk))
+        return out
+
+    before = k7.launches
+    graphed = texts()
+    assert eng._graphs.replays > 0 and len(eng._graphs) >= 3
+    assert k7.launches > before
+    eng._graphs.enabled = eng._step_fn.graphs.enabled = False
+    assert texts() == graphed
+    eng._graphs.enabled = eng._step_fn.graphs.enabled = True
+
+    def serve(enabled):
+        pool = InferencePool(eng.params, eng.tokenizer, max_streams=3, prefill_bucket=32,
+                             step_fn=eng._step_fn, prefill_fn=eng._prefill_impl)
+        pool._graphs.enabled = eng._step_fn.graphs.enabled = enabled
+        rids = [pool.submit(p, max_tokens=9 + i, temp=t, tau=0.0, seed=s)
+                for i, (p, t, _, s, _) in enumerate(calls + calls[:2])]
+        out = pool.run()
+        eng._step_fn.graphs.enabled = True
+        return [out[r] for r in rids], pool
+
+    pooled, pool = serve(True)
+    assert len(pool._graphs) == 1 and pool._graphs.replays > 0
+    assert serve(False)[0] == pooled
+    for (p, t, _, s, _), i, text in zip(calls + calls[:2], range(5), pooled):
+        eng.reset_state()
+        assert eng.generate(p, max_tokens=9 + i, temp=t, tau=0.0, seed=s) == text
 
 
 # -- across processes: kernel K7 with one card a process (needs >= 2 cards) ------------

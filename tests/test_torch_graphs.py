@@ -312,14 +312,16 @@ def test_cpu_mesh_decodes_eagerly_with_its_collectives(cpu_mesh_engine):
 
 
 def test_graph_rule_for_meshes():
-    """A mesh decodes from graphs only when every shard names one CUDA device;
-    over distinct GPUs (or the CPU) it decodes eagerly."""
+    """A mesh decodes from graphs when every shard of this process lies on a
+    CUDA device: one card, or distinct cards captured as one graph; a mesh
+    on the CPU (or with a CPU shard) decodes eagerly."""
     cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
-    assert graphs.one_cuda_device(None)
-    assert graphs.one_cuda_device(Mesh([[cuda0, cuda0]]))
-    assert not graphs.one_cuda_device(Mesh([[cuda0, cuda1]]))
-    assert not graphs.one_cuda_device(Mesh([[cuda0], [cuda1]]))
-    assert not graphs.one_cuda_device(make_mesh(model=2, devices=["cpu"] * 2))
+    assert graphs.graphable(None)
+    assert graphs.graphable(Mesh([[cuda0, cuda0]]))
+    assert graphs.graphable(Mesh([[cuda0, cuda1]]))
+    assert graphs.graphable(Mesh([[cuda0], [cuda1]]))
+    assert not graphs.graphable(make_mesh(model=2, devices=["cpu"] * 2))
+    assert not graphs.graphable(Mesh([[cuda0, torch.device("cpu")]]))
 
 
 def test_tree_helpers_keep_state_types():

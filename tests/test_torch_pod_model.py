@@ -17,7 +17,7 @@ greedy ids and texts over two processes against the JAX engine's on one
 and two data rows of two processes each,
 each row with its own group. In-process: pod_mesh's arithmetic,
 the order in which every process makes the rows' groups, K7's refusals of a
-row it cannot run across processes, one_cuda_device's rule, and
+row it cannot run across processes, graphable's rule, and
 multihost.shutdown freeing every live CUDA graph before it leaves the group.
 4-bit weights run across two processes through the fused body."""
 
@@ -44,7 +44,7 @@ from rwkv_tpu_torch.models import rwkv4 as t_m
 from rwkv_tpu_torch.ops.cuda import decode_stack_tp as t_k7
 from rwkv_tpu_torch.parallel import multihost
 from rwkv_tpu_torch.parallel.mesh import Mesh
-from rwkv_tpu_torch.runtime.graphs import one_cuda_device
+from rwkv_tpu_torch.runtime.graphs import graphable
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 3e-4  # the TP pin
@@ -388,23 +388,24 @@ def test_k7_refuses_rows_it_cannot_run_across_processes(monkeypatch):
 
 
 def test_one_cuda_device_rule(monkeypatch):
-    """A mesh is graphed where this process's shards all lie on one CUDA
-    device and, for a row across processes, its group is NCCL."""
-    assert one_cuda_device(None)
+    """A mesh is graphed where this process's shards all lie on CUDA
+    devices (one card, or several captured as one graph) and, for a row
+    across processes, its group is NCCL."""
+    assert graphable(None)
     cpu = Mesh([["cpu"] * 2])
-    assert not one_cuda_device(cpu)
+    assert not graphable(cpu)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     card = torch.device("cuda", 0)
-    assert one_cuda_device(Mesh([[card] * 2]))
-    assert not one_cuda_device(Mesh([[card, torch.device("cuda", 1)]]))
+    assert graphable(Mesh([[card] * 2]))
+    assert graphable(Mesh([[card, torch.device("cuda", 1)]]))
     backend = {}
     monkeypatch.setattr(torch.distributed, "get_backend", lambda g: backend[g])
     for name, want in (("nccl", True), ("gloo", False)):
         backend[name] = name
         m = Mesh([[card]], data=1, model=2, first_shard=1, model_group=name)
-        assert one_cuda_device(m) is want
-    assert not one_cuda_device(Mesh([[card]], data=1, model=2, first_shard=0))
+        assert graphable(m) is want
+    assert not graphable(Mesh([[card]], data=1, model=2, first_shard=0))
 
 
 def test_shutdown_frees_held_graphs_before_leaving_the_group(monkeypatch):
@@ -420,7 +421,7 @@ def test_shutdown_frees_held_graphs_before_leaving_the_group(monkeypatch):
     order = []
     held = graphs.Graphs()
     held._graphs[("step", 1)] = types.SimpleNamespace(
-        device=torch.device("cpu"),
+        device=torch.device("cpu"), cards=(),
         graph=types.SimpleNamespace(reset=lambda: order.append("graph freed")))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: order.append("synced"))
     monkeypatch.setattr(t_k7, "release_ipc", lambda: order.append("regions released"))
