@@ -10,11 +10,15 @@ Phases, in order; any failure raises and exits non-zero:
               CUDA runtime's and driver's versions; device memory bandwidth
               from a large device-to-device copy.
   2. mm8      kernel K2 against its plain version at the head shape
-              [B, 1024] x [1024, 50688] int8, B in {1, 8}; times of the
-              kernel (the median of repeated CUDA-graph replays, and called
-              back to back from Python), the plain version and one
-              torch.matmul on the widened weight (the yardstick, never used
-              by the port).
+              [B, 1024] x [1024, 50688] int8, B in {1, 8, 16}, and the same
+              bits from a second call; how the kernel cuts the call; times
+              of the kernel as graph-replay medians warm (one weight) and
+              from HBM (the calls rotate over 4 copies of the weight, 208
+              MB: as a decode step's head finds it) and eager, of the plain
+              version and of one torch.matmul on the widened weight (the
+              yardstick, never used by the port); the bound counts the
+              bf16 tensor-core products the kernel issues (N = 3B rounded
+              up to 8 columns).
   3. decode   kernel K1 (+ K2 head) against the plain version at RWKV-4 430M
               widths (L=24, E=1024, F=4096, Vp=50688), weights from a numpy
               seed, B in {1, 8, 16}, 4 consecutive steps: logits and all 5
@@ -57,10 +61,10 @@ Phases, in order; any failure raises and exits non-zero:
               (L=2) with RWKV(path, quant="q4") and decode a few tokens.
   8. mm8_a8   kernel K5's head (mm8_a8.cu) against its plain version at
               [B, 1024] x [1024, 50688] int8, B in {1, 8, 16}: the int8
-              codes equal, the outputs within 1e-6 scaled; times of the
-              kernel (graph-replay median and eager), the plain version and
-              torch._int_mm (cuBLAS s8 x s8) on the same codes, rows padded
-              to 24 (the yardstick).
+              codes equal, the outputs the plain version's bits, twice; the
+              cut; times of the kernel warm, from HBM (4 copies) and eager,
+              of the plain version and of torch._int_mm (cuBLAS s8 x s8) on
+              the same codes, rows padded to 24 (the yardstick).
   9. decode8  kernel K5's stack (the a8 branch of decode_stack.cu) + a8 head
               against the plain a8 version at 430M widths, a8_block 512, B in
               {1, 8, 16}, 4 carried steps: the state bit-equal, logits within
@@ -235,14 +239,13 @@ MM8_TOL = 1e-5
 MM4_TOL = 1e-5
 DECODE_TOL = 1e-4
 # W8A8: the kernel and the plain version quantize the same f32 numbers to
-# equal codes and sum the integer products exactly, so mm8_a8 differs only
-# in the f32 rounding of its per-group partial sums. The a8 stack repeats
-# the plain version's arithmetic bit for bit up to every quantization
-# (csrc/decode_stack.cu says how): at 430M one code one apart moves the
-# logits by ~2e-2 a few layers on, so anything less gives no bound at all
-# (PERF.md, the W8A8 findings). The state then matches exactly and the logits to the
-# head's f32 rounding: K1's 1e-4 holds.
-MM8_A8_TOL = 1e-6
+# equal codes, sum the integer products exactly and round, scale and add in
+# one order, so mm8_a8 is the plain version bit for bit (phase 8 requires
+# it). The a8 stack repeats the plain version's arithmetic bit for bit up to
+# every quantization (csrc/decode_stack.cu says how): at 430M one code one
+# apart moves the logits by ~2e-2 a few layers on, so anything less gives no
+# bound at all (PERF.md, the W8A8 findings). The state then matches exactly
+# and the logits to the stack's f32 rounding: K1's 1e-4 holds.
 A8_DECODE_TOL = 1e-4
 # K6 against its plain version: one layer half, its matvecs' f32 sums in
 # another order than torch.matmul's (the rank-1 offset terms in double on
@@ -387,33 +390,41 @@ def main() -> int:
     # ------------------------------------------------------------------ 2
     print("phase 2 mm8 (K2) vs plain, [B, 1024] x [1024, 50688] int8")
     K, O = E, 50688
-    w = torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    copies = [torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+              for _ in range(4)]  # 208 MB: 4x the L2
+    w = copies[0]
     w_f32 = w.float()  # the yardstick's operand, prepared beforehand
     mm8_rows = {}
-    for B in (1, 8):
+    for B in (1, 8, 16):
         xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
         got = mm8_mod.mm8(xs, w)
+        again = mm8_mod.mm8(xs, w)
         ref = mm8_mod.mm8_plain(xs, w)
         torch.cuda.synchronize()
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm8 B={B}: non-finite output")
         require(serr <= MM8_TOL, f"mm8 B={B}: scaled error {serr:.3e} > {MM8_TOL}")
+        require(torch.equal(again, got), f"mm8 B={B}: two calls gave different bits")
         eager_ms = cuda_ms(lambda: mm8_mod.mm8(xs, w), 50)
-        ms = graph_median_ms(lambda: mm8_mod.mm8(xs, w), 50, 15)
+        warm_ms = graph_median_ms(lambda: mm8_mod.mm8(xs, w), 50, 15)
+        ms = cold_median_ms(lambda wc: mm8_mod.mm8(xs, wc), copies, 48, 15)
         plain_ms = cuda_ms(lambda: mm8_mod.mm8_plain(xs, w), 20)
         lib_ms = cuda_ms(lambda: torch.matmul(xs, w_f32), 50)
-        b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * B * K * O)
+        plan = mm8_mod.plan(B, K, O, sms)
+        N = 8 * plan["nt"]  # three bf16 pieces a row, rounded up to 8 columns
+        b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * O * K * N, PEAK_BF16_FLOPS)
         bw_ms = K * O / bw * 1e3
-        mm8_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by)
-        print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_TOL}); "
-              f"kernel {ms:.4f} ms (median of 15 CUDA-graph replays of 50 calls; "
-              f"{eager_ms:.4f} called back to back from Python), plain {plain_ms:.4f} ms, "
-              f"torch.matmul on widened W "
-              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks), "
-              f"{bw_ms:.4f} ms at the measured copy rate; {K * O / (ms * 1e-3) / 1e9:.0f} GB/s "
-              f"of weights {card}")
-    del w, w_f32
+        mm8_rows[B] = dict(err=err, ms=ms, warm_ms=warm_ms, eager_ms=eager_ms,
+                           plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  B={B}: max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_TOL}), the same bits "
+              f"twice; cut {plan}; kernel from HBM {ms:.4f} ms (graph-replay median, 4 copies), "
+              f"warm {warm_ms:.4f}, eager {eager_ms:.4f}; plain {plain_ms:.4f} ms, "
+              f"torch.matmul on widened W {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+              f"published peaks; products at N={N} on bf16 tensor cores) = {b_ms / ms:.0%} of "
+              f"the HBM time; {bw_ms:.4f} ms at the measured copy rate; "
+              f"{K * O / (ms * 1e-3) / 1e9:.0f} GB/s of weights from HBM {card}")
+    del w, w_f32, copies
 
     # ------------------------------------------------------------------ 3
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
@@ -724,7 +735,6 @@ def main() -> int:
               for _ in range(6)]
     wp = copies[0]
     w_f32 = unpack4(wp).float()  # the yardstick's operand, prepared beforehand
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mm4_rows = {}
     for B in (1, 8, 16):
         xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
@@ -867,11 +877,14 @@ def main() -> int:
 
     # ------------------------------------------------------------------ 8
     print("phase 8 mm8_a8 (K5, head) vs plain, [B, 1024] x [1024, 50688] int8")
-    w = torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+    copies = [torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+              for _ in range(4)]
+    w = copies[0]
     a8_rows = {}
     for B in (1, 8, 16):
         xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
         got, codes, scale = mm8_mod.mm8_a8(xs, w, return_codes=True)
+        again = mm8_mod.mm8_a8(xs, w)
         ref = mm8_mod.mm8_a8_plain(xs, w)
         q_ref, s_ref = mm8_mod.quant_rows(xs)
         torch.cuda.synchronize()
@@ -879,22 +892,28 @@ def main() -> int:
                 f"mm8_a8 B={B}: the kernel's int8 codes or scales differ from quant_rows")
         err, serr = scaled_err(got, ref)
         require(bool(torch.isfinite(got).all()), f"mm8_a8 B={B}: non-finite output")
-        require(serr <= MM8_A8_TOL, f"mm8_a8 B={B}: scaled error {serr:.3e} > {MM8_A8_TOL}")
+        require(torch.equal(got, ref), f"mm8_a8 B={B}: not mm8_a8_plain's bits (max abs err "
+                f"{err:.3e}, scaled {serr:.3e})")
+        require(torch.equal(again, got), f"mm8_a8 B={B}: two calls gave different bits")
         eager_ms = cuda_ms(lambda: mm8_mod.mm8_a8(xs, w), 50)
-        ms = graph_median_ms(lambda: mm8_mod.mm8_a8(xs, w), 50, 15)
+        warm_ms = graph_median_ms(lambda: mm8_mod.mm8_a8(xs, w), 50, 15)
+        ms = cold_median_ms(lambda wc: mm8_mod.mm8_a8(xs, wc), copies, 48, 15)
         plain_ms = cuda_ms(lambda: mm8_mod.mm8_a8_plain(xs, w), 5, warmup=1)
         codes24 = torch.zeros((24, K), dtype=torch.int8, device=dev)  # _int_mm takes > 16 rows
         codes24[:B] = codes
         lib_ms = cuda_ms(lambda: torch._int_mm(codes24, w), 50)
-        b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * B * K * O, PEAK_INT8_OPS)
-        a8_rows[B] = dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-        print(f"  B={B}: codes equal; max abs err {err:.3e} (scaled {serr:.3e} <= {MM8_A8_TOL}); "
-              f"kernel {ms:.4f} ms (graph-replay median; {eager_ms:.4f} eager), plain "
-              f"{plain_ms:.4f} ms, torch._int_mm on the codes (24 rows) "
-              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published peaks); "
-              f"{K * O / (ms * 1e-3) / 1e9:.0f} GB/s of weights {card}")
-    del w, codes24
+        plan = mm8_mod.plan_a8(B, K, O, sms)
+        N = 8 * plan["nt"]  # one column a row, rounded up to 8
+        b_ms, b_by = bound(K * O + B * K * 4 + B * O * 4, 2 * O * K * N, PEAK_INT8_OPS)
+        a8_rows[B] = dict(err=err, ms=ms, warm_ms=warm_ms, eager_ms=eager_ms,
+                          plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  B={B}: codes equal, the plain version's bits, the same bits twice; cut {plan}; "
+              f"kernel from HBM {ms:.4f} ms (graph-replay median, 4 copies), warm "
+              f"{warm_ms:.4f}, eager {eager_ms:.4f}; plain {plain_ms:.4f} ms, torch._int_mm on "
+              f"the codes (24 rows) {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, published "
+              f"peaks; products at N={N} on int8 tensor cores) = {b_ms / ms:.0%} of the HBM "
+              f"time; {K * O / (ms * 1e-3) / 1e9:.0f} GB/s of weights from HBM {card}")
+    del w, codes24, copies
 
     # ------------------------------------------------------------------ 9
     blk = a8_block_for(E)
@@ -2180,6 +2199,13 @@ def main() -> int:
         print(f"  phase 18: {time.perf_counter() - t18:.1f} s")
     bin_dir.cleanup()
 
+    def head_shape(rows) -> str:
+        return (f"B=1 K={K} O={O}; ms the median of CUDA-graph replays from HBM (4 weight "
+                f"copies), warm {rows[1]['warm_ms']:.4f}, {rows[1]['eager_ms']:.4f} eager; "
+                + "; ".join(f"B={b} {rows[b]['ms']:.4f} (warm {rows[b]['warm_ms']:.4f}, bound "
+                            f"{rows[b]['bound_ms']:.4f}, library {rows[b]['lib_ms']:.4f})"
+                            for b in (8, 16)))
+
     kernels = [
         {"name": "decode_stack", "route": "cuda", "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k1_launches,
@@ -2193,8 +2219,7 @@ def main() -> int:
          "max_abs_err": mm8_rows[1]["err"], "ms": mm8_rows[1]["ms"],
          "plain_ms": mm8_rows[1]["plain_ms"], "bound_ms": mm8_rows[1]["bound_ms"],
          "bound_by": mm8_rows[1]["bound_by"], "library_ms": mm8_rows[1]["lib_ms"],
-         "shape": f"B=1 K={K} O={O}; ms the median of CUDA-graph replays, "
-                  f"{mm8_rows[1]['eager_ms']:.4f} eager"},
+         "shape": head_shape(mm8_rows)},
         {"name": "mm4", "route": "cuda", "source": "rwkv_tpu_torch/csrc/mm4.cu",
          "replaces": "rwkv_tpu/ops/pallas/mm4.py:87", "launches": k3_launches,
          "max_abs_err": mm4_rows[1]["err"], "ms": mm4_rows[1]["ms"],
@@ -2218,8 +2243,7 @@ def main() -> int:
          "max_abs_err": a8_rows[1]["err"], "ms": a8_rows[1]["ms"],
          "plain_ms": a8_rows[1]["plain_ms"], "bound_ms": a8_rows[1]["bound_ms"],
          "bound_by": a8_rows[1]["bound_by"], "library_ms": a8_rows[1]["lib_ms"],
-         "shape": f"B=1 K={K} O={O}; library: torch._int_mm on 24 rows; ms the median of "
-                  f"CUDA-graph replays, {a8_rows[1]['eager_ms']:.4f} eager"},
+         "shape": "library: torch._int_mm on 24 rows; " + head_shape(a8_rows)},
         {"name": "decode_stack_a8", "route": "cuda",
          "source": "rwkv_tpu_torch/csrc/decode_stack.cu",
          "replaces": "rwkv_tpu/ops/pallas/decode_stack.py:130", "launches": k5_stack_launches,

@@ -320,7 +320,7 @@ struct StackPlan {
   __device__ __forceinline__ void after_barrier() { stamps(); }
 };
 
-// One block a SM: the whole matvec path is inlined (qmv.cuh's INL) and holds
+// One block a SM: the whole matvec path is inlined (qmv.cuh's qmv_run) and holds
 // up to 255 registers without a spill; two blocks a SM (128 registers) spilled
 // to local memory, which with this much shared memory lives in L2.
 template <int BT, int FMT>

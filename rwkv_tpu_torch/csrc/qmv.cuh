@@ -1,5 +1,5 @@
-// Quantized-weight matvec tile shared by the mm8, mm4, mm8_a8, decode_stack,
-// tp_halves and decode_stack_tp kernels.
+// Quantized-weight matvec tile shared by the decode_stack, tp_halves and
+// decode_stack_tp kernels.
 //
 // Computes, for up to three matrices that share an output width O,
 //
@@ -64,8 +64,8 @@
 //
 // qmv_run is a device function: the caller gives it the tile, the split, S
 // and the shared memory, and may load the block's weights ahead of the call
-// (qmv_load_async): qmv_kernel passes blockIdx, and the persistent decode
-// stack (decode_stack.cu) runs it once per phase, with the weights of the
+// (qmv_load_async): the persistent decode stacks (stack.cuh) run it once
+// per phase, inlined whole, with the weights of the
 // next phase copied to shared memory while it waits at the grid barrier
 // that separates them. A source policy (GlobalSrc here) says where the
 // activations come from: the persistent stack computes the token-shift mixes
@@ -440,7 +440,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[BT][kColsPerThread], con
 // (lane = slice * 8 + column thread), then the 8 warps through shared
 // memory. Writes dst[bi * stride + c] for the tile's columns c < O - col0.
 template <int BT, int FMT>
-__device__ __forceinline__ void reduce_tile_body(float (&acc)[BT][kColsPerThread], int nb, int O,
+__device__ __forceinline__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O,
                                                  int col0, QmvSmem<BT, FMT>& sm, float* dst,
                                                  int stride) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, ct = tid % kColThreads;
@@ -469,25 +469,6 @@ __device__ __forceinline__ void reduce_tile_body(float (&acc)[BT][kColsPerThread
     }
   }
   __syncthreads();
-}
-
-// The functions below come twice: as calls (qmv_kernel, one launch a
-// matvec: the heads),
-// and inlined whole (INL) into the persistent decode stack, where a call's
-// register saves go to local memory and each reload is a cache round trip
-// on a chain of latencies.
-template <int BT, int FMT>
-__device__ void reduce_tile(float (&acc)[BT][kColsPerThread], int nb, int O, int col0,
-                            QmvSmem<BT, FMT>& sm, float* dst, int stride) {
-  reduce_tile_body<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
-}
-
-template <bool INL, int BT, int FMT>
-__device__ __forceinline__ void reduce_tile_sel(float (&acc)[BT][kColsPerThread], int nb, int O,
-                                                int col0, QmvSmem<BT, FMT>& sm, float* dst,
-                                                int stride) {
-  if constexpr (INL) reduce_tile_body<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
-  else reduce_tile<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
 }
 
 // Weight rows [k0, k1) of split s of S. In A8 with blocks smaller than K,
@@ -569,7 +550,7 @@ __device__ __forceinline__ void qmv_load_async(const QmvArgs& a, int tile, int s
 // weight loads first (qmv_load), or, with wsm, the weights already copied to
 // this thread's slots of wsm (qmv_load_async); then the activations, one
 // barrier, the FMAs. Matrix m's sums go to dst[m * mstride + bi * stride + c].
-template <bool INL, int BT, int FMT, class Src>
+template <int BT, int FMT, class Src>
 __device__ __forceinline__ void partial_short_body(const QmvArgs& a, const int4* wsm, int tile,
                                                    int b0, int nb, int s, int S,
                                                    QmvSmem<BT, FMT>& sm, float* dst,
@@ -669,21 +650,14 @@ __device__ __forceinline__ void partial_short_body(const QmvArgs& a, const int4*
       for (int u = 0; u < kUnroll; ++u)
         accumulate<BT, FMT>(acc, wv[m][u], &sm.xs[m * BT * G + ks + u * kKSlices], G, kGroupRows);
     }
-    reduce_tile_sel<INL, BT, FMT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
+    reduce_tile<BT, FMT>(acc, nb, a.O, col0, sm, dst + m * mstride, stride);
   }
-}
-
-template <int BT, int FMT, class Src>
-__device__ void partial_short(const QmvArgs& a, const int4* wsm, int tile, int b0, int nb,
-                              int s, int S, QmvSmem<BT, FMT>& sm, float* dst, size_t mstride,
-                              int stride, const Src& src) {
-  partial_short_body<false, BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride, src);
 }
 
 // One matrix over weight rows [k0, k1) of any length: activations staged in
 // chunks of kChunkK floats per batch row (CR weight rows), and the loads of
 // the next 128-row group issued before the FMAs of the current one.
-template <bool INL, int BT, int FMT, class Src>
+template <int BT, int FMT, class Src>
 __device__ __forceinline__ void partial_long_body(const Mat& mt, int m, int B, int O, int tile,
                                                   int b0, int nb, int k0, int k1,
                                                   QmvSmem<BT, FMT>& sm, float* dst, int stride,
@@ -776,15 +750,7 @@ __device__ __forceinline__ void partial_long_body(const Mat& mt, int m, int B, i
       for (int u = 0; u < kUnroll; ++u) wv[u] = nx[u];
     }
   }
-  reduce_tile_sel<INL, BT, FMT>(acc, nb, O, col0, sm, dst, stride);
-}
-
-template <int BT, int FMT, class Src>
-__device__ void partial_long(const Mat& mt, int m, int B, int O, int tile, int b0, int nb,
-                             int k0, int k1, QmvSmem<BT, FMT>& sm, float* dst, int stride,
-                             const Src& src) {
-  partial_long_body<false, BT, FMT>(mt, m, B, O, tile, b0, nb, k0, k1, sm, dst, stride, src,
-                                    nullptr, false);
+  reduce_tile<BT, FMT>(acc, nb, O, col0, sm, dst, stride);
 }
 
 // A8, short path: r = sum_j float(int_j) * s_j over the blocks in order, the
@@ -823,10 +789,11 @@ __device__ __forceinline__ bool a8_exact_long(const QmvArgs& a, int S) {
 // One block of a matvec: column tile `tile`, split s of S, shared memory sm.
 // On the short path the block's weights go to registers for each batch
 // group, or with wsm to shared memory by cp.async once, where `loaded` says
-// they already are (qmv_load_async before the call). The body of
-// qmv_kernel and of each matvec phase of the persistent decode stacks
-// (INL: everything inlined).
-template <int BT, int FMT, class Src = GlobalSrc, bool INL = false>
+// they already are (qmv_load_async before the call). The body of each
+// matvec phase of the persistent decode stacks, everything inlined (a
+// call's register saves would go to local memory, each reload a cache round
+// trip on a chain of latencies).
+template <int BT, int FMT, class Src = GlobalSrc>
 __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S,
                                         QmvSmem<BT, FMT>& sm, int4* wsm = nullptr,
                                         bool loaded = false, const Src& src = Src()) {
@@ -836,7 +803,7 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S
   const bool short_path = qmv_short<FMT>(a, S);
   // A8: the partials are unscaled integers, on the short path, and inlined
   // (the persistent stack) on a long one that a8_exact_long allows
-  const bool a8_raw = FMT == kA8 && (short_path || (INL && a8_exact_long<FMT>(a, S)));
+  const bool a8_raw = FMT == kA8 && (short_path || a8_exact_long<FMT>(a, S));
   const size_t sstride = (size_t)a.nmat * a.B * a.O;  // one split's partials
   if (wsm && !loaded) qmv_load_async<FMT>(a, tile, s, S, wsm);
 
@@ -844,21 +811,13 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S
   auto partials = [&](int b0, int nb, float* dst, size_t mstride, int stride) {
     src.prologue(b0, nb);
     if (short_path) {
-      if constexpr (INL)
-        partial_short_body<true, BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride,
-                                          src);
-      else
-        partial_short<BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride, src);
+      partial_short_body<BT, FMT>(a, wsm, tile, b0, nb, s, S, sm, dst, mstride, stride, src);
     } else {
       for (int m = 0; m < a.nmat; ++m) {
         int k0, k1;
         mat_split<FMT>(a.m[m], s, S, k0, k1);
-        if constexpr (INL)
-          partial_long_body<true, BT, FMT>(a.m[m], m, a.B, a.O, tile, b0, nb, k0, k1, sm,
-                                           dst + m * mstride, stride, src, wsm, a8_raw);
-        else
-          partial_long<BT, FMT>(a.m[m], m, a.B, a.O, tile, b0, nb, k0, k1, sm, dst + m * mstride,
-                                stride, src);
+        partial_long_body<BT, FMT>(a.m[m], m, a.B, a.O, tile, b0, nb, k0, k1, sm,
+                                   dst + m * mstride, stride, src, wsm, a8_raw);
       }
     }
   };
@@ -1060,49 +1019,6 @@ __device__ __forceinline__ void qmv_run(const QmvArgs& a, int tile, int s, int S
   }
   // the peer stores complete before the caller's barrier arrival releases them
   if (a.n_peer) __threadfence_system();
-}
-
-template <int BT, int FMT>
-__global__ void __launch_bounds__(kThreads) qmv_kernel(const QmvArgs a) {
-  __shared__ QmvSmem<BT, FMT> sm;
-  qmv_run<BT, FMT>(a, blockIdx.x, blockIdx.y, gridDim.y, sm);
-}
-
-// Split of the contraction dim: enough blocks to fill the card, and at least
-// enough splits that a block's share is one 128-row group (the short path),
-// within kMaxSplit and the partial scratch.
-inline int qmv_split(int tiles, int kmax, int nmat, int B, int O, long long partial_cap,
-                     int counter_cap, int target_blocks) {
-  if (tiles > counter_cap) return 1;
-  int S = (target_blocks + tiles - 1) / tiles;
-  if (S <= 1) return 1;
-  const int for_short = (kmax + kGroupRows - 1) / kGroupRows;
-  S = S > for_short ? S : for_short;
-  S = S < kMaxSplit ? S : kMaxSplit;
-  const int by_rows = kmax / kKSlices;
-  S = S < by_rows ? S : by_rows;
-  while (S > 1 && (long long)S * nmat * B * O > partial_cap) --S;
-  return S < 1 ? 1 : S;
-}
-
-// FMT kQ4: every matrix of `a` is nibble-packed (Mat::w [K / 2, O], Mat::half
-// set); kA8: every matrix has its amax parts and qblock set.
-template <int FMT>
-inline cudaError_t launch_qmv(const QmvArgs& a, long long partial_cap, int counter_cap,
-                              int target_blocks, cudaStream_t st) {
-  const int tiles = (a.O + kTileO - 1) / kTileO;
-  int kmax = 0;
-  for (int m = 0; m < a.nmat; ++m)
-    kmax = mat_rows<FMT>(a.m[m]) > kmax ? mat_rows<FMT>(a.m[m]) : kmax;
-  const int S = qmv_split(tiles, kmax, a.nmat, a.B, a.O, partial_cap, counter_cap, target_blocks);
-  const dim3 grid(tiles, S);
-  if (a.B <= 1)
-    qmv_kernel<1, FMT><<<grid, kThreads, 0, st>>>(a);
-  else if (a.B <= 2)
-    qmv_kernel<2, FMT><<<grid, kThreads, 0, st>>>(a);
-  else
-    qmv_kernel<4, FMT><<<grid, kThreads, 0, st>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace rwkv

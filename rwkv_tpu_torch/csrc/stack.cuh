@@ -429,13 +429,13 @@ __device__ __forceinline__ void stack_phases(P& p, int n, bool last_barrier, Gri
         int tile, s, S;
         const QmvArgs& q = p.item(it, tile, s, S);
         p.fold_item(it, r);
-        qmv_run<BT, FMT, Fold, true>(q, tile, s, S, sm, wsm, loaded && r == 0, p.src());
+        qmv_run<BT, FMT, Fold>(q, tile, s, S, sm, wsm, loaded && r == 0, p.src());
       }
     } else {
       for (int it = blockIdx.x, r = 0; it < items; it += G, ++r) {
         int tile, s, S;
         const QmvArgs& q = p.item(it, tile, s, S);
-        qmv_run<BT, FMT, GlobalSrc, true>(q, tile, s, S, sm, wsm, loaded && r == 0, GlobalSrc());
+        qmv_run<BT, FMT, GlobalSrc>(q, tile, s, S, sm, wsm, loaded && r == 0, GlobalSrc());
       }
     }
     loaded = false;

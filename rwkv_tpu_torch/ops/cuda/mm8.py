@@ -1,21 +1,26 @@
-"""Int8-weight matvecs: kernel K2, and the W8A8 head of kernel K5
+"""Int8-weight heads: kernel K2, and the W8A8 head of kernel K5
 (counterpart of rwkv_tpu/ops/pallas/mm8.py).
 
-`mm8(xs, w)` computes xs [B, K] f32 @ w [K, O] int8 -> [B, O] f32, the
-weight widened in registers (csrc/mm8.cu, which replaces the Pallas
-`mm8` / `_mm8_kernel_f32`). As in the JAX package, xs arrives already scaled
-by the per-row scale and the caller adds the rank-1 offset term; `row_add`
-and `col_add` let the kernel add it, and a logit bias, in its epilogue.
-
-Bound on the card: K * O weight bytes over device memory bandwidth (the
-decode head, 1024 x 50688, is 52 MB: ~16 us at 3.35 TB/s). csrc/qmv.cuh says
-what the design does about it.
+`mm8(xs, w)` computes xs [B, K] f32 @ w [K, O] int8 -> [B, O] f32
+(csrc/mm8.cu, which replaces the Pallas `mm8` / `_mm8_kernel_f32`). As in
+the JAX package, xs arrives already scaled by the per-row scale and the
+caller adds the rank-1 offset term; `row_add` and `col_add` let the kernel
+add it, and a logit bias, in its epilogue.
 
 `mm8_a8(xs, w)` is the W8A8 product (csrc/mm8_a8.cu, which replaces the
 Pallas `mm8_a8` / `_mm8_a8_kernel`): each row of xs is quantized to int8
 codes with its own scale, sx = max|row| / 127 (floored at 1e-30), codes =
 clip(round-half-even(xs / sx), -127, 127); then codes x w in exact integer
-sums, times sx. Its bound is the same weight bytes as mm8's.
+sums, times sx.
+
+Both kernels stream the weight through a TMA ring in shared memory once for
+up to 16 batch rows and multiply on the tensor cores (wgmma, csrc/
+int8_head.cuh): K2 widens each byte to an exact bf16 integer and splits each
+activation into three bf16 pieces whose sum is the f32 value, so the only
+rounding is the f32 accumulation; K5's head multiplies the codes s8 x s8 ->
+s32, exactly, and rounds as `mm8_a8_plain` does, to the same bits. Bound on
+the card: K * O weight bytes over device memory bandwidth (the decode head,
+1024 x 50688, is 52 MB: ~15.5 us at 3.35 TB/s).
 
 On CPU tensors each wrapper runs its plain PyTorch version (`mm8_plain`,
 `mm8_a8_plain`); on CUDA tensors it launches the kernel or raises.
@@ -45,9 +50,10 @@ def _kernel_a8():
     global _lib_a8
     if _lib_a8 is None:
         lib = _build.load("mm8_a8")
-        lib.rwkv_mm8_a8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                                    ctypes.c_longlong, _P, _I, _I, _P]
+        lib.rwkv_mm8_a8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.rwkv_mm8_a8.restype = _I
+        lib.rwkv_mm8_a8_plan.argtypes = [_I, _I, _I, _I] + [ctypes.POINTER(_I)] * 4
+        lib.rwkv_mm8_a8_plan.restype = None
         _lib_a8 = lib
     return _lib_a8
 
@@ -56,9 +62,10 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("mm8")
-        lib.rwkv_mm8.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P, ctypes.c_longlong,
-                                 _P, _I, _I, _P]
+        lib.rwkv_mm8.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.rwkv_mm8.restype = _I
+        lib.rwkv_mm8_plan.argtypes = [_I, _I, _I, _I] + [ctypes.POINTER(_I)] * 4
+        lib.rwkv_mm8_plan.restype = None
         _lib = lib
     return _lib
 
@@ -160,13 +167,11 @@ def mm8(xs: torch.Tensor, w: torch.Tensor, *, row_add: torch.Tensor | None = Non
     out = torch.empty((B, O), dtype=torch.float32, device=dev)
     if B == 0 or O == 0:
         return out
-    partial, counters, target = _build.split_scratch(dev, "mm8")
     lib = _kernel()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.rwkv_mm8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add), B, K, O,
-                           ptr(partial), partial.numel(), ptr(counters), counters.numel(),
-                           target, torch.cuda.current_stream(dev).cuda_stream)
+                           torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mm8")
     launches += 1
     return out
@@ -180,7 +185,7 @@ def mm8_a8(xs: torch.Tensor, w: torch.Tensor, *, row_add: torch.Tensor | None = 
     (+ col_add [O]).
 
     amax: [B] max|xs| per row, where the caller has it (the decode stack's
-    ln_out kernel writes it); else the wrapper's first launch computes it.
+    ln_out kernel writes it); else the kernel finds it.
     return_codes: also return the int8 codes [B, K] the kernel computed and
     the row scales [B], for holding them against quant_rows."""
     if xs.device.type == "cpu" and w.device.type == "cpu":
@@ -207,19 +212,35 @@ def mm8_a8(xs: torch.Tensor, w: torch.Tensor, *, row_add: torch.Tensor | None = 
     row_max = amax if amax is not None else torch.empty((B,), dtype=torch.float32, device=dev)
     codes = torch.empty((B, K), dtype=torch.int8, device=dev) if return_codes else None
     if B and O:
-        partial, counters, target = _build.split_scratch(dev, "mm8_a8")
         lib = _kernel_a8()
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(dev):
             err = lib.rwkv_mm8_a8(ptr(xs), ptr(w), ptr(out), ptr(row_add), ptr(col_add),
-                                  ptr(amax), ptr(row_max), ptr(codes), B, K, O, ptr(partial),
-                                  partial.numel(), ptr(counters), counters.numel(), target,
+                                  ptr(amax), ptr(row_max), ptr(codes), B, K, O,
                                   torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, "mm8_a8")
         launches_a8 += 1
     if return_codes:
         return out, codes, _row_scale(row_max)
     return out
+
+
+def _plan(fn, B: int, K: int, O: int, sms: int) -> dict:
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn(B, K, O, sms, *(ctypes.byref(v) for v in vals))
+    return dict(zip(("mt", "nt", "slabs", "chunk_rows"), (v.value for v in vals)))
+
+
+def plan(B: int, K: int, O: int, sms: int) -> dict:
+    """How K2 cuts a call on a card of `sms` SMs: boxes of 128 columns a
+    slab (mt), n-tiles of 8 (nt: three columns a batch row, 16 rows a pass),
+    slabs, and the weight rows of one staging of the pieces (chunk_rows)."""
+    return _plan(_kernel().rwkv_mm8_plan, B, K, O, sms)
+
+
+def plan_a8(B: int, K: int, O: int, sms: int) -> dict:
+    """How K5's head cuts a call: as `plan`, one column a batch row."""
+    return _plan(_kernel_a8().rwkv_mm8_a8_plan, B, K, O, sms)
 
 
 def qmatmul_cuda(x: torch.Tensor, q: QuantLinear) -> torch.Tensor:

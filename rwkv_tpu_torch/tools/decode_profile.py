@@ -25,8 +25,8 @@ shard and layer, the head on K2), it measures:
     clock after each grid barrier), summed over the layers: ln1+mix with
     k/v/r + WKV, output, ln2+mix with key, value+gate, and ln_out; beside
     it the head kernel's time from the profiler (K2 and K5's heads run
-    qmv_kernel, K3 mm4_kernel, and K3 before its redesign qmv_kernel: a
-    parent checkout is profiled alike);
+    int8_head_kernel, qmv_kernel before their redesign; K3 mm4_kernel,
+    qmv_kernel before its: a parent checkout is profiled alike);
   * with --tp and the fused body, device ms per step by phase of K7's one
     launch (csrc/decode_stack_tp.cu), from its stamps likewise, summed over
     the layers: the ffn exchange + ln1+mix with every shard's k/v/r + WKV,
@@ -84,7 +84,7 @@ from functools import partial
 
 
 PHASES = ("ln1+mix+k/v/r+wkv", "output", "ln2+mix+key", "value+gate")  # per layer
-HEAD_KERNELS = ("qmv_kernel", "mm4_kernel")  # the head's kernel names in the profiler
+HEAD_KERNELS = ("qmv_kernel", "mm4_kernel", "int8_head_kernel")  # the head's kernel names in the profiler
 HALVES_LAUNCHES = ("a1: ln1+mix+k/v/r+wkv", "a2: output partial", "f1: ln2+mix+key+gate",
                    "f2: value partial")  # K6's launches per layer and shard
 FUSED_PHASES = ("ffn exchange+ln1+mix+k/v/r+wkv", "output partial",

@@ -1,8 +1,11 @@
 """Times of the decode heads, kernels K2 (mm8), K3 (mm4) and K5's head
 (mm8_a8), on one GPU at the RWKV-4 430M head shape: [B, 1024] x [1024, 50688].
 
-    python -m rwkv_tpu_torch.tools.head_time [--heads mm4 mm8 mm8_a8]
+    python -m rwkv_tpu_torch.tools.head_time [--heads mm4 mm8 mm8_a8 mm8_a8_amax]
                                              [--batch 1 8 16] [--reps 15] [--seed 0]
+
+mm8_a8_amax is K5's head given the row maxima, as the a8 decode step calls
+it (the decode stack's ln_out kernel writes them); mm8_a8 finds its own.
 
 For each head and batch size, with random weights from a numpy seed, the
 median of `reps` replays of one CUDA graph of many calls, CUDA events around
@@ -44,7 +47,7 @@ def cold_median_ms(fn, operands, calls: int, reps: int) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--heads", nargs="+", default=["mm4", "mm8", "mm8_a8"],
-                    choices=["mm4", "mm8", "mm8_a8"])
+                    choices=["mm4", "mm8", "mm8_a8", "mm8_a8_amax"])
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8, 16])
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--seed", type=int, default=0)
@@ -65,9 +68,10 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     K, O = 1024, 50688
-    heads = {"mm4": (lambda xs, w: mm4_mod.mm4(xs, w), (K // 2, O)),
-             "mm8": (lambda xs, w: mm8_mod.mm8(xs, w), (K, O)),
-             "mm8_a8": (lambda xs, w: mm8_mod.mm8_a8(xs, w), (K, O))}
+    heads = {"mm4": (lambda xs, w, amax: mm4_mod.mm4(xs, w), (K // 2, O)),
+             "mm8": (lambda xs, w, amax: mm8_mod.mm8(xs, w), (K, O)),
+             "mm8_a8": (lambda xs, w, amax: mm8_mod.mm8_a8(xs, w), (K, O)),
+             "mm8_a8_amax": (lambda xs, w, amax: mm8_mod.mm8_a8(xs, w, amax=amax), (K, O))}
     for name in args.heads:
         fn, shape = heads[name]
         n = max(4, -(-int(COLD_BYTES) // (shape[0] * shape[1])))
@@ -75,9 +79,11 @@ def main() -> None:
                   for _ in range(n)]
         for B in args.batch:
             xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 1000).to(dev)
+            amax = xs.abs().amax(dim=1)
             out = {"tree": rwkv_tpu_torch.__file__, "head": name, "batch": B,
-                   "warm_ms": graph_median_ms(lambda: fn(xs, copies[0]), 50, args.reps),
-                   "cold_ms": cold_median_ms(lambda w: fn(xs, w), copies, 12 * n, args.reps),
+                   "warm_ms": graph_median_ms(lambda: fn(xs, copies[0], amax), 50, args.reps),
+                   "cold_ms": cold_median_ms(lambda w: fn(xs, w, amax), copies, 12 * n,
+                                             args.reps),
                    "copies": n, "card": card}
             print(json.dumps(out), flush=True)
         del copies

@@ -1,19 +1,12 @@
-"""Time the int8 matvec of csrc/qmv.cuh alone, through the mm8 entry point,
-at the layer shapes of a decode step, for several contraction splits; and,
-with --barrier, the grid barrier of the persistent decode stack.
+"""Time the grid barrier of the persistent decode stack (csrc/grid.cuh).
 
-    python -m rwkv_tpu_torch.tools.qmv_probe [--batch 1] [--iters 200] [--barrier]
+    python -m rwkv_tpu_torch.tools.qmv_probe [--batch 1] [--iters 200]
 
-For each shape [B, K] x [K, O] and each target block count (which sets the
-split S of the contraction across blocks, csrc/qmv.cuh:qmv_split), prints
-the kernel's device us per launch and the GB/s of weight bytes.
-
---barrier instead launches a cooperative kernel at the grid the decode stack
-uses at this batch and 430M width (csrc/decode_stack.cu: the occupancy API's
-blocks per SM times the SMs) that runs N grid barriers (csrc/grid.cuh) and
-nothing else, for N in 0, 1, 97 and 1000, and prints us per launch and
-us per barrier ((t(N) - t(0)) / N), beside a near-empty matvec launch
-([B, 32] x [32, 16]).
+Launches a cooperative kernel at the grid the decode stack uses at this
+batch and 430M width (csrc/decode_stack.cu: the occupancy API's blocks per
+SM times the SMs) that runs N grid barriers and nothing else, for N in 0, 1,
+97 and 1000, and prints us per launch and us per barrier ((t(N) - t(0)) /
+N), beside a near-empty int8 head launch ([B, 32] x [32, 16], K2).
 
 The launches are captured once in a CUDA graph and replayed, so the host's
 cost per launch (several us through Python and ctypes) does not hide the
@@ -31,13 +24,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--iters", type=int, default=200)
-    ap.add_argument("--barrier", action="store_true",
-                    help="time the decode stack's grid barrier instead")
     args = ap.parse_args()
 
     import torch
 
-    from rwkv_tpu_torch.ops.cuda import _build
     from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
     from rwkv_tpu_torch.ops.cuda import mm8 as mm8_mod
 
@@ -46,8 +36,6 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    lib = mm8_mod._kernel()
-    partial, counters, _ = _build.split_scratch(dev, "qmv_probe")
     g = torch.Generator(device=dev).manual_seed(0)
     B = args.batch
 
@@ -69,45 +57,19 @@ def main() -> None:
         b.synchronize()
         return a.elapsed_time(b) * 1e3 / args.iters
 
-    def mm8_launch(xs, w, out, K, O, target):
-        def launch():
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.rwkv_mm8(xs.data_ptr(), w.data_ptr(), out.data_ptr(), None, None, B, K, O,
-                               partial.data_ptr(), partial.numel(), counters.data_ptr(),
-                               counters.numel(), target, stream)
-            _build.check(lib, err, "qmv_probe")
-        return launch
-
-    def operands(K, O):
-        xs = torch.randn((B, K), generator=g, device=dev)
-        w = torch.randint(-128, 128, (K, O), generator=g, device=dev, dtype=torch.int8)
-        return xs, w, torch.empty((B, O), device=dev)
-
-    if args.barrier:
-        word = torch.zeros(64, dtype=torch.int32, device=dev)
-        xs, w, out = operands(32, 16)
-        row = {"B": B, "empty_matvec_us": round(graph_us(mm8_launch(xs, w, out, 32, 16, 1)), 3),
-               "card": card}
-        for fmt, kw in (("q8", {}), ("q4", {"q4": True}), ("a8", {"a8": True})):
-            grid = ds_mod.stack_grid(B, 1024, **kw)
-            us = {n: graph_us(lambda n=n: ds_mod.barrier_probe(grid, n, word))
-                  for n in (0, 1, 97, 1000)}
-            row[fmt] = {"grid": grid, **{f"launch_us_n{n}": round(t, 3) for n, t in us.items()},
-                        "us_per_barrier": round((us[1000] - us[0]) / 1000, 4),
-                        "us_per_barrier_n97": round((us[97] - us[0]) / 97, 4)}
-        print(json.dumps(row))
-        return
-
-    for K, O in ((32, 16), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 50688)):
-        xs, w, out = operands(K, O)
-        row = {"B": B, "K": K, "O": O, "card": card}
-        for target in (1, 66, 132, 264, 528, 1056):
-            us = graph_us(mm8_launch(xs, w, out, K, O, target))
-            ref = xs.double() @ w.double()
-            ok = float((out.double() - ref).abs().max() / ref.abs().max()) < 1e-5
-            row[f"target{target}"] = {"us": round(us, 3), "GBps": round(K * O / us / 1e3, 1),
-                                      "ok": ok}
-        print(json.dumps(row))
+    word = torch.zeros(64, dtype=torch.int32, device=dev)
+    xs = torch.randn((B, 32), generator=g, device=dev)
+    w = torch.randint(-128, 128, (32, 16), generator=g, device=dev, dtype=torch.int8)
+    row = {"B": B, "empty_matvec_us": round(graph_us(lambda: mm8_mod.mm8(xs, w)), 3),
+           "card": card}
+    for fmt, kw in (("q8", {}), ("q4", {"q4": True}), ("a8", {"a8": True})):
+        grid = ds_mod.stack_grid(B, 1024, **kw)
+        us = {n: graph_us(lambda n=n: ds_mod.barrier_probe(grid, n, word))
+              for n in (0, 1, 97, 1000)}
+        row[fmt] = {"grid": grid, **{f"launch_us_n{n}": round(t, 3) for n, t in us.items()},
+                    "us_per_barrier": round((us[1000] - us[0]) / 1000, 4),
+                    "us_per_barrier_n97": round((us[97] - us[0]) / 97, 4)}
+    print(json.dumps(row))
 
 
 if __name__ == "__main__":

@@ -45,8 +45,17 @@ def _scaled(a, b):
     return float((a.double() - b.double()).abs().max() / max(1.0, float(b.abs().max())))
 
 
-@pytest.mark.parametrize("B,K,O", [(1, 64, 16), (3, 1000, 144), (8, 1536, 1040),
-                                   (11, 4096, 256), (2, 1024, 50688)])
+# The int8 heads' shapes: odd ones, the 430M head (K = 1024) at the pool's
+# batch sizes and past a pass of 16 rows, 14B's head at tp = 1 (K = 5120: the
+# staged activations chunked) and its per-card half at tp = 4 (O = 12672:
+# 99 column boxes for the card's SMs), K = 2048 with ragged columns.
+HEAD_SHAPES = [(1, 64, 16), (3, 1000, 144), (8, 1536, 1040), (11, 4096, 256),
+               (1, 1024, 50688), (2, 1024, 50688), (8, 1024, 50688), (16, 1024, 50688),
+               (17, 1024, 50688), (24, 1024, 50688), (1, 5120, 50688), (16, 5120, 50688),
+               (1, 5120, 12672), (8, 5120, 12672), (16, 2048, 1040), (5, 2048, 272)]
+
+
+@pytest.mark.parametrize("B,K,O", HEAD_SHAPES)
 def test_mm8_matches_plain(dev, B, K, O):
     rng = np.random.default_rng(B * 7 + K)
     xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 100).to(dev)
@@ -58,7 +67,7 @@ def test_mm8_matches_plain(dev, B, K, O):
     ref = mm8_mod.mm8_plain(xs, w, row_add=row, col_add=col)
     assert mm8_mod.launches == before + 1
     assert _scaled(got, ref) <= 1e-5
-    # deterministic: the split-K partials are summed in a fixed order
+    # deterministic: each output summed in one order, no split of K
     assert torch.equal(mm8_mod.mm8(xs, w, row_add=row, col_add=col), got)
 
 
@@ -222,10 +231,9 @@ def test_forward_step_fused_q4_runs_k4_and_k3(dev, small_q4):
 
 # W8A8 (kernel K5). A code is clip(round-half-even(v / s), -127, 127); the
 # kernel and the plain version divide the same f32 numbers, so their codes
-# are equal, and the products differ only in the f32 rounding of the
-# per-group sums (<= 1e-6 scaled).
-@pytest.mark.parametrize("B,K,O", [(1, 64, 16), (3, 1000, 144), (8, 1536, 1040),
-                                   (16, 4096, 272), (2, 1024, 50688)])
+# are equal; the integer sums are exact and both round them to f32, scale
+# and add in one order: the head is the plain version bit for bit.
+@pytest.mark.parametrize("B,K,O", HEAD_SHAPES + [(16, 4096, 272)])
 def test_mm8_a8_matches_plain(dev, B, K, O):
     rng = np.random.default_rng(B * 11 + K)
     xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 100).to(dev)
@@ -241,10 +249,66 @@ def test_mm8_a8_matches_plain(dev, B, K, O):
     q, s = mm8_mod.quant_rows(xs)
     assert torch.equal(codes, q) and torch.equal(scale, s)
     ref = mm8_mod.mm8_a8_plain(xs, w, row_add=row, col_add=col)
-    assert _scaled(got, ref) <= 1e-6
-    # the row maxima from the caller give the same result
+    assert torch.equal(got, ref)
+    # the row maxima from the caller give the same result, and so does a second call
     again = mm8_mod.mm8_a8(xs, w, row_add=row, col_add=col, amax=xs.abs().amax(dim=1))
     assert torch.equal(again, got)
+    assert torch.equal(mm8_mod.mm8_a8(xs, w, row_add=row, col_add=col), got)
+
+
+def _head_operands(dev, B, K, O, seed):
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32) / 100).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(K, O), dtype=np.int8)).to(dev)
+    col = torch.from_numpy(rng.normal(size=(O,)).astype(np.float32)).to(dev)
+    return xs, w, col
+
+
+def test_int8_heads_launch_after_a_refused_one(dev):
+    """A call the library refuses (a weight pointer off the TMA's 16-byte
+    alignment, which the wrappers reject before the call) leaves no error
+    behind: the next launch of each head runs, counts, and matches its
+    plain version."""
+    xs, w, col = _head_operands(dev, 3, 1024, 272, 31)
+    buf = torch.zeros(1024 * 272 + 16, dtype=torch.int8, device=dev)
+    out = torch.empty((3, 272), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib8, lib_a8 = mm8_mod._kernel(), mm8_mod._kernel_a8()
+    err = lib8.rwkv_mm8(xs.data_ptr(), buf.data_ptr() + 1, out.data_ptr(), None, None, 3, 1024,
+                        272, stream)
+    assert err != 0
+    err = lib_a8.rwkv_mm8_a8(xs.data_ptr(), buf.data_ptr() + 1, out.data_ptr(), None, None,
+                             None, None, None, 3, 1024, 272, stream)
+    assert err != 0
+    before = (mm8_mod.launches, mm8_mod.launches_a8)
+    got8 = mm8_mod.mm8(xs, w, col_add=col)
+    got_a8 = mm8_mod.mm8_a8(xs, w, col_add=col)
+    assert (mm8_mod.launches, mm8_mod.launches_a8) == (before[0] + 1, before[1] + 1)
+    assert _scaled(got8, mm8_mod.mm8_plain(xs, w, col_add=col)) <= 1e-5
+    assert torch.equal(got_a8, mm8_mod.mm8_a8_plain(xs, w, col_add=col))
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_int8_heads_in_a_cuda_graph(dev, B):
+    """Both heads captured in one CUDA graph: a replay gives the eager bits,
+    and a replay after the inputs change gives the new inputs' bits."""
+    xs, w, col = _head_operands(dev, B, 1024, 50688, 40 + B)
+    amax = xs.abs().amax(dim=1)
+    run = lambda: (mm8_mod.mm8(xs, w, col_add=col), mm8_mod.mm8_a8(xs, w, col_add=col),  # noqa: E731
+                   mm8_mod.mm8_a8(xs, w, col_add=col, amax=amax))
+    run()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = run()
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        want = run()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+        xs.mul_(-1.5)
+        amax.copy_(xs.abs().amax(dim=1))
 
 
 def _a8_params(E, seed):
@@ -1372,6 +1436,32 @@ def test_wrappers_launch_on_their_tensors_card_across_cards(cards):
     ran = {e.device_index for e in prof.events()
            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
            and "rwkv::" in e.name}
+    assert ran == {one.index}
+    for a, b in zip(got, want):
+        assert a.device == one and torch.equal(a.to(cards[0]), b)
+
+
+def test_int8_heads_launch_on_their_tensors_card(cards):
+    """K2 and K5's head given tensors on card 1 while card 0 is current
+    launch on card 1 (fault 7's pin), and give card 0's bits there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one = cards[1]
+    host = _head_operands(torch.device("cpu"), 8, 1024, 50688, 77)
+
+    def run(d):
+        xs, w, col = (t.to(d) for t in host)
+        return (mm8_mod.mm8(xs, w, col_add=col), *mm8_mod.mm8_a8(xs, w, col_add=col,
+                                                                  return_codes=True))
+
+    torch.cuda.set_device(cards[0])
+    want = run(cards[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run(one)
+        torch.cuda.synchronize(one)
+    ran = {e.device_index for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+           and "int8_head_kernel" in e.name}
     assert ran == {one.index}
     for a, b in zip(got, want):
         assert a.device == one and torch.equal(a.to(cards[0]), b)
