@@ -1,0 +1,6 @@
+"""prefill_pad_pct in the cells whose rate the host sets: the same reading, moving
+their own end-to-end metric (BENCHMARK.json)."""
+
+from benchmark import spec
+
+read = spec.layer_reader("prefill_pad_pct")

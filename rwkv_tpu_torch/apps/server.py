@@ -16,6 +16,30 @@ Stdlib-only. Endpoints:
   GET  /health     -> {"status": "ok", "model": {...}}
   GET  /metrics    -> {"counters": {...}, "timings": {...}, "pool": {...}?}
                    (process metrics registry + live pool occupancy)
+                   timings, each {count, total, max over every span; p50,
+                   p90 over the last 4,096}, in seconds of host time:
+                     pool.submit.encode   tokenizing a prompt (submit)
+                     pool.admit           one admission burst, whole
+                     pool.admit.pack      a prefill chunk's tokens packed
+                                          and copied to the device
+                     pool.admit.prefill   a chunk's prefill launches issued
+                     pool.admit.sample    states scattered, first tokens
+                                          drawn
+                     pool.admit.read      waiting for the burst's first ids
+                     pool.admit.emit      the first tokens' bookkeeping
+                     pool.decode.prep     a decode chunk's inputs built
+                     pool.decode.replay   its graph launched
+                     pool.decode.read     waiting for its ids
+                     pool.decode.emit     its tokens' bookkeeping (detokenize,
+                                          stop scan, finish)
+                   counters: pool.steps, pool.tokens_decoded,
+                   pool.requests_completed, pool.submit.tokens (prompt ids),
+                   pool.admit.requests, pool.prefill.chunks,
+                   pool.prefill.tokens (prompt tokens prefilled) and
+                   pool.prefill.lane_tokens (token lanes computed, padding
+                   included), graphs.captures (CUDA graphs captured: one a
+                   program and shape; a rise while serving is a rebuild),
+                   engine.* (the engine's)
 
 Each /complete runs on a fresh state (stateless API).
 

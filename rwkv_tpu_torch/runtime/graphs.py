@@ -28,7 +28,9 @@ Launch counts: the kernels' Python-side launch counters (COUNTERS) and the
 mesh's collective counts rise while fn is captured, though nothing ran;
 they are put back, and each replay adds what the capture added. Inside
 another graph's capture a call enqueues fn eagerly into that capture, so
-the outer graph's replays count its launches once.
+the outer graph's replays count its launches once. Every capture adds 1 to
+the metrics registry's counter graphs.captures (utils/metrics.py): a capture
+after the warm-up is a program built again.
 
 Memory: every graph of the port allocates from one memory pool
 (torch.cuda.graph_pool_handle()). A graph's temporaries may then lie where
@@ -90,6 +92,7 @@ from rwkv_tpu_torch.ops.cuda import decode_stack_tp as _k7
 from rwkv_tpu_torch.ops.cuda import mm4 as _mm4
 from rwkv_tpu_torch.ops.cuda import mm8 as _mm8
 from rwkv_tpu_torch.ops.cuda import tp_halves as _th
+from rwkv_tpu_torch.utils.metrics import metrics
 
 # every kernel wrapper's launch counter: K1, K4, K5's stack; K7 q8 and q4;
 # K2, K5's head; K3; K6's two halves
@@ -249,6 +252,7 @@ class _Captured:
             self.delta = [a - b for a, b in zip(counts(mesh), before)]
         finally:
             set_counts(before, mesh)  # the capture ran nothing
+        metrics.inc("graphs.captures")
 
     def replay(self, args: tuple):
         for s, a in zip(_leaves(self.inputs), _leaves(args)):

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from functools import partial
 from typing import Callable, Optional, Sequence
 
@@ -82,6 +83,10 @@ class Request:
     # (utils/text.py): O(len(piece)) per token, and the earliest match's
     # index for exact truncation
     scanner: Optional[StopScanner] = None
+    # time.perf_counter() when the request joined the queue, and when its
+    # admission began (queue wait = t_admit - t_submit)
+    t_submit: float = 0.0
+    t_admit: Optional[float] = None
 
     def saw_stop(self, piece: str) -> bool:
         return self.scanner.feed(piece) if self.scanner else False
@@ -233,9 +238,12 @@ class InferencePool:
     ) -> int:
         rid = self._next_rid
         self._next_rid += 1
+        with metrics.timed("pool.submit.encode"):
+            ids = self.tok.encode(prompt) or [0]
+        metrics.inc("pool.submit.tokens", len(ids))
         req = Request(
             rid=rid,
-            prompt_ids=self.tok.encode(prompt) or [0],
+            prompt_ids=ids,
             max_tokens=max_tokens,
             temp=temp,
             tau=tau,
@@ -245,6 +253,7 @@ class InferencePool:
             ban_tokens=tuple(ban_tokens),
         )
         req.scanner = StopScanner(stop) if stop else None
+        req.t_submit = time.perf_counter()
         self._queue.append(req)
         return rid
 
@@ -277,42 +286,46 @@ class InferencePool:
         n = min(len(self._queue), len(self._free))
         if n == 0:
             return []
-        reqs = [self._queue.pop(0) for _ in range(n)]
-        slots = [self._free.pop(0) for _ in range(n)]
-        try:
-            return self._admit_batch(reqs, slots)
-        except BaseException:
-            # A failed admission must not leak capacity, and some of the burst
-            # may already be finished (a first-token completion freed its
-            # slot) or registered. Done requests keep their result (in the
-            # backlog); the others are de-registered, their slot freed once,
-            # and requeued with their runtime state reset (a retry prefills
-            # from scratch; a piece already streamed through on_text may
-            # repeat).
-            requeue = []
-            for req, slot in zip(reqs, slots):
-                if req.done:
-                    self._finished_backlog.append(req)
-                    continue
-                if self._by_slot.get(slot) is req:
-                    del self._by_slot[slot]
-                self._active[slot] = False
-                if slot not in self._free:
-                    self._free.append(slot)
-                req.slot = -1
-                req.produced = 0
-                req.decoder = None
-                req.pieces = []
-                req.scanner = StopScanner(req.stop) if req.stop else None
-                requeue.append(req)
-            self._queue[:0] = requeue
-            raise
+        with metrics.timed("pool.admit"):
+            reqs = [self._queue.pop(0) for _ in range(n)]
+            slots = [self._free.pop(0) for _ in range(n)]
+            try:
+                return self._admit_batch(reqs, slots)
+            except BaseException:
+                # A failed admission must not leak capacity, and some of the burst
+                # may already be finished (a first-token completion freed its
+                # slot) or registered. Done requests keep their result (in the
+                # backlog); the others are de-registered, their slot freed once,
+                # and requeued with their runtime state reset (a retry prefills
+                # from scratch; a piece already streamed through on_text may
+                # repeat).
+                requeue = []
+                for req, slot in zip(reqs, slots):
+                    if req.done:
+                        self._finished_backlog.append(req)
+                        continue
+                    if self._by_slot.get(slot) is req:
+                        del self._by_slot[slot]
+                    self._active[slot] = False
+                    if slot not in self._free:
+                        self._free.append(slot)
+                    req.slot = -1
+                    req.produced = 0
+                    req.decoder = None
+                    req.pieces = []
+                    req.scanner = StopScanner(req.stop) if req.stop else None
+                    requeue.append(req)
+                self._queue[:0] = requeue
+                raise
 
     def _admit_batch(self, reqs, slots):
         """Returns the requests that finished on their first (admission) token."""
         done_at_admit: list[Request] = []
         n = len(reqs)
+        t_admit = time.perf_counter()
+        metrics.inc("pool.admit.requests", n)
         for req, slot in zip(reqs, slots):
+            req.t_admit = t_admit
             req.slot = slot
             req.decoder = StreamDecoder(self.tok)
 
@@ -324,59 +337,68 @@ class InferencePool:
         batch_state = self._new_state(W)
         chunk_lg: list = [None] * n   # the last logits of each stream
         for c0 in range(0, maxlen, K):
-            chunk = torch.zeros((K, W), dtype=torch.int64)
-            lens = torch.zeros((W,), dtype=torch.int64)
-            for b, seq in enumerate(ids):
-                part = seq[c0:c0 + K]
-                chunk[: len(part), b] = torch.tensor(part, dtype=torch.int64)
-                lens[b] = len(part)
-            # full chunk: when every real lane holds K valid tokens, run the
-            # unmasked prefill (length None); the width-pad lanes (b >= n)
-            # then compute values that are never scattered
-            full = all(len(seq) >= c0 + K for seq in ids)
-            lg, batch_state = self._prefill(
-                self.params, chunk.to(self.device),
-                None if full else lens.to(self.device), batch_state)
+            with metrics.timed("pool.admit.pack"):
+                chunk = torch.zeros((K, W), dtype=torch.int64)
+                lens = torch.zeros((W,), dtype=torch.int64)
+                for b, seq in enumerate(ids):
+                    part = seq[c0:c0 + K]
+                    chunk[: len(part), b] = torch.tensor(part, dtype=torch.int64)
+                    lens[b] = len(part)
+                # full chunk: when every real lane holds K valid tokens, run
+                # the unmasked prefill (length None); the width-pad lanes
+                # (b >= n) then compute values that are never scattered
+                full = all(len(seq) >= c0 + K for seq in ids)
+                # a copy from pageable host memory waits for the stream
+                chunk_d = chunk.to(self.device)
+                lens_d = None if full else lens.to(self.device)
+            metrics.inc("pool.prefill.tokens", int(lens.sum()))
+            metrics.inc("pool.prefill.lane_tokens", K * W)
+            metrics.inc("pool.prefill.chunks")
+            with metrics.timed("pool.admit.prefill"):
+                lg, batch_state = self._prefill(self.params, chunk_d, lens_d, batch_state)
             # only the last chunk with valid tokens holds a stream's logits
             for b in range(n):
                 if lens[b] > 0:
                     chunk_lg[b] = lg[b]
 
-        # scatter the prefilled states into the pool's slots
-        slot_idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
-        if isinstance(self._state, ShardedState):
-            self._state.put(slots, batch_state.take(range(n)))
-        else:
-            for pool, s in zip(self._state, batch_state):
-                pool.index_copy_(1, slot_idx, s[:, :n])
+        with metrics.timed("pool.admit.sample"):
+            # scatter the prefilled states into the pool's slots
+            slot_idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
+            if isinstance(self._state, ShardedState):
+                self._state.put(slots, batch_state.take(range(n)))
+            else:
+                for pool, s in zip(self._state, batch_state):
+                    pool.index_copy_(1, slot_idx, s[:, :n])
 
-        # the first tokens of the whole burst in one sampling call
-        V = self.cfg.vocab_size
-        rows = torch.zeros((n, V), dtype=torch.bool)
-        for b, req in enumerate(reqs):
-            rows[b, list(req.ban_tokens)] = True
-        rows = rows.to(self.device)
-        gens = [self._gens[slot] for slot in slots]
-        for g, req in zip(gens, reqs):
-            g.manual_seed(int(req.seed) & 0xFFFFFFFFFFFFFFFF)
-        temps = torch.tensor([req.temp for req in reqs], dtype=torch.float64)
-        taus = torch.tensor([req.tau for req in reqs], dtype=torch.float32)
-        firsts = self._admit_sample(torch.stack(chunk_lg), gens, temps, taus, rows)
-        firsts = firsts.tolist()  # the burst's one host read
+            # the first tokens of the whole burst in one sampling call
+            V = self.cfg.vocab_size
+            rows = torch.zeros((n, V), dtype=torch.bool)
+            for b, req in enumerate(reqs):
+                rows[b, list(req.ban_tokens)] = True
+            rows = rows.to(self.device)
+            gens = [self._gens[slot] for slot in slots]
+            for g, req in zip(gens, reqs):
+                g.manual_seed(int(req.seed) & 0xFFFFFFFFFFFFFFFF)
+            temps = torch.tensor([req.temp for req in reqs], dtype=torch.float64)
+            taus = torch.tensor([req.tau for req in reqs], dtype=torch.float32)
+            firsts = self._admit_sample(torch.stack(chunk_lg), gens, temps, taus, rows)
+            self._ban[slot_idx] = rows
+        with metrics.timed("pool.admit.read"):
+            firsts = firsts.tolist()  # the burst's one host read
 
-        self._ban[slot_idx] = rows
-        for b, (req, slot) in enumerate(zip(reqs, slots)):
-            first = int(firsts[b])
-            self._tokens[slot] = first
-            self._temp[slot] = req.temp
-            self._tau[slot] = req.tau
-            self._active[slot] = True
-            self._by_slot[slot] = req
-            piece = self._emit(req, first)
-            # the first token can already satisfy the request (max_tokens=1,
-            # or a stop string inside its piece)
-            if (piece and req.saw_stop(piece)) or req.produced >= req.max_tokens:
-                done_at_admit.append(self._finish(req))
+        with metrics.timed("pool.admit.emit"):
+            for b, (req, slot) in enumerate(zip(reqs, slots)):
+                first = int(firsts[b])
+                self._tokens[slot] = first
+                self._temp[slot] = req.temp
+                self._tau[slot] = req.tau
+                self._active[slot] = True
+                self._by_slot[slot] = req
+                piece = self._emit(req, first)
+                # the first token can already satisfy the request
+                # (max_tokens=1, or a stop string inside its piece)
+                if (piece and req.saw_stop(piece)) or req.produced >= req.max_tokens:
+                    done_at_admit.append(self._finish(req))
         return done_at_admit
 
     def _on_text(self, req: Request, piece: str) -> None:
@@ -436,27 +458,32 @@ class InferencePool:
 
         dev = self.device
         k = self.step_chunk
-        args = (torch.tensor(self._tokens, dtype=torch.int64, device=dev),
-                self._state,
-                torch.tensor(self._temp, dtype=torch.float64, device=dev),
-                torch.tensor(self._tau, dtype=torch.float32, device=dev),
-                torch.tensor(self._active, dtype=torch.bool, device=dev),
-                self._ban)
-        hist_d, _, self._state = self._graphs((k,), partial(self._batched_step_k, k=k), *args)
-        hist = hist_d.tolist()  # [k, B]: the one host read of the chunk
+        with metrics.timed("pool.decode.prep"):
+            args = (torch.tensor(self._tokens, dtype=torch.int64, device=dev),
+                    self._state,
+                    torch.tensor(self._temp, dtype=torch.float64, device=dev),
+                    torch.tensor(self._tau, dtype=torch.float32, device=dev),
+                    torch.tensor(self._active, dtype=torch.bool, device=dev),
+                    self._ban)
+        with metrics.timed("pool.decode.replay"):
+            hist_d, _, self._state = self._graphs((k,), partial(self._batched_step_k, k=k),
+                                                  *args)
+        with metrics.timed("pool.decode.read"):
+            hist = hist_d.tolist()  # [k, B]: the one host read of the chunk
         metrics.inc("pool.steps")
 
         finished = list(finished_admit)
-        for slot, req in list(self._by_slot.items()):
-            for row in hist:
-                token = int(row[slot])
-                self._tokens[slot] = token
-                piece = self._emit(req, token)
-                # windowed stop scan: O(len(piece)), not O(total text)
-                hit_stop = req.saw_stop(piece) if piece else False
-                if req.produced >= req.max_tokens or hit_stop:
-                    finished.append(self._finish(req))
-                    break
+        with metrics.timed("pool.decode.emit"):
+            for slot, req in list(self._by_slot.items()):
+                for row in hist:
+                    token = int(row[slot])
+                    self._tokens[slot] = token
+                    piece = self._emit(req, token)
+                    # windowed stop scan: O(len(piece)), not O(total text)
+                    hit_stop = req.saw_stop(piece) if piece else False
+                    if req.produced >= req.max_tokens or hit_stop:
+                        finished.append(self._finish(req))
+                        break
         return finished
 
     def run(self) -> dict[int, str]:

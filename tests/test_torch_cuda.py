@@ -1145,6 +1145,30 @@ def test_pool_graphed_texts_equal_eager(dev, graph_hosts, body, step_chunk):
     assert texts == want, (body, step_chunk)
 
 
+def test_graphs_count_one_capture_a_key(dev):
+    """The metrics registry's graphs.captures rises once for each key a
+    Graphs captures, however often the key replays, and once more for a key
+    captured anew after reset()."""
+    from rwkv_tpu_torch.runtime.graphs import Graphs
+    from rwkv_tpu_torch.utils.metrics import metrics
+
+    def captures():
+        return metrics.snapshot()["counters"].get("graphs.captures", 0)
+
+    graphs = Graphs()
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    before = captures()
+    for key, k in (("a", 1.0), ("b", 2.0)):
+        for _ in range(3):
+            out = graphs(key, lambda t, k=k: t * k, x)
+    torch.cuda.synchronize()
+    assert captures() - before == 2 and len(graphs) == 2 and graphs.replays == 4
+    torch.testing.assert_close(out, 2 * x)
+    graphs.reset()
+    graphs("a", lambda t: t * 1.0, x)
+    assert captures() - before == 3
+
+
 def test_typical_on_the_card_tensor_settings_and_graph(dev):
     """On the card: tensor temp (float64) and tau draw the float path's ids,
     and typical captured with its generator registered, then replayed after
