@@ -5,10 +5,30 @@
 // branch, its q4 branch (_dot4/_fold4) and its a8 branch (_quant_rows,
 // _dot_s8), reached through decode_stack() and forward_step_fused().
 //
-// Bound on the card: the weight bytes, L * 13 * E^2 in q8 (327 MB at 430M)
-// and half that in q4 (164 MB), read once per step, over device memory
-// bandwidth (~3.35 TB/s on an H100 SXM: ~0.1 and ~0.05 ms per step). State,
-// activations and scale/offset vectors add under 1% (2% in q4).
+// Bound on the card: the weight bytes, L * 13 * E^2 in q8 (327 MB at 430M,
+// 13.6 GB at 14B) and half that in q4 (164 MB), read once per step, over
+// device memory bandwidth (~3.35 TB/s on an H100 SXM: ~0.1, ~4.1 and ~0.05
+// ms per step). State, activations and scale/offset vectors add under 1%
+// (2% in q4).
+//
+// Two kernels, by batch rows (ops/cuda/decode_stack.py's tc_path):
+//
+// * q8 at B* <= B <= 16 (the pool's 16 slots): decode_stack_kernel_tc, the
+//   matvec phases on the tensor cores (stack_tc.cuh): each block's unit of
+//   a phase streams its weight tiles through a TMA ring into wgmma with the
+//   activations as three exact bf16 pieces, N = 48 columns for up to 16
+//   rows, so every weight byte is read from device memory once a step for
+//   all the rows. Bounded by the bytes at 14B, and at 430M by the chain of
+//   barriers, the folded LayerNorms and the split-K epilogues that every
+//   phase waits for.
+// * q8 below B* (RWKV.generate's one stream, where a step is a chain of
+//   barrier latencies and a ring fill a phase would add to it), q8 past 16
+//   rows, q4 (K4) and a8 (K5's stack): decode_stack_kernel<BT, FMT>, each
+//   matvec on qmv.cuh's CUDA-core tile, which keeps 4 batch rows in
+//   registers and reads a block's weights again for each further group.
+//
+// Both are one cooperative launch a step with the same phases, barriers,
+// stamps and ln_out phase, described below.
 //
 // The TPU kernel is one launch whose sequential grid carries the activation
 // vector and the offset sums from step to step in VMEM. CUDA blocks run in
@@ -39,7 +59,8 @@
 // phase D reads, x after ln0; block 0 the receptance mix's [B] offset sum and
 // maximum), the L2 prefetch and the cooperative launch.
 //
-// Every weight byte is read once (qmv.cuh says how). The rank-1 offset sums
+// Every weight byte is read once per batch group of the CUDA-core kernel
+// (qmv.cuh says how), once for all rows on the tensor cores. The rank-1 offset sums
 // run over a matrix's whole input dim: the folded phases compute them whole
 // for the inputs they produce, and the k/v/r and key epilogues leave one
 // partial per column tile for the out-projection and the value projection,
@@ -76,7 +97,9 @@
 // never modified, as in the JAX function. With a stamp buffer, block 0
 // writes %globaltimer at the start, after each barrier and at its end
 // (4 * L + 2 stamps): tools/decode_profile.py reads the time of each phase.
-#include "stack.cuh"
+#include <string.h>
+
+#include "stack_tc.cuh"
 
 namespace rwkv {
 
@@ -100,6 +123,7 @@ enum Ptr : int {
   P_AMAX_PARTS, // [E/128 + F/128, B], a8: per-tile maxima of att.output's, ffn.value's input
   P_PARTIAL, P_COUNTERS,
   P_STAMPS,     // [4 L + 2] u64 %globaltimer stamps, or null
+  P_FOLD_PARTS, // [E/128, kTcTileParts] double, TC kernel: the folded phases' sums (TcNext)
   P_COUNT
 };
 
@@ -111,6 +135,7 @@ struct StackArgs {
   int halves[7];
   long long partial_cap;  // floats of split-K partials
   int counter_cap;        // split-K counters; the barrier's words follow them
+  TcPlan tc;              // decode_stack_kernel_tc: each phase kind's splits and tile groups
 };
 
 // The matvec of phase `kind` (0..3: A..D) of layer l, written into q (shared
@@ -362,6 +387,184 @@ __global__ void __launch_bounds__(kThreads, 1) decode_stack_kernel(const __grid_
   plan.stamp();
 }
 
+// The folded phase that reads the x of phase `kind` of layer l (TcNext):
+// phase B's feeds phase C (ln2, ffn key and receptance mixes), phase D's the
+// next layer's phase A (ln1, att k, v, r mixes); the others, and the last
+// layer's D (ln_out: row_run), none.
+__device__ void tc_next(TcNext& nx, const StackArgs& a, int l, int kind) {
+  auto f = [&](int i) { return static_cast<const float*>(a.p[i]); };
+  nx = TcNext{};
+  const bool c = kind == 1;
+  if (!c && !(kind == 3 && l + 1 < a.L)) return;
+  const int lf = c ? l : l + 1;
+  const size_t lE = (size_t)lf * a.E, lBE = (size_t)lf * a.B * a.E;
+  nx.parts = static_cast<double*>(a.p[P_FOLD_PARTS]);
+  nx.ln_w = f(c ? P_LN2_W : P_LN1_W) + lE;
+  nx.ln_b = f(c ? P_LN2_B : P_LN1_B) + lE;
+  nx.prev = f(c ? P_DD_IN : P_XY_IN) + lBE;
+  nx.nmix = c ? 2 : 3;
+  nx.mix[0] = f(c ? P_FFN_MIX_K : P_ATT_MIX_K) + lE;
+  nx.mix[1] = f(c ? P_FFN_MIX_R : P_ATT_MIX_V) + lE;
+  nx.offset[0] = f(c ? P_FFN_K_O : P_ATT_K_O) + lE;
+  nx.offset[1] = f(c ? P_FFN_R_O : P_ATT_V_O) + lE;
+  if (!c) {
+    nx.mix[2] = f(P_ATT_MIX_R) + lE;
+    nx.offset[2] = f(P_ATT_R_O) + lE;
+  }
+}
+
+// K1 on the tensor cores (stack_tc.cuh), q8 at 1 <= B <= 16: the phases of
+// decode_stack_kernel and its barriers, stamps and ln_out phase, each
+// matvec phase one unit a block (a matrix's split of the contraction over a
+// group of column tiles) streamed through the TMA ring onto wgmma. The
+// tensor maps are the first parameter: a map must be 64-byte aligned, and
+// only the first parameter's offset is.
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_stack_kernel_tc(const __grid_constant__ TcMaps maps, const __grid_constant__ StackArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ float ascratch[3 * 4 * 33];
+  __shared__ float fscratch[3 * 4 * 33];
+  __shared__ QmvArgs q;
+  __shared__ FoldSrc<4, false> src;
+  __shared__ float amax[3 * kTcMaxB];  // FoldSrc's row maxima (written, read in a8 only)
+  __shared__ TcNext nx;
+  __shared__ int elected;
+  TcSmem sm;
+  sm.carve(smem, a.E);
+  const int tid = threadIdx.x, B = a.B, E = a.E, G = gridDim.x, n = kPhases * a.L;
+  auto f = [&](int i) { return static_cast<float*>(a.p[i]); };
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&maps.m[0])) : "memory");
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  GridBarrier bar;
+  bar.init(static_cast<unsigned*>(a.p[P_COUNTERS]) + a.counter_cap, G);
+  Stamps stamps{static_cast<unsigned long long*>(a.p[P_STAMPS]), 0};
+  stamps();
+
+  unsigned first = 0;  // the ring's stages consumed by this block before this phase
+  int prod = 0;        // warp 0: the phase's stages issued
+  TcUnit u;
+  // phase ph into q, src and u; warp 0 then issues the first stages of u
+  auto describe = [&](int ph) {
+    const int kind = ph % kPhases, l = ph / kPhases;
+    if (tid == 0) phase_args<kQ8>(q, a, l, kind, sm.offs, amax);
+    if (tid == 64) tc_next(nx, a, l, kind);
+    if (tid == 32 && (kind == 0 || kind == 2)) {
+      fold_src<4, false>(src, a, l, kind == 0);
+      src.xx = sm.xx;
+      src.offs = sm.offs;
+      src.amax = amax;
+      src.ascratch = ascratch;
+      src.fscratch = fscratch;
+    }
+    __syncthreads();
+    u = tc_unit(q, kind, l, a.tc.ks[kind], a.tc.tiles[kind]);
+    prod = 0;
+    if (tid < 32 && u.live) tc_issue(u, maps, sm, first, prod, kTcStages, -1);
+  };
+  describe(0);
+  for (int ph = 0; ph < n; ++ph) {
+    const int kind = ph % kPhases;
+    const bool fold = kind == 0 || kind == 2;
+    if (u.live) {
+      const Mat& mt = q.m[u.m];
+      uint32_t* op = fold ? sm.op_fold : sm.op_free;
+      const int R = u.ns * kTcRows;
+      if (fold) {
+        // the block's share of the rows' [B, E] outputs (FoldSrc), as the
+        // CUDA-core path deals them over the units
+        const int chunk = (E + u.units - 1) / u.units;
+        if (tid == 0) {
+          src.lo = min(E, (int)blockIdx.x * chunk);
+          src.hi = min(E, src.lo + chunk);
+          if (blockIdx.x) src.fr_off = nullptr;
+        }
+        __syncthreads();
+        if (ph)  // from the sums phase B's or D's epilogues left
+          tc_fold(src, static_cast<const double*>(a.p[P_FOLD_PARTS]), u.m, mt.scale, u.k0, R, op,
+                  reinterpret_cast<double*>(sm.scratch));
+        else for (int b0 = 0; b0 < kTcMaxB; b0 += 4) {
+          if (b0 < B) src.prologue(b0, min(4, B - b0));
+          tc_stage<4>(op, R, u.k0, b0, B, [&](int b, int bi, int k) {
+            const float* mix = src.mix[u.m];
+            const float* xr = sm.xx + bi * E;
+            const float* pr = src.prev + (size_t)b * E;
+            return make_float2(token_mix<false>(mix[k], xr[k], pr[k]) * mt.scale[k],
+                               token_mix<false>(mix[k + 1], xr[k + 1], pr[k + 1]) * mt.scale[k + 1]);
+          });
+          __syncthreads();  // xx is rewritten by the next group's prologue
+        }
+      } else {
+        tc_stage<kTcMaxB>(op, R, u.k0, 0, B, [&](int b, int, int k) {
+          const float2 x = __ldcg(reinterpret_cast<const float2*>(mt.x + (size_t)b * mt.K + k));
+          const float2 s = __ldg(reinterpret_cast<const float2*>(mt.scale + k));
+          return make_float2(x.x * s.x, x.y * s.y);
+        });
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // before wgmma reads it
+      __syncthreads();
+      // Tile i's arrival is added after its partials; whether it was the
+      // last is read after tile i + 1's sums, so the atomic's round trip
+      // overlaps them, and its epilogue runs then.
+      int j = 0;
+      unsigned arrived = 0;  // thread 0: the pending arrival's count before it
+      for (int i = 0; i <= u.nt; ++i) {
+        if (i < u.nt) {
+          float acc[kTcNT * 4];
+          tc_tile_sums(acc, u, maps, sm, op, first, j, prod);
+          tc_write_partial(acc, sm, q.partial, u.base + u.s, B, q.O, tc_tile(u, i) * kTileO);
+        }
+        // the partials were ordered before the barrier; thread 0's acq_rel
+        // add releases them with its arrival and acquires every earlier
+        // unit's for the last one
+        __syncthreads();
+        if (tid == 0) {
+          elected = i > 0 && arrived == (unsigned)(u.arrivals - 1);
+          if (i < u.nt)
+            arrived = atom_add_acq_rel_gpu(
+                reinterpret_cast<unsigned*>(&q.counters[tc_tile(u, i)]), 1u);
+        }
+        __syncthreads();
+        if (elected) {
+          const int tile = tc_tile(u, i - 1);
+          if (tid == 0) q.counters[tile] = 0;  // ready for the next phase or launch
+          tc_epilogue(q, u, sm, nx, tile, [&](int m) { return fold && m < src.nfold; });
+        }
+      }
+      first += j;
+    }
+    bar.arrive();
+    if (ph + 1 < n) {  // the next phase's vectors and first weights, fetched during the wait
+      describe(ph + 1);
+      prefetch_qmv(q);
+      if (ph % kPhases == 1 || ph % kPhases == 3) prefetch_fold(src);
+    }
+    bar.wait();
+    stamps();
+  }
+
+  RowArgs rh = {};
+  rh.mode = ROW_HEAD;
+  rh.B = B;
+  rh.E = E;
+  rh.n_emb = a.n_emb;
+  rh.x = f(P_X);
+  rh.ln_w = f(P_LN_OUT_W);
+  rh.ln_b = f(P_LN_OUT_B);
+  rh.head_scale = f(P_HEAD_S);
+  rh.offset[0] = f(P_HEAD_O);
+  rh.off_h = f(P_OFF_H);
+  rh.xs_h = f(P_XS_H);
+  bar.finish();
+  for (int b = blockIdx.x; b < B; b += G) row_run<false>(rh, b, sm.xx, fscratch, ascratch);
+  stamps();
+}
+
 template <int FMT>
 cudaError_t launch_stack_fmt(const StackArgs& a, cudaStream_t st, int* grid) {
   const int bt = stack_bt(a.B);
@@ -463,6 +666,111 @@ extern "C" int rwkv_decode_stack(void* const* p, int n_ptrs, int L, int B, int E
   const cudaError_t e = a8 ? launch_stack_fmt<kA8>(a, st, grid)
                            : (q4 ? launch_stack_fmt<kQ4>(a, st, grid)
                                  : launch_stack_fmt<kQ8>(a, st, grid));
+  if (e == cudaSuccess) *n_launched = 1;
+  return (int)e;
+}
+
+// The TC kernel's stage and operand capacity and grid on the current
+// device at width E: the weight rows of a stage (*stage_rows), the most
+// stages of the folded phases' operand that fit beside the kernel's other
+// shared memory (*op_stages), and the blocks of one cooperative launch with
+// it (*grid). Returns the first CUDA error.
+extern "C" int rwkv_decode_stack_tc_caps(int E, int* stage_rows, int* op_stages, int* grid) {
+  *stage_rows = kTcRows;
+  *op_stages = 0;
+  *grid = 0;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr = {};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, decode_stack_kernel_tc);
+  if (e == cudaSuccess) {
+    const long long room = (long long)optin - (long long)attr.sharedSizeBytes - (long long)tc_smem(E, 0);
+    *op_stages = room > 0 ? (int)(room / (kTcRows * kTcRowBytes)) : 0;
+    if (*op_stages < 1) e = cudaErrorInvalidValue;
+  }
+  if (e == cudaSuccess) e = coop_grid(decode_stack_kernel_tc, tc_smem(E, *op_stages), grid);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// The TC kernel's tensor maps of the seven weight families (w[i]: the [L, K,
+// O] int8 codes of att key, value, receptance, output, ffn key, value,
+// receptance), written to out (kTcMaps * 128 bytes, 64-aligned): kTcRows
+// rows x 128 columns a box over [L * K, O], the 128-byte swizzle. Returns
+// the first CUDA error.
+extern "C" int rwkv_decode_stack_tc_maps(void* const* w, int L, int E, int F, void* out) {
+  EncodeTiled encode;
+  cudaError_t e = encode_fn(&encode);
+  if (e != cudaSuccess) return (int)e;
+  if (reinterpret_cast<uintptr_t>(out) % 64) return (int)cudaErrorInvalidValue;
+  const int K[kTcMaps] = {E, E, E, E, E, F, E}, O[kTcMaps] = {E, E, E, E, F, E, E};
+  CUtensorMap* maps = static_cast<CUtensorMap*>(out);
+  for (int i = 0; i < kTcMaps; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)O[i], (cuuint64_t)L * K[i]};
+    const cuuint64_t strides[1] = {(cuuint64_t)O[i]};
+    const cuuint32_t box[2] = {kTileO, kTcRows};
+    const cuuint32_t elem[2] = {1, 1};
+    if (encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w[i], dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// Enqueues one q8 decode step on the tensor cores (decode_stack_kernel_tc)
+// on `stream` as one cooperative launch, as rwkv_decode_stack does: the same
+// pointer table, B <= 16, E and F multiples of 128; plan: each phase kind's
+// stages a split, then its column tiles a group (TcPlan); maps: the
+// tensor maps of rwkv_decode_stack_tc_maps; op_stages: of
+// rwkv_decode_stack_tc_caps. Returns the first CUDA error (0 if none), 1 or
+// 0 launches in *n_launched and the launch's blocks in *grid.
+extern "C" int rwkv_decode_stack_tc(void* const* p, int n_ptrs, int L, int B, int E, int F,
+                                    int n_emb, const int* plan, const void* maps, int op_stages,
+                                    long long partial_cap, int counter_cap, void* stream,
+                                    int* n_launched, int* grid) {
+  *n_launched = 0;
+  *grid = 0;
+  if (n_ptrs != P_COUNT || counter_cap <= kBarrierWords || B < 1 || B > kTcMaxB ||
+      E % kTileO || F % kTileO || op_stages < 1)
+    return (int)cudaErrorInvalidValue;
+  StackArgs a = {};
+  for (int i = 0; i < P_COUNT; ++i) a.p[i] = p[i];
+  a.L = L;
+  a.B = B;
+  a.E = E;
+  a.F = F;
+  a.n_emb = n_emb;
+  for (int i = 0; i < 4; ++i) {
+    a.tc.ks[i] = plan[i];
+    a.tc.tiles[i] = plan[4 + i];
+    if (plan[i] < 1 || plan[4 + i] < 1) return (int)cudaErrorInvalidValue;
+  }
+  a.partial_cap = partial_cap;
+  a.counter_cap = counter_cap - kBarrierWords;
+  TcMaps m;
+  memcpy(&m, maps, sizeof(m));
+  const size_t smem = tc_smem(E, op_stages);
+  cudaError_t e = coop_grid(decode_stack_kernel_tc, smem, grid);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(*grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&m, &a};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decode_stack_kernel_tc), args);
+  const cudaError_t last = cudaGetLastError();  // read either way: nothing left behind
+  if (e == cudaSuccess) e = last;
   if (e == cudaSuccess) *n_launched = 1;
   return (int)e;
 }

@@ -103,20 +103,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One ldmatrix.trans word (bytes: row 2t x columns 2g, 2g + 1, then row
-// 2t + 1's) as two bf16x2 A registers of m64nNk16: column 2g's two rows
-// and column 2g + 1's, each byte an exact bf16 integer.
-__device__ __forceinline__ void widen8(uint32_t W, uint32_t& c0, uint32_t& c1) {
-  const uint32_t X = W ^ 0x80808080u;  // w + 128, unsigned
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)  // bits 0x4B0000uu: 2^23 + uu, exactly; minus 2^23 + 128
-    f[i] = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(X, 0x4B000000u, 0x7440u | i)),
-                                     8388736.f));
-  c0 = __byte_perm(f[0], f[2], 0x7632);  // the high halves: an integer of 8 bits is its bf16
-  c1 = __byte_perm(f[1], f[3], 0x7632);
-}
-
 __device__ __forceinline__ float row_scale(float amax) {
   return fmaxf(__fdiv_rn(amax, 127.f), 1e-30f);
 }

@@ -50,7 +50,13 @@
 //
 // Layout of a block (256 threads): 8 column threads x 16 columns = a tile of
 // 128 output columns; 32 row slices walk the contraction dim, each thread
-// keeping partial sums for up to 4 batch rows in registers (more rows loop).
+// keeping partial sums for up to 4 batch rows in registers. More rows loop:
+// the block's weights are read again for each group of 4 rows (from shared
+// memory on the short path, from device memory or L2 on the long one), and
+// every product is an f32 FMA on the CUDA cores. So this tile serves the
+// steps where a read per group costs little: K1 below B* rows (the q8 stack
+// from B* to 16 rows runs stack_tc.cuh's tensor-core phases, which read each
+// weight byte once for all rows), K4, K5's stack, K6 and K7.
 //
 // A tile of 128 columns leaves too few blocks for the card when O is E (8
 // tiles at E = 1024), so the contraction is also split across S

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the heads on the tensor cores (mm4.cu,
-// kernel K3; int8_head.cuh, kernels K2 and K5's head): mbarriers, the TMA's
-// 2-D tile load, ldmatrix.trans, bf16 packing, the wgmma wrappers (A from
+// Hopper building blocks shared by the kernels on the tensor cores (mm4.cu,
+// kernel K3; int8_head.cuh, kernels K2 and K5's head; stack_tc.cuh, kernel
+// K1's matvecs): mbarriers, the TMA's 2-D tile load, ldmatrix.trans, bf16
+// packing, the widening of int8 codes to bf16, the wgmma wrappers (A from
 // registers, B from shared memory without swizzle, f32 or s32 accumulators)
 // and the driver's tensor-map encoder, found through the runtime.
 #pragma once
@@ -52,6 +53,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
   }
 }
 
+// Whether the barrier's phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* b, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2; "
+      "selp.u32 %0, 1, 0, p; }"
+      : "=r"(done)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// mbar_wait by a whole warp that leaves the wait together (a vote on every
+// poll): code after it is not on a divergent path, which ptxas would
+// otherwise take as a reason to serialize the wgmma that follow. More than
+// ~2^24 polls (seconds) can only be a fault: trap.
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* b, unsigned parity) {
+  const uint32_t addr = smem_u32(b);
+  for (unsigned polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (__all_sync(0xffffffffu, done)) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int col, int row) {
   asm volatile(
@@ -76,6 +108,20 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
 }
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// One ldmatrix.trans word (bytes: row 2t x columns 2g, 2g + 1, then row
+// 2t + 1's) as two bf16x2 A registers of m64nNk16: column 2g's two rows
+// and column 2g + 1's, each byte an exact bf16 integer.
+__device__ __forceinline__ void widen8(uint32_t W, uint32_t& c0, uint32_t& c1) {
+  const uint32_t X = W ^ 0x80808080u;  // w + 128, unsigned
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)  // bits 0x4B0000uu: 2^23 + uu, exactly; minus 2^23 + 128
+    f[i] = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(X, 0x4B000000u, 0x7440u | i)),
+                                     8388736.f));
+  c0 = __byte_perm(f[0], f[2], 0x7632);  // the high halves: an integer of 8 bits is its bf16
+  c1 = __byte_perm(f[1], f[3], 0x7632);
+}
 
 // The activations' operand, one wgmma step after another (N * 32 bytes
 // each, 16 k of bf16 or 32 of int8): 8 x 16-byte core matrices, core matrix

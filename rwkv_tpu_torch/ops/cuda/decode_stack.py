@@ -17,6 +17,15 @@ adds E * Vp (52 MB; 26 MB in q4). The kernel reads each weight byte once per
 step, in one cooperative launch per step whatever the format: four phases a
 layer and one for ln_out, separated by grid barriers (csrc/decode_stack.cu
 says how). A launch the card refuses raises; there is no other route.
+
+q8 at TC_MIN_B <= B <= 16 (tc_path) runs K1's matvec phases on the tensor
+cores (decode_stack_kernel_tc, csrc/stack_tc.cuh): a TMA ring of weight
+tiles into wgmma, every weight byte read once a step for all B rows, the
+f32 activations as three exact bf16 pieces, so its results stay within f32
+rounding of decode_stack_plain. Each phase is cut by tc_plan; the weight
+families' tensor maps are encoded once per params (`prepare`). Below
+TC_MIN_B, where a step is a chain of barrier latencies, the CUDA-core
+kernel (csrc/qmv.cuh) runs it.
 `stamps=` takes an int64 CUDA tensor of at least 4 * L + 2 entries, into
 which the kernel writes %globaltimer at its start, after each barrier and
 at its end (tools/decode_profile.py reads the time of each phase).
@@ -66,12 +75,28 @@ from rwkv_tpu_torch.ops.cuda.mm8 import mm8, mm8_a8, mm8_a8_plain
 from rwkv_tpu_torch.ops.layernorm import layer_norm
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.wkv import WKVChannelState
+from rwkv_tpu_torch.utils.metrics import metrics
 
 # kernel launches, for showing that a path ran on the kernel: q8 (K1), q4
-# (K4), a8 (K5's stack); one per step
+# (K4), a8 (K5's stack); one per step. launches_tc: the q8 launches that ran
+# on the tensor cores (counted in `launches` too); each also adds one to the
+# metrics registry's TC_COUNTER, graph captures included.
 launches = 0
 launches_q4 = 0
 launches_a8 = 0
+launches_tc = 0
+TC_COUNTER = "decode_stack.launches_tc"
+
+# The batch rows that run K1 on the tensor cores (tc_path): B* up to the 16
+# rows of one wgmma operand. B* = 4: on an H100 at 430M widths the tensor-
+# core kernel is slower at 1 and 2 rows (1.99 against 1.30, 1.67 against
+# 1.52 ms a step), where a step is a chain of barriers, and faster from 4
+# (1.69 against 2.15); at 14B's it is even at 1 row and faster from 2
+# (PERF.md, tools/decode_profile.py --paths).
+TC_MIN_B = 4
+TC_MAX_B = 16
+_TC_ROW_BYTES = 96     # operand bytes a weight row: 3 bf16 pieces x 16 batch rows
+_TILE = 128            # output columns a tile
 
 _lib = None
 
@@ -93,7 +118,7 @@ _POINTERS = (
     "xy_in", "aa_in", "bb_in", "pp_in", "dd_in",
     "xy_out", "aa_out", "bb_out", "pp_out", "dd_out",
     "x", "rwkv", "fr", "kk", "xs_h", "off_h",
-    "offs", "off_parts", "amax", "amax_parts", "partial", "counters", "stamps",
+    "offs", "off_parts", "amax", "amax_parts", "partial", "counters", "stamps", "fold_parts",
 )
 _PARAM_NAMES = _POINTERS[1:40]
 # The matrix families in the order of rwkv_decode_stack()'s halves[], and
@@ -116,6 +141,15 @@ def _kernel():
         lib.rwkv_decode_stack_grid.restype = I
         lib.rwkv_barrier_probe.argtypes = [I, I, P, P]
         lib.rwkv_barrier_probe.restype = I
+        lib.rwkv_decode_stack_tc.argtypes = [ctypes.POINTER(P), I, I, I, I, I, I,
+                                             ctypes.POINTER(I), P, I, ctypes.c_longlong, I, P,
+                                             ctypes.POINTER(I), ctypes.POINTER(I)]
+        lib.rwkv_decode_stack_tc.restype = I
+        lib.rwkv_decode_stack_tc_caps.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I),
+                                                  ctypes.POINTER(I)]
+        lib.rwkv_decode_stack_tc_caps.restype = I
+        lib.rwkv_decode_stack_tc_maps.argtypes = [ctypes.POINTER(P), I, I, I, P]
+        lib.rwkv_decode_stack_tc_maps.restype = I
         lib.rwkv_decode_stack_pointer_count.argtypes = []
         lib.rwkv_decode_stack_pointer_count.restype = I
         if lib.rwkv_decode_stack_pointer_count() != len(_POINTERS):
@@ -177,8 +211,64 @@ def _q4_halves(params: RWKVParams) -> list:
     return halves
 
 
+def tc_path(B: int, E: int, F: int, fmt: str) -> bool:
+    """Whether a step of B batch rows at widths E and F in weight format fmt
+    ("q8", "q4" or "a8") runs K1 on the tensor cores: q8 from TC_MIN_B to
+    TC_MAX_B rows, with E and F whole column tiles of 128."""
+    return (fmt == "q8" and TC_MIN_B <= B <= TC_MAX_B and E % _TILE == 0
+            and F % _TILE == 0)
+
+
+def _phase_mats(E: int, F: int):
+    """Per phase kind (A, B, C, D): the contraction length of each matrix,
+    the output width, and whether the phase is folded (its operand beside 4
+    LayerNormed rows of E)."""
+    return (((E, E, E), E, True), ((E,), E, False), ((E,), F, True), ((F, E), E, False))
+
+
+def tc_plan(B: int, E: int, F: int, grid: int, op_stages: int, stage_rows: int,
+            partial_cap: int = _build.SPLIT_FLOATS, counter_cap: int = _build.SPLIT_TILES
+            ) -> tuple:
+    """How the TC kernel cuts each phase: 8 ints, the stages (stage_rows
+    weight rows each) a split of the contraction for phases A, B, C, D, then
+    the column tiles of 128 a group. A unit (one matrix's split over a group
+    of tiles) is one block's work, so the units may not outnumber the grid;
+    a split's operand fits in op_stages stages (rwkv_decode_stack_tc_caps)
+    in the folded phases and also over the 4 LayerNormed rows in the others;
+    the partials [splits, B, O] fit the split-K scratch, the tiles its
+    counters. Chosen: the least stages of the longest unit plus half a stage
+    for each split's [B, 128] partial that a tile's last unit reads back (a
+    weight of one, tried with 64-row stages, chose longer splits at 430M
+    widths that ran 14 % slower on an H100)."""
+    free = (op_stages * stage_rows * _TC_ROW_BYTES + 16 * E) // (stage_rows * _TC_ROW_BYTES)
+    ks_out, tiles_out = [], []
+    for ks_k, O, fold in _phase_mats(E, F):
+        tiles = O // _TILE
+        cap = op_stages if fold else free
+        kst = [K // stage_rows for K in ks_k]
+        best = None
+        for ks in range(1, min(cap, max(kst)) + 1):
+            splits = sum(-(-k // ks) for k in kst)
+            if splits * B * O > partial_cap or tiles > counter_cap - 64:
+                continue
+            for T in range(1, tiles + 1):
+                if splits * -(-tiles // T) > grid:
+                    continue
+                cost = ks * T + splits / 2
+                if best is None or cost < best[0]:
+                    best = (cost, ks, T)
+                break  # a larger T only lengthens the units
+        if best is None:
+            raise ValueError(f"decode_stack: no tensor-core plan for E={E}, F={F}, B={B} on "
+                             f"{grid} blocks with {op_stages} operand stages")
+        ks_out.append(best[1])
+        tiles_out.append(best[2])
+    return tuple(ks_out + tiles_out)
+
+
 class _Prepared:
-    """Checked parameter pointers and per-batch scratch for one params object."""
+    """Checked parameter pointers and per-batch scratch for one params object;
+    for q8 params the TC kernel can take, its weight families' tensor maps."""
 
     def __init__(self, params: RWKVParams):
         self.params = params
@@ -202,6 +292,30 @@ class _Prepared:
         self.device, self.L, self.E, self.F, self.Vp = dev, L, E, F, Vp
         self.param_ptrs = ptrs
         self.scratch: dict = {}
+        self.tc_maps = None  # the tensor maps' 64-aligned address; its buffer below
+        if dev.type == "cuda" and not self.q4 and E % _TILE == 0 and F % _TILE == 0:
+            lib = _kernel()
+            self._maps_buf = ctypes.create_string_buffer(7 * 128 + 64)
+            addr = ctypes.addressof(self._maps_buf)
+            addr += -addr % 64
+            w = [_get(params, fam + ".w").data_ptr() for fam in _FAMILIES]
+            with torch.cuda.device(dev):
+                _build.check(lib, lib.rwkv_decode_stack_tc_maps(
+                    (ctypes.c_void_p * 7)(*w), L, E, F, addr), "decode_stack tensor maps")
+                rows, op, grid = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+                _build.check(lib, lib.rwkv_decode_stack_tc_caps(
+                    E, ctypes.byref(rows), ctypes.byref(op), ctypes.byref(grid)),
+                    "decode_stack tensor-core capacity")
+            self.tc_maps, self.tc_op_stages, self.tc_grid = addr, op.value, grid.value
+            self.tc_stage_rows = rows.value
+            self.tc_plans: dict = {}
+
+    def tc_plan(self, B: int):
+        p = self.tc_plans.get(B)
+        if p is None:
+            p = self.tc_plans[B] = (ctypes.c_int * 8)(*tc_plan(
+                B, self.E, self.F, self.tc_grid, self.tc_op_stages, self.tc_stage_rows))
+        return p
 
     def buffers(self, B: int):
         s = self.scratch.get(B)
@@ -212,7 +326,9 @@ class _Prepared:
             s = {"rwkv": z(B, E), "fr": z(B, E), "kk": z(B, F),
                  # the rank-1 offset terms are summed in double
                  "offs": z(B).double(), "off_parts": z(tiles, B).double(),
-                 "amax": z(2, B), "amax_parts": z(tiles, B)}
+                 "amax": z(2, B), "amax_parts": z(tiles, B),
+                 # the TC kernel's folded-phase sums (csrc/stack_tc.cuh's TcNext)
+                 "fold_parts": z(-(-E // 128), 16 * 8 + 6).double()}
             self.scratch[B] = s
         return s
 
@@ -225,6 +341,14 @@ def _prepare(params: RWKVParams) -> _Prepared:
     if _prepared is None or _prepared.params is not params:
         _prepared = _Prepared(params)
     return _prepared
+
+
+def prepare(params: RWKVParams) -> None:
+    """Check CUDA params and make what every step of them reuses (the
+    pointer table, the tensor maps of the TC kernel), ahead of the first
+    step: the engine calls it when its parameters are made."""
+    if params.emb.device.type == "cuda":
+        _prepare(params)
 
 
 def _a8_block(params: RWKVParams, a8_block) -> int:
@@ -275,11 +399,13 @@ def decode_stack_plain(params: RWKVParams, token: torch.Tensor, state: WKVState,
 
 def decode_stack(params: RWKVParams, token: torch.Tensor, state: WKVState, *,
                  a8: bool = False, a8_block: int | None = None,
-                 stamps: torch.Tensor | None = None):
+                 stamps: torch.Tensor | None = None, tc: bool | None = None):
     """One decode step for B streams. token: [B] ints; state leaves [L, B, E].
     Returns (y [B, E], new state, xs_h [B, E], off_h [B]) as decode_stack_plain.
-    stamps: see the module docstring (CUDA only)."""
-    return _decode(params, token, state, a8, a8_block, stamps)[:4]
+    stamps: see the module docstring (CUDA only). tc: run q8 on the tensor
+    cores (True) or the CUDA cores (False) whatever tc_path says (None:
+    as it says); True raises where the TC kernel cannot run the step."""
+    return _decode(params, token, state, a8, a8_block, stamps, tc)[:4]
 
 
 def stack_grid(B: int, E: int, *, q4: bool = False, a8: bool = False) -> int:
@@ -304,14 +430,14 @@ def barrier_probe(grid: int, n: int, word: torch.Tensor) -> None:
                  "barrier_probe")
 
 
-def _decode(params, token, state, a8, a8_block, stamps=None):
+def _decode(params, token, state, a8, a8_block, stamps=None, tc=None):
     """decode_stack, and the row maxima of xs_h [B] that the a8 head reads
     (None on the CPU and without a8)."""
     if params.emb.device.type == "cpu" and token.device.type == "cpu":
         if isinstance(params.att.key, Quant4Linear):
             _q4_halves(params)  # the same format checks as the kernel's
         return decode_stack_plain(params, token, state, a8=a8, a8_block=a8_block) + (None,)
-    global launches, launches_q4, launches_a8
+    global launches, launches_q4, launches_a8, launches_tc
     block = _a8_block(params, a8_block) if a8 else 0
     prep = _prepare(params)
     dev = prep.device
@@ -342,24 +468,46 @@ def _decode(params, token, state, a8, a8_block, stamps=None):
              + [xs_h.data_ptr(), off_h.data_ptr()]
              + [buf[n].data_ptr() for n in ("offs", "off_parts", "amax", "amax_parts")]
              + [partial.data_ptr(), counters.data_ptr(),
-                0 if stamps is None else stamps.data_ptr()])
+                0 if stamps is None else stamps.data_ptr(), buf["fold_parts"].data_ptr()])
     lib = _kernel()
     arr = (ctypes.c_void_p * len(table))(*table)
-    halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
     n, grid = ctypes.c_int(0), ctypes.c_int(0)
+    fmt = "a8" if block else ("q4" if prep.q4 else "q8")
+    on_tc = tc_path(B, E, F, fmt) if tc is None else bool(tc)
+    if on_tc and (fmt != "q8" or prep.tc_maps is None or not 1 <= B <= TC_MAX_B):
+        raise ValueError(f"decode_stack: the tensor-core kernel runs q8 at 1..{TC_MAX_B} rows "
+                         f"with E and F multiples of {_TILE}; got {fmt}, B={B}, E={E}, F={F}")
     with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4), halves,
-                                    block, partial.numel(), counters.numel(),
-                                    torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(n),
-                                    ctypes.byref(grid))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if on_tc:
+            err = lib.rwkv_decode_stack_tc(arr, len(table), L, B, E, F, prep.Vp, prep.tc_plan(B),
+                                           prep.tc_maps, prep.tc_op_stages, partial.numel(),
+                                           counters.numel(), stream, ctypes.byref(n),
+                                           ctypes.byref(grid))
+        else:
+            halves = (ctypes.c_int * len(prep.halves))(*prep.halves)
+            err = lib.rwkv_decode_stack(arr, len(table), L, B, E, F, prep.Vp, int(prep.q4),
+                                        halves, block, partial.numel(), counters.numel(),
+                                        stream, ctypes.byref(n), ctypes.byref(grid))
     if block:
         launches_a8 += n.value
     elif prep.q4:
         launches_q4 += n.value
     else:
         launches += n.value
+    if on_tc:
+        _count_tc(n.value)
     _build.check(lib, err, "decode_stack")
     return y, new_state, xs_h, off_h, buf["amax"][1] if block else None
+
+
+def _count_tc(n: int) -> None:
+    """Count n launches of the TC kernel: launches_tc and the registry's
+    TC_COUNTER."""
+    global launches_tc
+    launches_tc += n
+    if n:
+        metrics.inc(TC_COUNTER, n)
 
 
 def forward_step_fused(params: RWKVParams, token: torch.Tensor, state: WKVState, *,

@@ -92,6 +92,7 @@ from rwkv_tpu_torch.models.rwkv4 import (
     signedize_params,
 )
 from rwkv_tpu_torch.ops.cuda.decode_stack import forward_step_fused
+from rwkv_tpu_torch.ops.cuda.decode_stack import prepare as prepare_decode
 from rwkv_tpu_torch.ops.quant import Quant4Linear, QuantLinear
 from rwkv_tpu_torch.ops.sampling import typical
 from rwkv_tpu_torch.parallel.mesh import canonical
@@ -288,6 +289,7 @@ class RWKV:
         self._step_fn = (partial(forward_step_fused, a8=True,
                                  a8_block=a8_block_for(params.n_embd))
                          if a8 else forward_step_fused)
+        prepare_decode(params)  # the decode kernels' tables and tensor maps, once
         self._prefill_impl = None
         self._loaded(params)
 

@@ -94,10 +94,10 @@ from rwkv_tpu_torch.ops.cuda import mm8 as _mm8
 from rwkv_tpu_torch.ops.cuda import tp_halves as _th
 from rwkv_tpu_torch.utils.metrics import metrics
 
-# every kernel wrapper's launch counter: K1, K4, K5's stack; K7 q8 and q4;
-# K2, K5's head; K3; K6's two halves
-COUNTERS = ((_ds, "launches"), (_ds, "launches_q4"), (_ds, "launches_a8"),
-            (_k7, "launches"), (_k7, "launches_q4"), (_mm8, "launches"),
+# every kernel wrapper's launch counter: K1 (and those of it on the tensor
+# cores), K4, K5's stack; K7 q8 and q4; K2, K5's head; K3; K6's two halves
+COUNTERS = ((_ds, "launches"), (_ds, "launches_tc"), (_ds, "launches_q4"),
+            (_ds, "launches_a8"), (_k7, "launches"), (_k7, "launches_q4"), (_mm8, "launches"),
             (_mm8, "launches_a8"), (_mm4, "launches"), (_th, "launches_att"),
             (_th, "launches_ffn"))
 

@@ -4,6 +4,17 @@
                                                   [--tp N [--body fused|halves|plain]
                                                    [--cards]]
                                                   [--batch 1 8 16] [--steps 30] [--seed 0]
+    python -m rwkv_tpu_torch.tools.decode_profile --paths [--model 430m|14b] [--layers L]
+                                                  [--batch 1 2 4 8 16] [--steps 30]
+
+--paths times kernel K1 alone (decode_stack, q8) on each of its two kernels
+at every --batch: the CUDA-core one and the tensor-core one (csrc/stack_tc.cuh),
+in turns (cuda, tc, tc, cuda), CUDA events around --steps back-to-back
+steps, each path's phases from its %globaltimer stamps, and the plain
+version's ms a step; at 14B widths over --layers layers (the weights of 40
+would take minutes to make on the host), each time also scaled to 40 layers.
+It prints one JSON line per batch size and the B* the times give: the least
+B from which the tensor cores win at every measured B.
 
 For each batch size, with random q8 or packed q4 weights from a numpy seed
 (q4: the default pairing block, or with --tp the widest that lies inside a
@@ -209,6 +220,81 @@ def _cards(args) -> None:
             "card": card}))
 
 
+def _paths(args) -> None:
+    """--paths: K1 on the CUDA cores and on the tensor cores, in turns."""
+    import numpy as np
+    import torch
+
+    from rwkv_tpu_torch.models.config import RWKVConfig
+    from rwkv_tpu_torch.models.rwkv4 import (
+        init_state,
+        params_to,
+        random_quantized_params_np,
+        signedize_params,
+    )
+    from rwkv_tpu_torch.ops.cuda import decode_stack as ds_mod
+
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_profile needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    full = 24 if args.model == "430m" else 40
+    L = args.layers or full
+    E = 1024 if args.model == "430m" else 5120
+    cfg = RWKVConfig(n_layer=L, n_embd=E, vocab_size=1000)
+    params = params_to(signedize_params(random_quantized_params_np(cfg, seed=args.seed)), dev)
+    rng = np.random.default_rng(args.seed)
+    tc_wins = {}
+    for B in args.batch:
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        st = init_state(cfg, (B,), device=dev)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def timed(tc, steps):
+            s = ds_mod.decode_stack(params, tok, st, tc=tc)[1]
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(steps):
+                s = ds_mod.decode_stack(params, tok, s, tc=tc)[1]
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b) / steps
+
+        turns = {"cuda": [], "tc": []}
+        for name in ("cuda", "tc", "tc", "cuda"):
+            turns[name].append(timed(name == "tc", args.steps))
+        phases = {}
+        for name in ("cuda", "tc"):
+            stamps = torch.zeros((args.steps, 4 * L + 2), dtype=torch.int64, device=dev)
+            s = st
+            for i in range(args.steps):
+                s = ds_mod.decode_stack(params, tok, s, tc=name == "tc", stamps=stamps[i])[1]
+            torch.cuda.synchronize()
+            ms = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e6
+            by = defaultdict(float)
+            for k in range(4 * L):
+                by[PHASES[k % 4]] += float(ms[k])
+            by["ln_out"] = float(ms[4 * L])
+            phases[name] = dict(by)
+        ds_mod.decode_stack_plain(params, tok, st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds_mod.decode_stack_plain(params, tok, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        best = {k: min(v) for k, v in turns.items()}
+        tc_wins[B] = best["tc"] < best["cuda"]
+        scale = full / L
+        print(json.dumps({"model": args.model, "layers": L, "B": B, "ms": turns,
+                          "ms_scaled_to_full": {k: v * scale for k, v in best.items()},
+                          "plain_ms": plain_ms, "plain_ms_scaled_to_full": plain_ms * scale,
+                          "phases_ms": phases, "card": card}), flush=True)
+    b_star = next((B for B in sorted(tc_wins) if all(tc_wins[x] for x in tc_wins if x >= B)),
+                  None)
+    print(json.dumps({"model": args.model, "b_star": b_star, "tc_wins": tc_wins}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quant", choices=["q8", "q4"], default="q8")
@@ -222,7 +308,16 @@ def main() -> None:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", action="store_true",
+                    help="K1 alone on the CUDA cores and on the tensor cores, in turns")
+    ap.add_argument("--model", choices=["430m", "14b"], default="430m",
+                    help="with --paths: the widths")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="with --paths: layers (0: the model's own)")
     args = ap.parse_args()
+    if args.paths:
+        _paths(args)
+        return
     if args.a8 and args.quant == "q4":
         ap.error("--a8 runs on q8 weights")
     if args.tp and args.a8:

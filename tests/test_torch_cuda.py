@@ -89,16 +89,20 @@ def small():
     return cfg, p
 
 
-@pytest.mark.parametrize("B", [1, 3, 9])
+# Both sides of B* (ds_mod.TC_MIN_B: the tensor-core kernel from there to
+# 16 rows, the CUDA-core one below) and a ragged last group of 4 rows.
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 9, 16])
 def test_decode_stack_matches_plain(dev, small, B):
     cfg, p = small
     rng = np.random.default_rng(B)
     st_k = st_p = init_state(cfg, (B,), device=dev)
+    tc = ds_mod.tc_path(B, cfg.n_embd, cfg.n_ffn, "q8")
     for _ in range(3):
         tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
-        before = ds_mod.launches
+        before = ds_mod.launches, ds_mod.launches_tc
         out_k = ds_mod.decode_stack(p, tok, st_k)
-        assert ds_mod.launches == before + 1  # one launch a step
+        # one launch a step, on the tensor cores where tc_path says so
+        assert (ds_mod.launches, ds_mod.launches_tc) == (before[0] + 1, before[1] + tc)
         out_p = ds_mod.decode_stack_plain(p, tok, st_p)
         for a, b in zip(out_k[:1] + tuple(out_k[1]) + out_k[2:],
                         out_p[:1] + tuple(out_p[1]) + out_p[2:]):
@@ -1018,6 +1022,59 @@ def test_decode_stack_stamps_and_grid(dev, stack_params):
     assert bool((t > 0).all()) and bool((t[1:] >= t[:-1]).all())
     with pytest.raises(ValueError, match="stamps"):
         ds_mod.decode_stack(params["q8"], tok, st, stamps=stamps[:3])
+
+
+@pytest.mark.parametrize("tc", [False, True], ids=["cuda_cores", "tensor_cores"])
+@pytest.mark.parametrize("B", [1, 5, 16])
+def test_decode_stack_q8_paths_same_bits_and_graph_replay(dev, stack_params, B, tc):
+    """Each q8 path, whatever tc_path picks at this B: two launches give the
+    same bits, a CUDA graph's replays give the launch's bits, and the tensor-
+    core path matches the plain version as the CUDA-core one does."""
+    cfg, params = stack_params
+    p = params["q8"]
+    rng = np.random.default_rng(40 + B)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+    st = init_state(cfg, (B,), device=dev)
+    for _ in range(2):  # a state that is not all zeros
+        st = ds_mod.decode_stack(p, tok, st, tc=tc)[1]
+    before = ds_mod.launches_tc
+    eager = ds_mod.decode_stack(p, tok, st, tc=tc)
+    assert ds_mod.launches_tc == before + tc
+    for a, b in zip(_flat(eager), _flat(ds_mod.decode_stack(p, tok, st, tc=tc))):
+        assert torch.equal(a, b)
+    for a, b in zip(_flat(eager), _flat(ds_mod.decode_stack_plain(p, tok, st))):
+        assert _scaled(a, b) <= 1e-4
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ds_mod.decode_stack(p, tok, st, tc=tc)
+    for _ in range(3):  # replays reuse the barrier's and the split-K counters' words
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(_flat(captured), _flat(eager)):
+            assert torch.equal(a, b)
+
+
+def test_decode_stack_tc_14b_widths(dev):
+    """q8 at RWKV-4 14B widths (E = 5120, F = 20480), L = 2, B = 16: the
+    tensor-core kernel's splits of 640 rows and more over groups of tiles,
+    as the 14B cell runs it, against the plain version."""
+    cfg = RWKVConfig(n_layer=2, n_embd=5120, vocab_size=1000)
+    p = params_to(signedize_params(random_quantized_params_np(cfg, seed=25, pad_multiple=128)),
+                  dev)
+    B = 16
+    assert ds_mod.tc_path(B, cfg.n_embd, cfg.n_ffn, "q8")
+    rng = np.random.default_rng(25)
+    st_k = st_p = init_state(cfg, (B,), device=dev)
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,))).to(dev)
+        before = ds_mod.launches_tc
+        out_k = ds_mod.decode_stack(p, tok, st_k)
+        assert ds_mod.launches_tc == before + 1
+        out_p = ds_mod.decode_stack_plain(p, tok, st_p)
+        for a, b in zip(_flat(out_k), _flat(out_p)):
+            assert _scaled(a, b) <= 1e-4
+        st_k, st_p = out_k[1], out_p[1]
 
 
 def test_decode_stack_refused_launch_raises(dev, stack_params):

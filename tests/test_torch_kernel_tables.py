@@ -57,3 +57,20 @@ def test_pointer_table_matches_enum(source, enum, prefix, names):
     for i, (got, exp) in enumerate(zip(entries, want)):
         assert got == exp, f"{source} {enum}[{i}] is {got}, the wrapper's {names[i]!r} wants {exp}"
     assert len(entries) == len(want), (len(entries), len(want))
+
+
+def test_tc_tensor_maps_follow_the_families():
+    """rwkv_decode_stack_tc_maps (decode_stack.cu) encodes one tensor map a
+    weight family from the wrapper's pointers in _FAMILIES order, with its
+    own table of each family's [K, O]: that table must be the wrapper's
+    shapes, family by family."""
+    text = (CSRC / "decode_stack.cu").read_text()
+    m = re.search(r"const int K\[kTcMaps\] = \{([^}]*)\}, O\[kTcMaps\] = \{([^}]*)\};", text)
+    assert m, "the families' [K, O] table not found in decode_stack.cu"
+    E, F = 64, 256
+    width = {"E": E, "F": F}
+    ks = [width[s.strip()] for s in m.group(1).split(",")]
+    os_ = [width[s.strip()] for s in m.group(2).split(",")]
+    shapes = decode_stack._param_shapes(3, E, F, 1024, q4=False)
+    want = [shapes[fam + ".w"][1:] for fam in decode_stack._FAMILIES]
+    assert list(zip(ks, os_)) == want
