@@ -1,8 +1,8 @@
 """How `correct` is decided: the served path's own outputs, judged against
 the plain reference (benchmark/reference/) once the window has closed.
 
-Lanes judged: every request the pool holds at the close (16 slots, each
-with its prompt and the tokens served so far), and a sample, drawn from the
+Lanes judged: every request the pool holds at the close (each with its
+prompt and the tokens served so far), and a sample, drawn from the
 seed, of the requests finished with every token kept (the traffic's checked
 ones, tau 1.0): taken in a seeded order until they hold JUDGED_TOKENS served
 tokens or none is left, with the one that was served the most tokens in it. The
@@ -15,13 +15,8 @@ Numbers compared, each with its limit from checks/<workload>.json:
                       differ from the reference tokenizer's (exact: limit 0)
   state_err           the state each slot holds at the close against the
                       reference's after the same tokens: the largest, over
-                      slots, layers and the three quantities, of
-                      |program - reference| / |reference| over the channels.
-                      The quantities are the two token-shift vectors (xy,
-                      dd) and the WKV state's weight on a neutral next token,
-                      z = A / (B + e^u) (A = aa e^pp, B = bb e^pp), which is
-                      what the state contributes to the next output; aa, bb
-                      and pp alone are not unique.
+                      slots, of the family's state_err (families/<family>.py
+                      says what it compares), a share of the reference
   gap                 the widest gap, in logits, by which a served token of
                       a checked lane lies below the reference's best. A
                       checked request samples with every token kept, so its
@@ -33,10 +28,10 @@ Numbers compared, each with its limit from checks/<workload>.json:
                       where the reference picks the served token, and
                       greedy decoding's gap at temp 0.
 
-The control (precision="tf32") puts the reference, with every product's
-operands rounded to TF32, in the program's place: its state is compared
-with the float32 reference's, and at each position the token its own
-logits put first (with the same noise) is judged by the same gap.
+The control puts the reference in the family's CONTROL precision (the step
+below the configuration's) in the program's place: its state is compared
+with the plain reference's, and at each position the token its own logits
+put first (with the same noise) is judged by the same gap.
 """
 
 from __future__ import annotations
@@ -46,8 +41,6 @@ import math
 
 import numpy as np
 import torch
-
-from benchmark.reference.model import Reference
 
 NUMBERS = ("tokenizer_mismatch", "state_err", "gap")
 JUDGED_TOKENS = 1000  # served tokens of finished requests that a run judges
@@ -90,53 +83,33 @@ def scores(logits: torch.Tensor, G: torch.Tensor, temp: float) -> torch.Tensor:
     return s
 
 
-def z_of(state: dict, bonus: torch.Tensor) -> torch.Tensor:
-    """A / (B + e^u) per channel, [L, E] float64."""
-    pp, u = state["pp"], bonus.double()
-    m = torch.maximum(pp, u)
-    e = torch.exp(pp - m)
-    return state["aa"] * e / (state["bb"] * e + torch.exp(u - m))
-
-
 def worse(a: float, b: float) -> float:
     """max(a, b), where NaN counts as infinitely wrong."""
     return math.inf if math.isnan(b) else max(a, b)
 
 
-def state_err(prog: dict, ref: dict, bonus: torch.Tensor) -> float:
-    prog, ref = ({k: v.double().cpu() for k, v in d.items()} for d in (prog, ref))
-    bonus = bonus.double().cpu()
-    worst = 0.0
-    pairs = [(prog[k], ref[k]) for k in ("xy", "dd")] + [(z_of(prog, bonus), z_of(ref, bonus))]
-    for p, r in pairs:
-        err = (p - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
-        worst = worse(worst, float(err.max()))
-    return worst
-
-
-def judge(lanes: list[Lane], weights: dict, cfg: dict, ref_tok, device,
+def judge(lanes: list[Lane], family, weights: dict, cfg: dict, ref_tok, device,
           control: bool = False) -> dict:
-    """The numbers of NUMBERS for these lanes; with control=True also the
-    control's, under the same names prefixed "control.". Each lane is
-    [prompt ids, served tokens]."""
+    """The numbers of NUMBERS for these lanes, by the reference of `family`
+    (spec.family); with control=True also the control's, under the same
+    names prefixed "control.". Each lane is [prompt ids, served tokens]."""
     prompts = [ref_tok.encode(l.rec.spec.text) for l in lanes]
     out = {"tokenizer_mismatch": sum(p != list(l.rec.program.prompt_ids)
                                      for p, l in zip(prompts, lanes))}
     seqs = [p + l.rec.tokens[:-1] for p, l in zip(prompts, lanes)]
     starts = [len(p) - 1 for p in prompts]
-    ref = Reference(weights, cfg).run(seqs, starts)
-    ctl = Reference(weights, cfg, "tf32").run(seqs, starts) if control else None
-    bonus = weights["att_bonus"]
-    vp = weights["emb"].shape[0]
+    ref = family.reference(weights, cfg).run(seqs, starts)
+    ctl = family.reference(weights, cfg, family.CONTROL).run(seqs, starts) if control else None
+    vp = family.vocab_rows(weights)
     res = {"state_err": 0.0, "gap": 0.0, "control.state_err": 0.0, "control.gap": 0.0}
     judged = 0
     for i, lane in enumerate(lanes):
         logits, st = ref[i]
         if lane.state is not None:
-            res["state_err"] = worse(res["state_err"], state_err(lane.state, st, bonus))
+            res["state_err"] = worse(res["state_err"], family.state_err(lane.state, st, weights))
             if ctl:
                 res["control.state_err"] = worse(res["control.state_err"],
-                                                 state_err(ctl[i][1], st, bonus))
+                                                 family.state_err(ctl[i][1], st, weights))
         if not lane.rec.spec.checked:
             continue
         if min(lane.rec.tokens) < 0 or max(lane.rec.tokens) >= vp:

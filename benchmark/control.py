@@ -1,7 +1,8 @@
 """The control of the correctness comparison, run on the card at a cell's
 own size and load: for each seed, one run of the cell (a window of
 --seconds), then the judged lanes compared twice, by the program's outputs
-and by the reference in TF32 put in the program's place (check.py).
+and by the family's reference in its CONTROL precision put in the
+program's place (check.py).
 
     python3 benchmark/control.py --workload <name> --seconds <s> --seeds <n> <n> ...
 

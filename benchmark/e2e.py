@@ -6,6 +6,9 @@ all the work and all the time of the window, never as a median of chunks.
     stream_gap_p95_ms     the 95th percentile, over every request, of the gaps
                           between consecutive deliveries to the same request
                           that both fall in the window
+    stream_gap_p50_ms     the median of the same gaps: the pace at which a
+                          streaming reader gets its tokens between the
+                          stalls that the p95 sees
     ttft_p95_ms           the 95th percentile, over every request submitted in
                           the window, of submit() to its first delivery; one
                           still waiting at the close counts its wait so far
@@ -14,7 +17,7 @@ all the work and all the time of the window, never as a median of chunks.
 
 A delivery is the return of the step() call that handed a request tokens.
 A name in BENCHMARK.json may add a qualifier after a dot
-(output_tokens_per_s.host_bound): the same quantity under a bound of its
+(output_tokens_per_s.<qualifier>): the same quantity under a bound of its
 own, for a class of cells whose runs spread differently.
 """
 
@@ -55,6 +58,10 @@ def stream_gap_p95_ms(win) -> float:
     return 1e3 * percentile(stream_gaps(win), 95)
 
 
+def stream_gap_p50_ms(win) -> float:
+    return 1e3 * percentile(stream_gaps(win), 50)
+
+
 def ttfts(win) -> list[float]:
     out = []
     for rec in win.recs:
@@ -77,6 +84,7 @@ def prompt_tokens_per_s(win) -> float:
 METRICS = {
     "output_tokens_per_s": output_tokens_per_s,
     "stream_gap_p95_ms": stream_gap_p95_ms,
+    "stream_gap_p50_ms": stream_gap_p50_ms,
     "ttft_p95_ms": ttft_p95_ms,
     "prompt_tokens_per_s": prompt_tokens_per_s,
 }

@@ -11,12 +11,13 @@ numbers end standard error. Without CUDA, or with fewer cards than the cell
 asks for, it prints no result and exits 2.
 
 Set-up (reported as setup_s, from the process's start to the window's
-opening): the kernels are built into the checkout's rwkv_tpu_torch/_build/
-on the first run; the weights are made on the card from the seed; the
-engine and pool are built; admission's shapes are warmed; the closed loop
-starts and runs a few steps, which capture the pool's CUDA graph. The
-window then runs for --seconds; the comparison with the reference follows
-it, after the program's memory is freed.
+opening): the configuration's family (spec.family) names the kernels, which
+are built into the checkout's rwkv_tpu_torch/_build/ on the first run, and
+makes the weights on the card from the seed; the engine and pool are built;
+admission's shapes are warmed; the traffic starts and runs a few steps,
+which capture the pool's CUDA graph. The window then runs for --seconds;
+the comparison with the family's reference follows it, after the program's
+memory is freed.
 """
 
 from __future__ import annotations
@@ -119,24 +120,22 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     import torch
 
     from benchmark import check, e2e, serve, spec
-    from benchmark import weights as wmod
-    from benchmark.reference.tokenizer import Tokenizer
     from benchmark.trace import Tracer, breakdown, reduce
     from benchmark.traffic import Traffic
 
-    cfg, mix = cell.config, cell.traffic
+    cfg, mix, family = cell.config, cell.traffic, cell.family
     on_card = device == "cuda"
     if on_card:
         from rwkv_tpu_torch.ops.cuda import _build
 
-        _build.build(("mm8", "decode_stack"))
+        _build.build(family.KERNELS)
     from rwkv_tpu_torch.utils.metrics import metrics
 
-    ref_tok = Tokenizer()
+    ref_tok = family.tokenizer(cfg)
     traffic = Traffic(mix, seed, ref_tok)
     t0 = time.perf_counter()
-    weights = wmod.make(cfg, seed, device)
-    server = serve.Server(cfg, weights, device)
+    weights = family.make(cfg, seed, device)
+    server = serve.Server(cfg, family, weights, device)
     if fault is not None:
         fault(server)
     server.sync()
@@ -168,7 +167,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     server.close()
     del server
     t2 = time.perf_counter()
-    numbers = check.judge(lanes, weights, cfg, ref_tok, device, control=control)
+    numbers = check.judge(lanes, family, weights, cfg, ref_tok, device, control=control)
     phases = dict(setup, setup_s=marks["setup_s"], window_s=win.seconds,
                   check_s=time.perf_counter() - t2, **step_times(win))
     correct, checks = check.verdict(numbers, cell.limits)

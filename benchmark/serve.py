@@ -1,13 +1,14 @@
 """The system under test, driven as the program's HTTP server drives it.
 
-The engine is `RWKV(device, max_streams=16, quant="q8")` given the
-benchmark's weights through `load_params` and the tokenizer that the
-configuration names, and the pool is built as `apps/server.py::make_server`
-builds it (the engine's step and prefill, its prefill type, the server's
---pool-chunk). The process keeps torch's default host threads and Python's
-default garbage collection, as the server does. A closed loop of clients drives
-the pool through `submit()` and `step()`, as the server's PoolRunner does:
-each client sends its next request as soon as its last one completes.
+The configuration's family (spec.family) builds the engine and its pool
+around the benchmark's weights, as `apps/server.py::make_server` builds
+them. The process keeps torch's default host threads and Python's default
+garbage collection, as the server does. The traffic's clients drive the pool
+through `submit()` and `step()`, as the server's PoolRunner does: in a
+closed loop each client sends its next request as soon as its last one
+completes; in an open loop every request that is due by its arrival
+(traffic.py) is submitted before each `step()`, and a request's submit time
+is its arrival, so a late submit counts in its wait.
 
 Every span is taken on the host's clock around the program's calls, in
 seconds of time.perf_counter(). The served ids are recorded where the pool
@@ -18,12 +19,12 @@ the recording adds a list append a token.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Optional
 
 import torch
 
-from benchmark import weights as wmod
 from benchmark.traffic import RequestSpec, Traffic
 
 now = time.perf_counter
@@ -36,7 +37,7 @@ class Rec:
     spec: RequestSpec
     rid: int
     program: object          # the pool's Request
-    t_submit: float
+    t_submit: float          # submit() called; in an open loop, the arrival
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     tokens: list = dataclasses.field(default_factory=list)
@@ -70,21 +71,11 @@ class Window:
 
 
 class Server:
-    def __init__(self, cfg: dict, weights: dict, device):
-        from rwkv_tpu_torch.runtime.engine import RWKV
-        from rwkv_tpu_torch.runtime.pool import InferencePool
-
-        e = cfg["engine"]
+    def __init__(self, cfg: dict, family, weights: dict, device):
         self.cfg = cfg
+        self.family = family
         self.device = torch.device(device)
-        self.eng = RWKV(device=self.device, max_streams=e["max_streams"], quant="q8",
-                        prefill_dtype=getattr(torch, e["prefill_dtype"]))
-        self.eng.load_params(wmod.program_params(weights))
-        self.eng.load_tokenizer(native=e["tokenizer"] == "native")
-        self.pool = InferencePool(
-            self.eng.params, self.eng.tokenizer, max_streams=e["max_streams"],
-            step_fn=self.eng._step_fn, prefill_fn=self.eng._prefill_impl,
-            prefill_dtype=self.eng.prefill_dtype, step_chunk=e["step_chunk"])
+        self.eng, self.pool = family.program(cfg, weights, self.device)
         self.served: dict[int, list[int]] = {}
         self.touched: set[int] = set()
         emit = self.pool._emit
@@ -121,17 +112,26 @@ class Server:
     def run(self, traffic: Traffic, seconds: float, warmup_steps: int,
             on_start: Callable[[], None] = lambda: None,
             on_end: Callable[[], None] = lambda: None) -> Window:
-        """The closed loop: every client submits, `warmup_steps` steps run
-        before the window opens, then steps run until the first one that
-        returns `seconds` or more after the window opened."""
+        """Drive the pool: `warmup_steps` steps run before the window opens,
+        then steps run until the first one that returns `seconds` or more
+        after the window opened. A closed loop starts with every client's
+        request submitted. An open loop's schedule starts before the first
+        warm-up step; while nothing is queued or in flight it sleeps until
+        the next arrival, and its window closes at `seconds` if it is idle
+        then. The requests that arrived during the window's last step are
+        submitted after it closes, so that they count as waiting."""
         pool = self.pool
         recs: dict[int, Rec] = {}
         steps: list[Step] = []
         submits: list = []
         waiting = 0
         index = 0
+        offsets = traffic.arrivals()
+        closed = offsets is None
+        t_schedule = now()
+        due = math.inf if closed else t_schedule + next(offsets)  # the next arrival
 
-        def submit():
+        def submit(t_due=None):
             nonlocal waiting, index
             spec = traffic.request(index)
             index += 1
@@ -140,9 +140,19 @@ class Server:
                               seed=spec.seed)
             t1 = now()
             req = pool._queue[-1]
-            recs[rid] = Rec(spec=spec, rid=rid, program=req, t_submit=t0)
+            recs[rid] = Rec(spec=spec, rid=rid, program=req,
+                            t_submit=t0 if t_due is None else t_due)
             submits.append((t0, t1, len(req.prompt_ids)))
             waiting += 1
+
+        def arrive() -> bool:
+            """Submit every request due by now, in order; False where the
+            pool holds nothing, and the loop should wait for `due`."""
+            nonlocal due
+            while due <= now():
+                submit(due)
+                due = t_schedule + next(offsets)
+            return pool.pending > 0
 
         def step():
             nonlocal waiting
@@ -163,21 +173,35 @@ class Server:
             self.touched.clear()
             for req in finished:
                 recs[req.rid].t_done = t1
-                submit()
+                if closed:
+                    submit()
             return t1
 
-        for _ in range(traffic.mix["clients"]):
-            submit()
-        for _ in range(warmup_steps):
-            step()
+        def turn(deadline: float) -> float:
+            """One step() with every request due submitted before it, or,
+            with nothing to step, a sleep until the next arrival or the
+            deadline, whichever is first. Returns the time it ended."""
+            if closed or arrive():
+                return step()
+            time.sleep(max(0.0, min(due, deadline) - now()))
+            return now()
+
+        if closed:
+            for _ in range(traffic.mix["clients"]):
+                submit()
+        while len(steps) < warmup_steps:
+            turn(math.inf)
         on_start()
         offset = time.time_ns() - time.perf_counter_ns()
         t_start = now()
         t_end = t_start
         while t_end - t_start < seconds:
-            t_end = step()
+            t_end = turn(t_start + seconds)
         self.sync()
         on_end()
+        while due < t_end:  # arrived in the window's last step: waiting at its close
+            submit(due)
+            due = t_schedule + next(offsets)
         return Window(t_start, t_end, list(recs.values()), steps, submits, offset)
 
     def in_flight(self) -> dict[int, int]:
@@ -185,10 +209,8 @@ class Server:
         return {req.rid: slot for slot, req in self.pool._by_slot.items()}
 
     def slot_state(self, slot: int) -> dict:
-        """One slot's state, leaves [L, E] float64 on the host."""
-        st = self.pool._state
-        return {leaf: getattr(st, leaf)[:, slot].double().cpu()
-                for leaf in ("xy", "aa", "bb", "pp", "dd")}
+        """One slot's state, as the family gives it (float64 leaves on the host)."""
+        return self.family.slot_state(self.pool, slot)
 
     def close(self) -> None:
         """Free the program's device memory (its graphs, state and pool)."""

@@ -38,11 +38,17 @@ def window(stalls=(), stall=0.0):
     return Window(t_start=0.5, t_end=5.5, recs=recs, steps=steps, submits=[], ns_offset=0)
 
 
+# a stall every 0.25 s: more than a twentieth of the gaps hold one; the median
+# gap moves only once more than half of them do (a stall every 0.08 s)
+STALL_PERIOD = {"stream_gap_p50_ms": 0.08}
+
+
 @pytest.mark.parametrize("name", sorted(e2e.METRICS))
 def test_a_stall_moves_each_metric(name):
     f = e2e.METRICS[name]
-    # a stall every 0.25 s: more than a twentieth of the gaps hold one
-    base, stalled = f(window()), f(window(stalls=[1 + 0.25 * i for i in range(17)], stall=0.1))
+    period = STALL_PERIOD.get(name, 0.25)
+    stalls = [1 + period * i for i in range(round(4.25 / period))]
+    base, stalled = f(window()), f(window(stalls=stalls, stall=0.1))
     better_lower = name.endswith("_ms")
     assert (stalled > base) if better_lower else (stalled < base), (name, base, stalled)
 
@@ -53,6 +59,13 @@ def test_rates_count_all_work_of_the_window():
     assert e2e.output_tokens_per_s(w) == pytest.approx(n / 5.0)
     first = [r for r in w.recs if 0.5 < r.t_first <= 5.5]
     assert e2e.prompt_tokens_per_s(w) == pytest.approx(50 * len(first) / 5.0)
+
+
+def test_the_median_gap_is_the_pace_between_stalls():
+    assert e2e.stream_gap_p50_ms(window()) == pytest.approx(50.0)
+    sparse = window(stalls=[1 + 0.25 * i for i in range(17)], stall=0.1)
+    assert e2e.stream_gap_p50_ms(sparse) == pytest.approx(50.0)
+    assert e2e.stream_gap_p95_ms(sparse) > 100.0
 
 
 def test_a_request_still_waiting_counts_its_wait():
@@ -71,3 +84,11 @@ def test_percentile_matches_linear_interpolation():
 def test_a_qualified_name_reads_its_quantity():
     assert e2e.quantity("output_tokens_per_s.host_bound") == "output_tokens_per_s"
     assert e2e.quantity("ttft_p95_ms") == "ttft_p95_ms"
+
+
+@pytest.mark.parametrize("name", ["output_tokens_per_s", "stream_gap_p95_ms"])
+def test_a_traced_reader_reads_its_end_to_end_quantity(name):
+    from benchmark import spec
+
+    ctx = dataclasses.make_dataclass("Ctx", ["window"])(window())
+    assert spec.layer_reader(f"{name}.traced")(ctx) == pytest.approx(e2e.METRICS[name](ctx.window))

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, control, run, spec
+from benchmark import control, run, spec
 from benchmark import weights as wmod
+from benchmark.families import rwkv4
 from benchmark.reference.model import Reference
 from benchmark.reference.tokenizer import Tokenizer
 from benchmark.tests.cells import TINY, tiny
@@ -138,8 +139,8 @@ def test_reference_matches_the_programs_plain_forward():
         assert (lg - logits).abs().max() < 1e-4
         for leaf in ("xy", "dd"):
             assert (getattr(st, leaf).double() - state[leaf]).abs().max() < 1e-5
-        z = check.z_of({k: getattr(st, k).double() for k in ("aa", "bb", "pp")}, w["att_bonus"])
-        assert (z - check.z_of(state, w["att_bonus"])).abs().max() < 1e-5
+        z = rwkv4.z_of({k: getattr(st, k).double() for k in ("aa", "bb", "pp")}, w["att_bonus"])
+        assert (z - rwkv4.z_of(state, w["att_bonus"])).abs().max() < 1e-5
 
 
 def test_reference_tokenizer_matches_the_programs_python_one():

@@ -42,7 +42,7 @@ def test_new_mix_and_cell_need_no_code(tmp_path):
     """A traffic file, a limits file and a workloads entry are all a new cell
     needs: the harness finds them by name and runs them."""
     here = tmp_path / "benchmark"
-    for sub in ("configs", "traffic", "checks", "layer_metrics"):
+    for sub in ("configs", "families", "traffic", "checks", "layer_metrics"):
         shutil.copytree(spec.HERE / sub, here / sub)
     bench = spec.load_benchmark()
     mix = json.loads((spec.HERE / "traffic" / "chat.json").read_text())

@@ -1,5 +1,6 @@
 """The one traffic generator: it reads a mix's parameters (benchmark/traffic/
-<name>.json) and yields the requests of a run from the seed.
+<name>.json) and yields the requests of a run from the seed, and when they
+arrive.
 
 A mix gives `clients` (the closed loop's size), the lognormal `median`,
 `sigma`, `min` and `max` of `prompt_tokens` and `output_tokens`, and the
@@ -13,12 +14,23 @@ is a shuffle fixed by ORDER_SEED and the cycle's number, the same for every
 run: in a closed loop the order decides which prompts share an admission,
 and so how much padding it computes. The run's seed draws each
 prompt's words and each request's sampling seed. A prompt is a run of word
-tokens, drawn uniformly from the vocab's 27,300 entries that are a space
-and one or more letters (any script; unicodedata's L categories), decoded
-by the benchmark's own tokenizer: each such word encodes back to its one
-id, so a prompt drawn with n tokens is n tokens long to any correct
-tokenizer. So every seed asks for the same work with other text, and a
-seed gives the same requests every time.
+tokens, drawn uniformly from the vocab's entries that are a space and one
+or more letters (any script; unicodedata's L categories), decoded by the
+benchmark's own tokenizer: each such word encodes back to its one id, so a
+prompt drawn with n tokens is n tokens long to any correct tokenizer. So
+every seed asks for the same work with other text, and a seed gives the
+same requests every time.
+
+Arrivals. A mix without `arrivals` is a closed loop of `clients`: each
+sends its next request as soon as its last one completes. A mix with
+`"arrivals": {"rate_per_s": r, "cv": c}` is an open loop: request i
+arrives at the i-th offset of a schedule, whatever the system has
+finished; the gaps between arrivals are gamma with mean 1 / r and shape
+1 / c^2, so a coefficient of variation c. `cv` defaults to 1, which is
+Poisson (exponential gaps); c > 1 gives bursts (BurstGPT's fit). The
+first request arrives at
+offset 0; the gaps come from the run's seed, on a stream of their own
+(ARRIVAL_SEED), so they do not move the requests' text.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from statistics import NormalDist
+from typing import Iterator
 
 import numpy as np
 
@@ -35,6 +48,8 @@ CYCLE = 16
 CHECKED = 4        # requests of a cycle sampled with every token kept
 CHECKED_TAU = 1.0  # check.py replays such a request's tokens exactly
 ORDER_SEED = 19
+ARRIVAL_SEED = 4099
+ARRIVAL_BLOCK = 1024  # gaps drawn a call
 
 
 @dataclasses.dataclass
@@ -69,6 +84,22 @@ def lengths(dist: dict, n: int) -> list[int]:
     return out
 
 
+def arrival_offsets(arrivals: dict, seed: int) -> Iterator[float]:
+    """Seconds from the schedule's start at which requests 0, 1, 2, ...
+    arrive (module docstring), without end."""
+    rate, cv = float(arrivals["rate_per_s"]), float(arrivals.get("cv", 1.0))
+    if not (rate > 0 and cv > 0):
+        raise ValueError(f"arrivals {arrivals}: rate_per_s and cv must be > 0")
+    shape = 1.0 / (cv * cv)
+    rng = np.random.default_rng(np.random.SeedSequence([seed % (1 << 64), ARRIVAL_SEED]))
+    t = 0.0
+    yield t
+    while True:
+        for gap in rng.gamma(shape, 1.0 / (rate * shape), size=ARRIVAL_BLOCK).tolist():
+            t += gap
+            yield t
+
+
 class Traffic:
     def __init__(self, mix: dict, seed: int, tokenizer):
         self.mix = mix
@@ -97,6 +128,13 @@ class Traffic:
                 tau=CHECKED_TAU if checked[j] else float(self.mix["tau"]),
                 seed=int(rng.integers(0, 1 << 63)), checked=bool(checked[j])))
         return specs
+
+    def arrivals(self) -> Iterator[float] | None:
+        """The open loop's arrival offsets (arrival_offsets), or None for a
+        closed loop."""
+        if "arrivals" not in self.mix:
+            return None
+        return arrival_offsets(self.mix["arrivals"], self.seed)
 
     def request(self, index: int) -> RequestSpec:
         c = index // self.n
